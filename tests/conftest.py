@@ -23,6 +23,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (skipped unless --runslow)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):
