@@ -6,14 +6,19 @@
 Run from the root of a checkout.  Phases, in order; any failure exits
 non-zero:
 
-1. Card and build: the card's name and power limit, then the four kernels
-   built by nvcc for sm_90a from ``src/repro_torch/csrc``.
+1. Card and build: the card's name and power limit, then the eight kernels
+   built by nvcc for sm_90a from ``src/repro_torch/csrc`` (three sources,
+   one nvcc each, all started together).
 2. Per-kernel parity at full width (d = m = 64), at n = 2^16 and at the main
    phase's n = 2^22, each kernel against its plain PyTorch version on the
    same inputs: featurize keys, slot and sign bitwise, weight and coeff to
    atol 2e-6; matvec and scatter to 1e-5 of the output's max (shared-memory
    atomics sum in another order), at k = 1 and, where the plain version
-   fits, k = 4; gather bitwise.
+   fits, k = 4; gather bitwise.  Then the distributed step's kernels on a
+   layout at the split geometry (block_n = 64) and one rank's routing: the
+   blocked scatter again, the point scatter B5 to 1e-5 of max|out| (global
+   atomics), the layout gather B6 and the route pack/unpack B7/B8 bitwise,
+   at k = 1 and 4 for n = 2^16 and k = 1 at n = 2^22.
 3. Main phase: ``wlsh_krr_fit`` then ``wlsh_krr_predict`` at the repo's
    ``wlsh_krr`` config (n = 2^22, d = 64, m = 64, B = 2^23, rect,
    Gamma(2, 1), lam = 1, no preconditioner, 32 PCG iterations as the
@@ -23,9 +28,23 @@ non-zero:
    path on the first 4096 queries.
 4. Small phase (n = 2^12, k = 4 right-hand sides, jacobi and nystrom at
    rank 128): the fit on the card against the same port on the CPU.
-5. Times at the main phase's shapes: each kernel (CUDA events), its plain
-   version, its bound from bytes and operations, and one PyTorch library
-   call computing the same function where there is one.
+6. Distributed step at the same config on a one-rank NCCL group, through
+   ``repro_torch.core.distributed``: (a) the psum step with the split
+   matvec off the layout (fused=False) and ``make_krr_predict`` on the
+   2^20 queries, (b) the psum step with the point kernels
+   (blocked_split=False), (c) ``run_krr_step_resilient`` on the bf16 wire
+   and ``make_krr_predict_hashjoin`` with and without dedup.  Counts are
+   reset before and read after each; a kernel of that path not launched
+   fails the run.  Then, outside the counts: (a)'s beta against the f32-wire
+   hash join's and the fused step's (1e-4 of max|beta|), the bf16 wire's
+   against the f32 wire's (1e-2 relative L2, the JAX package's band),
+   (a)'s predictions against phase 3's (1e-4 of max|pred|), and the two
+   hash-join predictions bitwise.  Wall time, peak memory, phase split and
+   StepStats of each step are printed.
+5. Times, run last: B1-B4 at the main phase's shapes and B5-B8 at phase 6's,
+   each kernel (CUDA events), its plain version, its bound from bytes and
+   operations, and one PyTorch library call computing the same function
+   where there is one.
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -60,7 +79,18 @@ KERNELS = {
                             "src/repro/kernels/binning/kernel.py:282"),
     "bin_gather": ("src/repro_torch/csrc/binning.cu",
                    "src/repro/kernels/binning/kernel.py:521"),
+    "bin_scatter": ("src/repro_torch/csrc/binning.cu",
+                    "src/repro/kernels/binning/kernel.py:92"),
+    "bin_gather_blocked": ("src/repro_torch/csrc/binning.cu",
+                           "src/repro/kernels/binning/kernel.py:331"),
+    "route_pack": ("src/repro_torch/csrc/route.cu",
+                   "src/repro/kernels/binning/kernel.py:437"),
+    "route_unpack": ("src/repro_torch/csrc/route.cu",
+                     "src/repro/kernels/binning/kernel.py:480"),
 }
+# the kernels of the distributed step, with the phase-6 path that runs them
+DIST_PATHS = {"bin_scatter": "b", "bin_gather_blocked": "a",
+              "route_pack": "c", "route_unpack": "c"}
 
 
 def fail(msg: str):
@@ -196,6 +226,62 @@ def check_gather(torch, slot, tables):
         fail(f"gather {tuple(tables.shape)}: not bitwise equal")
 
 
+def split_setup(torch, slot, coeff, table_size):
+    """The distributed step's arrays at one rank: a layout at the split
+    geometry (both groups, then the sorted-segment group dropped once the
+    routing has used it) and the hash join's wire cells."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.wlsh import BLOCKED_SPLIT_N, build_blocked_layout
+    lay = build_blocked_layout(slot, coeff, table_size,
+                               block_n=BLOCKED_SPLIT_N, parts="both")
+    pt_cell, _, _, cap, _, _ = D._routing_maps(slot, lay, 1, table_size, 2.0)
+    cell_lay = D._make_route_plan(pt_cell, lay, cap)
+    lay = lay._replace(perm=None, seg_id=None, seg_pt=None,
+                       coeff_sorted=None)
+    return lay, cell_lay, cap
+
+
+def check_dist_kernels(torch, slot, coeff, lay, cell_lay, nb, beta,
+                       table_size):
+    """B5 (to 1e-5 of max|out|), B6, B7 and B8 (bitwise) against their
+    plain versions on the same inputs; beta (n,) or (n, k).  Returns B5's
+    max error."""
+    from repro_torch.kernels.binning import (bin_gather_blocked_cuda,
+                                             bin_scatter_cuda,
+                                             gather_blocked_ref,
+                                             route_pack_cuda, route_pack_ref,
+                                             route_unpack_cuda,
+                                             route_unpack_ref, scatter_ref)
+    from repro_torch.kernels.binning.ops import layout_rows
+    k = 1 if beta.ndim == 1 else beta.shape[1]
+    contrib = (coeff * beta if beta.ndim == 1
+               else coeff[..., None] * beta[None]).contiguous()
+    got = bin_scatter_cuda(slot, contrib, table_size)
+    tables = scatter_ref(slot, contrib, table_size=table_size)
+    e5 = max_err(got, tables)
+    lim = 1e-5 * float(tables.abs().max())
+    del got, contrib
+    if e5 > lim:
+        fail(f"point scatter k={k}: err {e5} > {lim}")
+    if not torch.equal(bin_gather_blocked_cuda(lay.slot_lay, tables),
+                       gather_blocked_ref(lay.slot_lay, tables)):
+        fail(f"layout gather k={k}: not bitwise equal")
+    del tables
+    beta_lay = layout_rows(lay, beta)
+    coeff_lay = lay.coeff_lay if k == 1 and beta.ndim == 1 else \
+        lay.coeff_lay[..., None]
+    contrib_lay = coeff_lay * beta_lay
+    del beta_lay
+    send = route_pack_ref(cell_lay, contrib_lay, num_cells=nb)
+    if not torch.equal(route_pack_cuda(cell_lay, contrib_lay, nb), send):
+        fail(f"route pack k={k}: not bitwise equal")
+    del contrib_lay
+    if not torch.equal(route_unpack_cuda(cell_lay, lay.coeff_lay, send),
+                       route_unpack_ref(cell_lay, lay.coeff_lay, send)):
+        fail(f"route unpack k={k}: not bitwise equal")
+    return e5
+
+
 def phase_parity(torch, x, xq, seed):
     import repro_torch.core as T
     from repro_torch.core.wlsh import build_blocked_layout
@@ -242,7 +328,21 @@ def phase_parity(torch, x, xq, seed):
         else:
             say(f"  n={n} k=4: not compared (the plain version's int64 "
                 f"index and (m, k, L) temporaries need about 55 GB)")
-        del lay, slot, coeff
+        del lay
+        lay, cell_lay, nb = split_setup(torch, slot, coeff, table_size)
+        for k in ((1, 4) if n != MAIN["n"] else (1,)):
+            b = beta if k == 1 else torch.randn(n, k, device=x.device)
+            e_mv, e_sc, _ = check_binning(torch, lay, b, k)
+            e5 = check_dist_kernels(torch, slot, coeff, lay, cell_lay, nb, b,
+                                    table_size)
+            say(f"  n={n} k={k} split geometry (block_n={lay.block_n}, "
+                f"{nb} wire cells): fused matvec err {e_mv:.3g}, blocked "
+                f"scatter err {e_sc:.3g}, point scatter err {e5:.3g}; "
+                f"layout gather, route pack, route unpack bitwise")
+            if n == MAIN["n"]:
+                errs.update(bin_scatter=e5, bin_gather_blocked=0.0,
+                            route_pack=0.0, route_unpack=0.0)
+        del lay, cell_lay, slot, coeff
         torch.cuda.empty_cache()
     return errs
 
@@ -280,7 +380,8 @@ def phase_main(torch, data, seed):
         f"{hist[-1]:.4g} (relative {hist[-1] / bnorm:.3g})")
     say(f"  peak device memory {peak / 2**30:.2f} GiB")
     say(f"  launches {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k, v in counts.items()
+               if v <= 0 and k not in DIST_PATHS]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
     if tel["iters"] != MAIN["maxiter"] or not hist[-1] < hist[0]:
@@ -297,7 +398,7 @@ def phase_main(torch, data, seed):
         f"{nq} queries max err {err:.3g}")
     if err > 1e-5:
         fail(f"main predictions differ from the plain path by {err}")
-    return model, counts, phases
+    return model, counts, phases, pred
 
 
 def phase_small(torch, dev, seed):
@@ -329,7 +430,227 @@ def phase_small(torch, dev, seed):
             fail(f"small phase {precond}: card and CPU differ by {err}")
 
 
-def phase_times(torch, data, model, counts, errs):
+def phase_distributed(torch, data, seed, main_pred):
+    """Phase 6: the distributed step on a one-rank NCCL group."""
+    import torch.distributed as dist
+    import repro_torch.core as T
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    say("== phase 6: distributed step at the wlsh_krr config, one NCCL rank")
+    x, y, xq = data
+    dev = init_distributed(x.device)
+    mesh = make_host_mesh(device=dev)
+    say(f"  process group: {dist.get_backend()}, world {dist.get_world_size()}"
+        f", grid {mesh.data} data x {mesh.model} model")
+    lsh = T.sample_lsh_params(np.random.default_rng(seed), MAIN["m"],
+                              MAIN["d"], T.GammaPDF(2.0, 1.0), device=dev)
+    base = dict(m=MAIN["m"], table_size=MAIN["table_size"], lam=MAIN["lam"],
+                cg_iters=MAIN["maxiter"])
+    counts, report = {}, {}
+
+    def run(path, label, fn, need=()):
+        """One step, synchronised; counts reset before and read after when
+        ``need`` names the kernels this path must launch."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = sync_clock(torch)
+        out = fn()
+        wall = sync_clock(torch) - t0
+        c = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ran = {k: v for k, v in c.items() if v}
+        say(f"  ({path}) {label}: wall {wall:.4f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB, launches {ran}")
+        missing = [k for k in need if c[k] <= 0]
+        if missing:
+            fail(f"phase 6 ({path}): kernels not launched: {missing}")
+        if need:
+            counts[path] = c
+        report[path] = dict(wall_s=wall, peak_gib=peak / 2**30)
+        return out
+
+    def split(step):
+        ms = step.phase_ms()
+        return ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+
+    # (a) psum, split matvec off the layout: B1, B3, B6
+    cfg_a = D.KRRStepConfig(**base, fused=False, blocked_split=True)
+    step_a = D.make_krr_step(mesh, cfg_a, T.RECT)
+    predict_a = D.make_krr_predict(mesh, cfg_a, T.RECT)
+
+    def path_a():
+        beta, res, tables = step_a(x, y, lsh)
+        phases = split(step_a)
+        return beta, res, predict_a(xq, lsh, tables), phases
+
+    beta_a, res_a, pred_a, ph = run(
+        "a", "psum step fused=False blocked_split=True + predict 2^20",
+        path_a, ("featurize", "bin_scatter_blocked", "bin_gather_blocked"))
+    say(f"      step split ms: {ph}; resnorm {float(res_a):.4g}")
+
+    # (b) psum with the point kernels: B5, B4
+    step_b = D.make_krr_step(mesh, D.KRRStepConfig(
+        **base, fused=False, blocked_split=False), T.RECT)
+    beta_b, res_b, _ = run("b", "psum step blocked_split=False",
+                           lambda: step_b(x, y, lsh),
+                           ("featurize", "bin_scatter", "bin_gather"))
+    say(f"      step split ms: {split(step_b)}; resnorm {float(res_b):.4g}")
+
+    # (c) hash join on the bf16 wire with the recovery ladder, then its
+    # predictions with and without dedup: B7, B8
+    cfg_c = D.KRRStepConfig(**base)
+    pred_hj = {}
+
+    def path_c():
+        beta, res, table, stats = D.run_krr_step_resilient(
+            mesh, cfg_c, T.RECT, x, y, lsh, payload_dtype=torch.bfloat16)
+        for dedup in (True, False):
+            pred_hj[dedup] = D.make_krr_predict_hashjoin(
+                mesh, cfg_c, T.RECT, payload_dtype=torch.bfloat16,
+                dedup=dedup)(xq, lsh, table)
+        return beta, res, stats
+
+    beta_c, res_c, stats_c = run(
+        "c", "hash-join resilient step (bf16 wire) + predict dedup on/off",
+        path_c, ("featurize", "route_pack", "route_unpack"))
+    say(f"      resnorm {float(res_c):.4g}; StepStats overflow_dropped "
+        f"{int(stats_c.overflow_dropped)}, wire_nonfinite "
+        f"{int(stats_c.wire_nonfinite)}")
+
+    # comparisons, outside the counted paths
+    step_hj = D.make_krr_step_hashjoin(mesh, cfg_c, T.RECT,
+                                       payload_dtype=torch.float32)
+    beta_hj, _, _, stats_hj = run("hj-f32", "hash-join step (f32 wire)",
+                                  lambda: step_hj(x, y, lsh))
+    say(f"      step split ms: {split(step_hj)}; StepStats "
+        f"{int(stats_hj.overflow_dropped)}, {int(stats_hj.wire_nonfinite)}")
+    step_f = D.make_krr_step(mesh, cfg_c, T.RECT)
+    beta_f, _, _ = run("fused", "psum step fused (one data rank)",
+                       lambda: step_f(x, y, lsh))
+    say(f"      step split ms: {split(step_f)}")
+    scale = float(beta_a.abs().max())
+    checks = {
+        "beta (a) vs f32 hash join": (max_err(beta_a, beta_hj) / scale, 1e-4),
+        "beta (a) vs fused step": (max_err(beta_a, beta_f) / scale, 1e-4),
+        "beta (b) vs (a)": (max_err(beta_b, beta_a) / scale, 1e-4),
+        "beta bf16 vs f32 wire, rel L2": (float(
+            torch.linalg.vector_norm(beta_c - beta_hj)
+            / torch.linalg.vector_norm(beta_hj)), 1e-2),
+        "pred (a) vs phase 3": (max_err(pred_a, main_pred)
+                                / float(main_pred.abs().max()), 1e-4),
+        "pred hash join (bf16) vs (a), rel L2": (float(
+            torch.linalg.vector_norm(pred_hj[True] - pred_a)
+            / torch.linalg.vector_norm(pred_a)), 1e-2),
+    }
+    for name, (err, lim) in checks.items():
+        say(f"  {name}: {err:.3g} (limit {lim:g})")
+        if not err <= lim:
+            fail(f"phase 6: {name} {err} > {lim}")
+    if not torch.equal(pred_hj[True], pred_hj[False]):
+        fail("phase 6: hash-join predictions differ with and without dedup")
+    say("  hash-join predictions with and without dedup: bitwise equal")
+    if not all(bool(torch.isfinite(t).all()) for t in
+               (beta_a, beta_b, beta_c, pred_a, pred_hj[True])):
+        fail("phase 6: non-finite betas or predictions")
+    dist.destroy_process_group()
+    return lsh, beta_a, counts
+
+
+def dist_times(torch, x, lsh, beta, ts):
+    """B5-B8 at phase 6's shapes (n = 2^22, one rank's routing), with
+    their plain versions and library calls."""
+    import repro_torch.core as T
+    from repro_torch.kernels.binning import (bin_gather_blocked_cuda,
+                                             bin_scatter_cuda,
+                                             gather_blocked_ref,
+                                             route_pack_cuda, route_pack_ref,
+                                             route_unpack_cuda,
+                                             route_unpack_ref, scatter_ref)
+    from repro_torch.kernels.binning.ops import layout_rows
+    from repro_torch.kernels.featurize import featurize_cuda
+    m = lsh.m
+    feats = featurize_cuda(x, *lsh, f=T.RECT, table_size=ts)
+    slot, coeff = feats[4], feats[5]
+    del feats
+    rows = {}
+    contrib = (coeff * beta).contiguous()
+    run = lambda: bin_scatter_cuda(slot, contrib, ts)
+    tables = run()
+    ms = time_ms(torch, run)
+    plain = time_ms(torch, lambda: scatter_ref(slot, contrib, table_size=ts),
+                    reps=1, warmup=False)
+    flat = (slot.long() + ts * torch.arange(m, device=x.device)[:, None]
+            ).view(-1)
+    acc = torch.zeros(m * ts, device=x.device)
+    lib = time_ms(torch, lambda: acc.index_add_(0, flat, contrib.view(-1)))
+    rows["bin_scatter"] = (ms, plain, bound(nbytes(slot, contrib, tables),
+                                            contrib.numel()), lib)
+    del flat, acc, contrib
+    torch.cuda.empty_cache()
+
+    lay, cell_lay, nb = split_setup(torch, slot, coeff, ts)
+    del slot, coeff
+    L = lay.slot_lay.shape[1]
+    real = lay.src < x.shape[0]
+    head = real.clone()
+    head[:, 1:] &= (lay.slot_lay[:, 1:] != lay.slot_lay[:, :-1]) | \
+        ~real[:, :-1]
+    distinct = int(head.sum())
+    del real, head
+    run = lambda: bin_gather_blocked_cuda(lay.slot_lay, tables)
+    out = run()
+    ms = time_ms(torch, run)
+    plain = time_ms(torch, lambda: gather_blocked_ref(lay.slot_lay, tables),
+                    reps=1, warmup=False)
+    idx = lay.slot_lay.long()
+    lib = time_ms(torch, lambda: torch.gather(tables, 1, idx))
+    rows["bin_gather_blocked"] = (ms, plain, bound(
+        nbytes(lay.slot_lay, out) + 4 * distinct), lib)
+    say(f"  split layout: L = {L} per instance, {distinct} distinct "
+        f"(instance, slot) buckets, {nb} wire cells")
+    del out, idx, tables
+    torch.cuda.empty_cache()
+
+    contrib_lay = lay.coeff_lay * layout_rows(lay, beta)
+    run = lambda: route_pack_cuda(cell_lay, contrib_lay, nb)
+    send = run()
+    ms = time_ms(torch, run)
+    plain = time_ms(torch, lambda: route_pack_ref(cell_lay, contrib_lay,
+                                                  num_cells=nb),
+                    reps=1, warmup=False)
+    # the library call adds the real positions only: sentinels sent to one
+    # spare cell would all add to one address
+    real = (cell_lay < nb).view(-1).nonzero()[:, 0]
+    cells, vals = cell_lay.view(-1)[real].long(), contrib_lay.view(-1)[real]
+    del real
+    acc = torch.zeros(nb, device=x.device)
+    lib = time_ms(torch, lambda: acc.index_add_(0, cells, vals))
+    rows["route_pack"] = (ms, plain, bound(nbytes(cell_lay, contrib_lay,
+                                                  send),
+                                           contrib_lay.numel()), lib)
+    del acc, contrib_lay, cells, vals
+    torch.cuda.empty_cache()
+
+    run = lambda: route_unpack_cuda(cell_lay, lay.coeff_lay, send)
+    out = run()
+    ms = time_ms(torch, run)
+    plain = time_ms(torch, lambda: route_unpack_ref(cell_lay, lay.coeff_lay,
+                                                    send),
+                    reps=1, warmup=False)
+    idx = cell_lay.long()
+    back = torch.cat([send, send.new_zeros(int(idx.max()) + 1 - nb)])
+    lib = time_ms(torch, lambda: torch.gather(back.expand(m, -1), 1, idx))
+    rows["route_unpack"] = (ms, plain, bound(
+        nbytes(cell_lay, lay.coeff_lay, out) + 4 * distinct,
+        out.numel()), lib)
+    say("  (library calls: index_add_ for B5 and B7, torch.gather for B6 "
+        "and B8 -- B8's without the coeff product)")
+    return rows
+
+
+def phase_times(torch, data, model, counts, errs, dist_state):
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                              bin_gather_cuda,
@@ -407,11 +728,16 @@ def phase_times(torch, data, model, counts, errs):
     lib = time_ms(torch, lambda: torch.gather(model.tables, 1, idx))
     rows["bin_gather"] = (ms, plain, bound(nbytes(q_slot, out, out)), lib)
 
+    del q_slot, idx, out
+    rows.update(dist_times(torch, x, dist_state[0], dist_state[1], ts))
     entries = []
     for name, (ms, plain, (b_ms, b_by), lib) in rows.items():
         src, replaces = KERNELS[name]
+        path = DIST_PATHS.get(name)
+        launches = (counts[name] if path is None
+                    else dist_state[2][path][name])
         entries.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=counts[name],
+                            replaces=replaces, launches=launches,
                             max_abs_err=errs[name], ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib))
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
@@ -449,9 +775,11 @@ def main(argv=None) -> int:
     say(f"data: n={MAIN['n']} d={MAIN['d']} and {MAIN['n_query']} queries "
         f"from seed {args.seed} in {time.perf_counter() - t0:.2f} s")
     errs = phase_parity(torch, data[0], data[2], args.seed)
-    model, counts, _ = phase_main(torch, data, args.seed)
+    model, counts, _, main_pred = phase_main(torch, data, args.seed)
     phase_small(torch, dev, args.seed)
-    entries = phase_times(torch, data, model, counts, errs)
+    dist_state = phase_distributed(torch, data, args.seed, main_pred)
+    del main_pred
+    entries = phase_times(torch, data, model, counts, errs, dist_state)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

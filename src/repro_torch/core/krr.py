@@ -186,10 +186,15 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
                  maxiter: int = 400, precond: str = "none",
                  precond_rank: int = DEFAULT_NYSTROM_RANK,
                  nonfinite_targets: str = "raise", device=None,
-                 solve_checkpoint_every: int = 0,
+                 fused: bool = True, solve_checkpoint_every: int = 0,
                  on_solve_checkpoint=None) -> WLSHKRRModel:
     """Fit WLSH-KRR with the m instances of ``lsh`` on ``device`` (None:
     the card, raising without one).  ``y`` is (n,) or an (n, k) block.
+
+    ``fused`` runs every PCG matvec as one pass over the slot-blocked
+    layout; ``fused=False`` builds no layout and runs the split
+    scatter -> gather matvec (B5 then B4) for A/B runs.  The fitted model
+    agrees either way to float rounding.
 
     ``precond`` is 'none' | 'jacobi' | 'nystrom'.  ``nonfinite_targets``:
     'raise' rejects NaN/Inf in x or y with ``NonFiniteError``; 'deactivate'
@@ -216,12 +221,12 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
     if table_size <= 0:
         table_size = default_table_size(n)
     op = make_operator(lsh, get_bucket_fn(spec.bucket.name), table_size,
-                       device=dev)
+                       device=dev, fused=fused)
 
     t0 = _sync(dev)
     feats = op.featurize(x)
     t1 = _sync(dev)
-    tidx = op.build_index(feats, blocked=True)
+    tidx = op.build_index(feats, blocked=fused)
     del feats
     t2 = _sync(dev)
     mv = lambda v: op.matvec(tidx, v)

@@ -7,7 +7,9 @@ matrix stays PSD.  ``matvec`` computes (1/m) sum_s K~^s beta in O(n m).
 The slot-blocked layout is built exactly as the JAX package builds it
 (bitwise: a stable sort, the same searchsorted sides), with one addition the
 CUDA kernels read instead of the visit lists: ``blk_start``, the first
-layout block of every table tile.  Exact mode waits for a later slice.
+layout block of every table tile.  ``build_route_schedule`` is the JAX
+package's hash-join visit schedule, also bitwise (and, like it, built with
+no sort).  Exact mode waits for a later slice.
 """
 from __future__ import annotations
 
@@ -21,6 +23,12 @@ from .lsh import Features, slots_from_features
 # package, so the layouts compare bitwise).
 BLOCKED_N = 128
 BLOCKED_T = 512
+
+# Geometry of a layout that feeds the split loads -> readout kernels (the
+# psum path of the distributed step, and the hash join), as in the JAX
+# package.
+BLOCKED_SPLIT_N = 64
+BLOCKED_SPLIT_T = 512
 
 
 class BlockedLayout(NamedTuple):
@@ -205,6 +213,105 @@ def build_blocked_layout(slot: torch.Tensor, coeff: torch.Tensor,
                          blk_start=blk_start if want_ker else None,
                          n_visits=(2 * total_blocks[:, 0]).to(i32),
                          block_n=bn, block_t=bt, num_tiles=num_tiles)
+
+
+class RouteSchedule(NamedTuple):
+    """Visit schedules of the JAX package's Pallas route kernels (fields as
+    in ``repro.core.wlsh.RouteSchedule``): a flat pack schedule segmented by
+    destination-cell tile and per-instance unpack lists.  The CUDA route
+    kernels read ``cell_lay`` directly (a run head sums its run; see
+    csrc/route.cu), so the port's step does not build it; it is kept, and
+    pinned bitwise against the JAX package, as the reference statement of
+    the cell layout's monotonicity contract."""
+
+    p_inst: torch.Tensor   # (V,) int32 flat pack schedule: instance,
+    p_block: torch.Tensor  #   layout block,
+    p_tile: torch.Tensor   #   destination cell tile,
+    p_flag: torch.Tensor   #   0 accumulate, 1 zero the tile, 2 no-op
+    u_block: torch.Tensor  # (m, VB) int32 per-instance unpack schedule
+    u_tile: torch.Tensor
+    u_flag: torch.Tensor   #   0 compute, 2 no-op padding
+    num_cell_tiles: int
+    block_t: int
+
+
+def _enumerate_visits(c, lo, vb: int):
+    """(block, tile, valid) of each of vb visits per row: block b gets c[b]
+    consecutive visits covering tiles [lo[b], lo[b] + c[b])."""
+    lb = c.shape[1]
+    start = torch.cumsum(c, 1) - c                            # exclusive
+    total = start[:, -1:] + c[:, -1:]
+    v = torch.arange(vb, dtype=c.dtype, device=c.device)
+    b = _searchsorted(start, v, right=True) - 1
+    b = b.clamp(0, lb - 1)
+    t = lo.gather(1, b) + v - start.gather(1, b)
+    return b, t, v < total
+
+
+def build_route_schedule(cell_lay: torch.Tensor, *, num_cell_tiles: int,
+                         block_n: int, block_t: int) -> RouteSchedule:
+    """Both route-kernel schedules from ``cell_lay`` (m, L) int32, whose
+    real cells are non-decreasing along each instance's layout and whose
+    dropped/padding positions hold the sentinel ``num_cell_tiles*block_t``.
+    Cumsums and searchsorted only: no sort."""
+    m, layout_len = cell_lay.shape
+    bn, bt = int(block_n), int(block_t)
+    lb = layout_len // bn
+    cb = int(num_cell_tiles)
+    sentinel = cb * bt
+    dev = cell_lay.device
+    cells = cell_lay.long().view(m, lb, bn)
+    real = cells < sentinel
+    any_real = real.any(2)
+    lo = torch.where(real, cells, sentinel).amin(2) // bt
+    hi = torch.where(real, cells, -1).amax(2) // bt
+    c = torch.where(any_real, hi - lo + 1, 0)
+    lo = torch.where(any_real, lo, 0)
+    vb = lb + cb
+    rows = torch.arange(m, device=dev)[:, None]
+
+    # pack: one flat schedule segmented by destination tile
+    pb, pt, pvalid = _enumerate_visits(c, lo, vb)
+    pt = torch.where(pvalid, pt, cb - 1)
+    first = torch.searchsorted(pt, pt, right=False)
+    prank = torch.arange(vb, device=dev)[None, :] - first
+    cnt = torch.zeros((m, cb), dtype=torch.long, device=dev).scatter_add_(
+        1, pt, pvalid.long())
+    seg_size = 1 + cnt.sum(0)
+    seg_start = torch.cumsum(seg_size, 0) - seg_size
+    inst_off = torch.cumsum(cnt, 0) - cnt
+    v_cap = cb + m * vb
+    fp = torch.where(pvalid, seg_start[pt] + 1 + inst_off.gather(1, pt)
+                     + prank, v_cap).view(-1)
+
+    def placed(fill, vals):
+        # JAX's full(v_cap, fill).at[fp].set(vals, mode="drop"): a spare
+        # slot takes the dropped writes
+        out = torch.full((v_cap + 1,), fill, dtype=torch.long, device=dev)
+        out.scatter_(0, fp, torch.as_tensor(vals, device=dev).expand(
+            m, vb).reshape(-1))
+        return out[:v_cap]
+
+    p_inst = placed(0, rows)
+    p_block = placed(0, pb)
+    p_tile = placed(cb - 1, pt)
+    p_flag = placed(2, 0)
+    p_tile[seg_start] = torch.arange(cb, device=dev)
+    p_flag[seg_start] = 1
+
+    # unpack: per instance, every block visited at least once
+    cu = c.clamp(min=1)
+    ub, ut, uvalid = _enumerate_visits(cu, lo, vb)
+    last_t = lo[:, -1:] + cu[:, -1:] - 1
+    ub = torch.where(uvalid, ub, lb - 1)
+    ut = torch.where(uvalid, ut, last_t)
+    u_flag = torch.where(uvalid, 0, 2)
+    i32 = torch.int32
+    return RouteSchedule(p_inst=p_inst.to(i32), p_block=p_block.to(i32),
+                         p_tile=p_tile.to(i32), p_flag=p_flag.to(i32),
+                         u_block=ub.to(i32), u_tile=ut.to(i32),
+                         u_flag=u_flag.to(i32), num_cell_tiles=cb,
+                         block_t=bt)
 
 
 def _colwise(coeff: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:

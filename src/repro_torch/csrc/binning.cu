@@ -1,5 +1,6 @@
-// CountSketch binning over the slot-blocked layout: the fused matvec, the
-// blocked scatter and the point gather.
+// CountSketch binning: over the slot-blocked layout the fused matvec, the
+// blocked scatter and the layout gather; over an index without a layout the
+// point scatter and the point gather.
 //
 // Layout (core/wlsh.py, build_blocked_layout): per instance s, points are
 // stably sorted by slot and packed so that table tile t (slots
@@ -135,6 +136,16 @@ __global__ void scatter_blocked_kernel(
 // Design: one thread per output element (grid rows = instances),
 // consecutive threads on consecutive points (or columns), so slot loads and
 // out stores are coalesced; the table reads are scattered 4*k-byte loads.
+//
+// bin_gather_blocked: replaces `bin_gather_blocked_pallas`
+// (src/repro/kernels/binning/kernel.py, `_gather_blocked_body`).
+//   out_lay[s,p,j] = tables[s, slot_lay[s,p], j]
+// The same indexed load, run over the slot-blocked layout (the psum
+// readout under `blocked_split`) instead of the points: the TPU kernel
+// needs the layout so a block meets one table tile; here the layout's
+// sorted slots make neighbouring threads read neighbouring table entries.
+// Bound: device-memory bytes (slot_lay read once, out written once, one
+// k-wide table row read per distinct slot).
 // ---------------------------------------------------------------------------
 __global__ void gather_kernel(const int32_t* __restrict__ slot,
                               const float* __restrict__ tables,
@@ -152,7 +163,40 @@ __global__ void gather_kernel(const int32_t* __restrict__ slot,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bin_scatter: replaces `bin_scatter_pallas`
+// (src/repro/kernels/binning/kernel.py, `_scatter_body`).
+//   tables[s,b,j] = sum_{i: slot[s,i] = b} contrib[s,i,j]   for an index
+//   with no slot-blocked layout (the psum step without `blocked_split`).
+// The TPU kernel is an O(n*B) one-hot cross product because the TPU has no
+// scatter atomics; here it is O(n): the output is zeroed, then one thread
+// per (point, column) adds into global memory with atomicAdd (all k
+// columns in one launch).  The sum order varies from run to run.
+// Bound: device-memory bytes (slot and contrib read once, the (m, B, k)
+// tables written once).
+// ---------------------------------------------------------------------------
+__global__ void scatter_kernel(const int32_t* __restrict__ slot,
+                               const float* __restrict__ contrib,
+                               float* __restrict__ tables, long long n,
+                               long long B, int k) {
+  const long long s = blockIdx.y;
+  const int32_t* srow = slot + s * n;
+  const float* crow = contrib + s * n * k;
+  float* trow = tables + s * B * k;
+  const long long nk = n * k;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < nk; e += (long long)gridDim.x * blockDim.x) {
+    const long long i = k == 1 ? e : e / k;
+    atomicAdd(&trow[(long long)srow[i] * k + (e - i * k)], crow[e]);
+  }
+}
+
 int shared_bytes(int kc, int bt) { return kc * bt * (int)sizeof(float); }
+
+dim3 row_grid(long long work, int m) {
+  const long long blocks = (work + THREADS - 1) / THREADS;
+  return dim3((unsigned)(blocks < 65535 ? blocks : 65535), m);
+}
 
 }  // namespace
 
@@ -183,10 +227,28 @@ extern "C" int bin_gather_launch(const int32_t* slot, const float* tables,
                                  void* stream) {
   const long long nk = (long long)n * k;
   if (nk == 0 || m == 0) return (int)cudaGetLastError();
-  const long long blocks = (nk + THREADS - 1) / THREADS;
-  dim3 grid((unsigned)(blocks < 65535 ? blocks : 65535), m);
-  gather_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(slot, tables, out,
-                                                            n, B, k);
+  gather_kernel<<<row_grid(nk, m), THREADS, 0, (cudaStream_t)stream>>>(
+      slot, tables, out, n, B, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bin_gather_blocked_launch(const int32_t* slot_lay,
+                                         const float* tables, float* out,
+                                         int m, int L, long long B, int k,
+                                         void* stream) {
+  return bin_gather_launch(slot_lay, tables, out, m, L, B, k, stream);
+}
+
+extern "C" int bin_scatter_launch(const int32_t* slot, const float* contrib,
+                                  float* tables, int m, long long n,
+                                  long long B, int k, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(tables, 0, (size_t)m * B * k *
+                                  sizeof(float), st);
+  if (e != cudaSuccess) return (int)e;
+  if (n == 0 || m == 0 || k == 0) return (int)cudaGetLastError();
+  scatter_kernel<<<row_grid(n * k, m), THREADS, 0, st>>>(slot, contrib,
+                                                          tables, n, B, k);
   return (int)cudaGetLastError();
 }
 

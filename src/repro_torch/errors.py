@@ -28,3 +28,18 @@ class SolveDivergedError(ReproError, ArithmeticError):
         super().__init__(message)
         self.resnorm = resnorm
         self.fallbacks = tuple(fallbacks)
+
+
+class WireOverflowError(ReproError, RuntimeError):
+    """Hash-join routing dropped distinct buckets past the per-destination
+    capacity (or zeroed non-finite wire cells) and the step ran with
+    ``overflow='raise'``."""
+
+    def __init__(self, message: str, *, dropped: int = 0):
+        super().__init__(message)
+        self.dropped = int(dropped)
+
+
+class FaultInjected(ReproError):
+    """Raised by ``repro_torch.testing.faults`` when an armed fault fires —
+    only ever seen under test control."""

@@ -6,8 +6,10 @@ went through the kernels.
 """
 from __future__ import annotations
 
-from .binning.kernel import (bin_fused_matvec_cuda, bin_gather_cuda,
-                             bin_scatter_blocked_cuda)
+from .binning.kernel import (bin_fused_matvec_cuda, bin_gather_blocked_cuda,
+                             bin_gather_cuda, bin_scatter_blocked_cuda,
+                             bin_scatter_cuda, route_pack_cuda,
+                             route_unpack_cuda)
 from .featurize.kernel import featurize_cuda
 
 KERNEL_WRAPPERS = {
@@ -15,6 +17,10 @@ KERNEL_WRAPPERS = {
     "bin_fused_matvec": bin_fused_matvec_cuda,
     "bin_scatter_blocked": bin_scatter_blocked_cuda,
     "bin_gather": bin_gather_cuda,
+    "bin_scatter": bin_scatter_cuda,
+    "bin_gather_blocked": bin_gather_blocked_cuda,
+    "route_pack": route_pack_cuda,
+    "route_unpack": route_unpack_cuda,
 }
 
 

@@ -1,8 +1,10 @@
-"""Wrappers of the CUDA binning kernels (csrc/binning.cu), which replace the
-TPU kernels ``bin_fused_matvec_pallas``, ``bin_scatter_blocked_pallas`` and
-``bin_gather_pallas``.  Each checks its arguments, allocates its output with
-``torch.empty``, launches on the current stream, raises on a launch error
-and counts its launches in ``<wrapper>.launches``."""
+"""Wrappers of the CUDA binning kernels (csrc/binning.cu) and route kernels
+(csrc/route.cu), which replace the TPU kernels ``bin_fused_matvec_pallas``,
+``bin_scatter_blocked_pallas``, ``bin_gather_pallas``, ``bin_scatter_pallas``,
+``bin_gather_blocked_pallas``, ``route_pack_pallas`` and
+``route_unpack_pallas``.  Each checks its arguments, allocates its output
+with ``torch.empty``, launches on the current stream, raises on a launch
+error and counts its launches in ``<wrapper>.launches``."""
 from __future__ import annotations
 
 import ctypes
@@ -25,8 +27,12 @@ def _lib():
         lib.bin_scatter_blocked_launch.argtypes = [_P] * 4 + [_I] * 4 + [
             _L, _I, _I, _P]
         lib.bin_gather_launch.argtypes = [_P] * 3 + [_I, _I, _L, _I, _P]
+        lib.bin_gather_blocked_launch.argtypes = [_P] * 3 + [
+            _I, _I, _L, _I, _P]
+        lib.bin_scatter_launch.argtypes = [_P] * 3 + [_I, _L, _L, _I, _P]
         for fn in (lib.bin_fused_matvec_launch,
-                   lib.bin_scatter_blocked_launch, lib.bin_gather_launch):
+                   lib.bin_scatter_blocked_launch, lib.bin_gather_launch,
+                   lib.bin_gather_blocked_launch, lib.bin_scatter_launch):
             fn.restype = _I
         lib.binning_error_string.argtypes = [_I]
         lib.binning_error_string.restype = ctypes.c_char_p
@@ -103,21 +109,25 @@ def bin_scatter_blocked_cuda(blk_start, slot_lay, contrib_lay, *,
     return tables
 
 
-def bin_gather_cuda(slot, tables):
-    """out[s, i(, j)] = tables[s, slot[s, i](, j)]; slot (m, n) int32 in
-    [0, B), tables (m, B) or (m, B, k) f32."""
+def _gather_args(slot, tables, what):
     m, n = slot.shape
-    _need(slot, "slot", torch.int32, (m, n))
+    _need(slot, what, torch.int32, (m, n))
     _need(tables, "tables", torch.float32)
     if tables.ndim not in (2, 3) or tables.shape[0] != m:
         raise ValueError(f"tables must be (m={m}, B[, k]), got "
                          f"{tuple(tables.shape)}")
-    B = tables.shape[1]
     k = tables.shape[2] if tables.ndim == 3 else 1
     if m > 65535 or n * k >= 2 ** 31:
         raise ValueError(f"gather: m={m}, n*k={n * k} out of range")
     out = torch.empty((m, n) + tuple(tables.shape[2:]), dtype=torch.float32,
                       device=slot.device)
+    return m, n, tables.shape[1], k, out
+
+
+def bin_gather_cuda(slot, tables):
+    """out[s, i(, j)] = tables[s, slot[s, i](, j)]; slot (m, n) int32 in
+    [0, B), tables (m, B) or (m, B, k) f32."""
+    m, n, B, k, out = _gather_args(slot, tables, "slot")
     if out.numel() == 0:
         return out
     lib = _lib()
@@ -129,6 +139,123 @@ def bin_gather_cuda(slot, tables):
     return out
 
 
-bin_fused_matvec_cuda.launches = 0
-bin_scatter_blocked_cuda.launches = 0
-bin_gather_cuda.launches = 0
+def bin_gather_blocked_cuda(slot_lay, tables):
+    """out_lay[s, p(, j)] = tables[s, slot_lay[s, p](, j)] over the
+    slot-blocked layout; slot_lay (m, L) int32 in [0, B) (padding reads
+    slot 0), tables (m, B) or (m, B, k) f32 -> (m, L) or (m, L, k)."""
+    m, L, B, k, out = _gather_args(slot_lay, tables, "slot_lay")
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    bin_gather_blocked_cuda.launches += 1
+    rc = lib.bin_gather_blocked_launch(slot_lay.data_ptr(), tables.data_ptr(),
+                                       out.data_ptr(), m, L, B, k,
+                                       stream_ptr(out.device))
+    check(rc, "bin_gather_blocked", lib.binning_error_string)
+    return out
+
+
+def bin_scatter_cuda(slot, contrib, table_size: int):
+    """tables[s, b(, j)] = sum_{i: slot[s, i] = b} contrib[s, i(, j)] for
+    an index without a layout; slot (m, n) int32 in [0, table_size),
+    contrib (m, n) or (m, n, k) f32 -> (m, B) or (m, B, k)."""
+    m, n = slot.shape
+    _need(slot, "slot", torch.int32, (m, n))
+    _need(contrib, "contrib", torch.float32)
+    if contrib.ndim not in (2, 3) or tuple(contrib.shape[:2]) != (m, n):
+        raise ValueError(f"contrib must be (m={m}, n={n}[, k]), got "
+                         f"{tuple(contrib.shape)}")
+    if m > 65535:
+        raise ValueError(f"scatter: m={m} out of range")
+    k = contrib.shape[2] if contrib.ndim == 3 else 1
+    tables = torch.empty((m, int(table_size)) + tuple(contrib.shape[2:]),
+                         dtype=torch.float32, device=slot.device)
+    if tables.numel() == 0:
+        return tables
+    lib = _lib()
+    bin_scatter_cuda.launches += 1
+    rc = lib.bin_scatter_launch(slot.data_ptr(), contrib.data_ptr(),
+                                tables.data_ptr(), m, n, int(table_size), k,
+                                stream_ptr(tables.device))
+    check(rc, "bin_scatter", lib.binning_error_string)
+    return tables
+
+
+def _route_lib():
+    lib = load("route")
+    if lib.route_pack_launch.argtypes is None:
+        lib.route_pack_launch.argtypes = [_P] * 3 + [_I, _L, _L, _I, _P]
+        lib.route_unpack_launch.argtypes = [_P] * 4 + [_I, _L, _L, _I, _P]
+        lib.route_pack_launch.restype = _I
+        lib.route_unpack_launch.restype = _I
+        lib.route_error_string.argtypes = [_I]
+        lib.route_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cells(cell_lay, num_cells):
+    m, L = cell_lay.shape
+    _need(cell_lay, "cell_lay", torch.int32, (m, L))
+    if m > 65535 or not 0 <= num_cells < 2 ** 31:
+        raise ValueError(f"route: m={m}, num_cells={num_cells} out of range")
+    return m, L
+
+
+def route_pack_cuda(cell_lay, contrib_lay, num_cells: int):
+    """send[c(, j)] = sum over layout positions (s, p) with cell_lay[s, p]
+    = c of contrib_lay[s, p(, j)], summed in layout order; cell_lay (m, L)
+    int32 (cells >= num_cells are sentinels, skipped), contrib_lay (m, L)
+    or (m, L, k) f32 -> (num_cells,) or (num_cells, k), unreached cells 0.
+    Each real cell must be one contiguous run of one instance's layout (the
+    hash-join routing guarantees it)."""
+    m, L = _cells(cell_lay, num_cells)
+    _need(contrib_lay, "contrib_lay", torch.float32)
+    if contrib_lay.ndim not in (2, 3) or \
+            tuple(contrib_lay.shape[:2]) != (m, L):
+        raise ValueError(f"contrib_lay must be (m={m}, L={L}[, k]), got "
+                         f"{tuple(contrib_lay.shape)}")
+    k = contrib_lay.shape[2] if contrib_lay.ndim == 3 else 1
+    send = torch.empty((int(num_cells),) + tuple(contrib_lay.shape[2:]),
+                       dtype=torch.float32, device=cell_lay.device)
+    if send.numel() == 0:
+        return send
+    lib = _route_lib()
+    route_pack_cuda.launches += 1
+    rc = lib.route_pack_launch(cell_lay.data_ptr(), contrib_lay.data_ptr(),
+                               send.data_ptr(), m, L, int(num_cells), k,
+                               stream_ptr(send.device))
+    check(rc, "route_pack", lib.route_error_string)
+    return send
+
+
+def route_unpack_cuda(cell_lay, coeff_lay, back):
+    """out_lay[s, p(, j)] = coeff_lay[s, p] * back[cell_lay[s, p](, j)],
+    where a sentinel cell (>= len(back)) reads 0; cell_lay and coeff_lay
+    (m, L), back (num_cells,) or (num_cells, k) f32 -> (m, L) or
+    (m, L, k)."""
+    num_cells = back.shape[0]
+    m, L = _cells(cell_lay, num_cells)
+    _need(coeff_lay, "coeff_lay", torch.float32, (m, L))
+    _need(back, "back", torch.float32)
+    if back.ndim not in (1, 2):
+        raise ValueError(f"back must be (cells[, k]), got "
+                         f"{tuple(back.shape)}")
+    k = back.shape[1] if back.ndim == 2 else 1
+    out = torch.empty((m, L) + tuple(back.shape[1:]), dtype=torch.float32,
+                      device=cell_lay.device)
+    if out.numel() == 0:
+        return out
+    lib = _route_lib()
+    route_unpack_cuda.launches += 1
+    rc = lib.route_unpack_launch(cell_lay.data_ptr(), coeff_lay.data_ptr(),
+                                 back.data_ptr(), out.data_ptr(), m, L,
+                                 num_cells, k, stream_ptr(out.device))
+    check(rc, "route_unpack", lib.route_error_string)
+    return out
+
+
+for _fn in (bin_fused_matvec_cuda, bin_scatter_blocked_cuda, bin_gather_cuda,
+            bin_gather_blocked_cuda, bin_scatter_cuda, route_pack_cuda,
+            route_unpack_cuda):
+    _fn.launches = 0
+del _fn

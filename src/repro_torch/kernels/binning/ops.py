@@ -1,13 +1,20 @@
 """Public ops: the CountSketch matvec, table build and readout on the
-binning kernels, dispatched on the device of the index (the CUDA kernels on
-the card, their plain versions on the CPU).
+binning kernels, and the hash-join route pack/unpack, dispatched on the
+device of the index (the CUDA kernels on the card, their plain versions on
+the CPU).
 
 * ``bin_fused_matvec_op``  ~ ``table_matvec_fused`` — one kernel over the
   slot-blocked layout; the (m, B) table exists only as shared-memory tiles.
-* ``bin_loads_blocked_op`` ~ ``table_loads`` — the (m, B[, k]) prediction
-  tables from the same layout.
+* ``bin_loads_op``         ~ ``table_loads`` — the (m, B[, k]) psum-able
+  tables: off the layout when the index has one (``bin_loads_blocked_op``),
+  else the point scatter.
 * ``bin_readout_op``       ~ ``table_readout`` — gather each point's bucket
-  load and combine over the instances.
+  load (over the layout when the index has one: ``bin_readout_blocked_op``)
+  and combine over the instances.
+* ``table_matvec_op`` — the split matvec, loads then readout (the tables
+  round-trip through device memory: the psum-able path).
+* ``route_pack_op`` / ``route_unpack_op`` — the hash join's wire pack and
+  unpack along the layout.
 
 Around the kernels, beta is laid out through ``src`` and results map back
 through ``inv_pos`` with PyTorch indexing (int32 indices, no int64 copies).
@@ -18,43 +25,69 @@ import torch
 
 from ...backend import on_card
 from ...core.wlsh import TableIndex
-from .kernel import (bin_fused_matvec_cuda, bin_gather_cuda,
-                     bin_scatter_blocked_cuda)
-from .ref import fused_matvec_ref, gather_ref, scatter_blocked_ref
+from .kernel import (bin_fused_matvec_cuda, bin_gather_blocked_cuda,
+                     bin_gather_cuda, bin_scatter_blocked_cuda,
+                     bin_scatter_cuda, route_pack_cuda, route_unpack_cuda)
+from .ref import (fused_matvec_ref, gather_blocked_ref, gather_ref,
+                  route_pack_ref, route_unpack_ref, scatter_blocked_ref,
+                  scatter_ref)
+
+
+def _kernel_layout(index: TableIndex):
+    """The slot-blocked layout when it carries the kernel group, else
+    None."""
+    lay = index.blocked
+    return lay if lay is not None and lay.blk_start is not None else None
 
 
 def _layout(index: TableIndex):
-    lay = index.blocked
-    if lay is None or lay.blk_start is None:
+    lay = _kernel_layout(index)
+    if lay is None:
         raise ValueError("needs a slot-blocked index with the kernel group; "
                          "build it with build_blocked_layout(parts='kernel'|"
                          "'both') / op.build_index(feats, blocked=True)")
     return lay
 
 
+def layout_rows(lay, vals: torch.Tensor) -> torch.Tensor:
+    """Point values (n,) or (n, k) laid out along the slot permutation:
+    (m, L) or (m, L, k); padding positions read an appended zero row."""
+    m, L = lay.src.shape
+    tail = tuple(vals.shape[1:])
+    pad = torch.zeros((1,) + tail, dtype=torch.float32, device=vals.device)
+    padded = torch.cat([vals.to(torch.float32), pad])
+    return padded.index_select(0, lay.src.view(-1)).view((m, L) + tail)
+
+
 def _beta_to_layout(lay, beta: torch.Tensor) -> torch.Tensor:
     """beta (n,) or (n, k) laid out along the slot permutation: (m, L) or
-    (m, k, L); padding positions read an appended zero row."""
-    m, L = lay.src.shape
-    pad = torch.zeros((1,) + tuple(beta.shape[1:]), dtype=torch.float32,
-                      device=beta.device)
-    beta_pad = torch.cat([beta.to(torch.float32), pad])
-    lay_vals = beta_pad.index_select(0, lay.src.view(-1))
+    (m, k, L), the order the layout kernels B2 and B3 read."""
+    lay_vals = layout_rows(lay, beta)
     if beta.ndim == 1:
-        return lay_vals.view(m, L)
-    return lay_vals.view(m, L, -1).transpose(1, 2).contiguous()
+        return lay_vals
+    return lay_vals.transpose(1, 2).contiguous()
+
+
+def rows_to_points(lay, out_lay: torch.Tensor) -> torch.Tensor:
+    """Layout values (m, L) or (m, L, k) back to point order: (m, n) or
+    (m, n, k), through ``inv_pos``."""
+    m, L = lay.src.shape
+    tail = tuple(out_lay.shape[2:])
+    idx = torch.int32 if out_lay.shape[0] * L < 2 ** 31 else torch.int64
+    rows = torch.arange(m, dtype=idx, device=out_lay.device)
+    flat = lay.inv_pos.to(idx) + (rows * L)[:, None]
+    return out_lay.reshape((m * L,) + tail).index_select(
+        0, flat.view(-1)).view(tuple(lay.inv_pos.shape) + tail)
 
 
 def _layout_to_points(lay, out_lay: torch.Tensor) -> torch.Tensor:
     """out_lay (m, L) or (m, k, L) back to point order: (m, n) or
     (m, n, k)."""
+    if out_lay.ndim == 2:
+        return rows_to_points(lay, out_lay)
     m, L = lay.src.shape
     idx = torch.int32 if out_lay.numel() < 2 ** 31 else torch.int64
     rows = torch.arange(m, dtype=idx, device=out_lay.device)
-    if out_lay.ndim == 2:
-        flat = lay.inv_pos + (rows * L)[:, None]
-        return out_lay.view(-1).index_select(0, flat.view(-1)).view(
-            lay.inv_pos.shape)
     k = out_lay.shape[1]
     flat = (lay.inv_pos[:, None, :] + L * (rows[:, None] * k + torch.arange(
         k, dtype=idx, device=out_lay.device))[:, :, None])
@@ -98,16 +131,72 @@ def bin_loads_blocked_op(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
     return tables.contiguous()
 
 
+def bin_loads_op(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
+    """(m, B[, k]) bucket-load tables: off the slot-blocked layout when the
+    index carries its kernel group (B3), else the point scatter (B5)."""
+    if _kernel_layout(index) is not None:
+        return bin_loads_blocked_op(index, beta)
+    beta = beta.to(torch.float32)
+    contrib = index.coeff * beta if beta.ndim == 1 else \
+        index.coeff[..., None] * beta
+    if on_card(contrib, index.slot):
+        return bin_scatter_cuda(index.slot, contrib.contiguous(),
+                                index.table_size)
+    return scatter_ref(index.slot, contrib, table_size=index.table_size)
+
+
+def _combine(index: TableIndex, vals: torch.Tensor, average: bool):
+    signed = index.coeff * vals if vals.ndim == 2 else \
+        index.coeff[..., None] * vals
+    return signed.mean(0) if average else signed.sum(0)
+
+
+def bin_readout_blocked_op(index: TableIndex, tables: torch.Tensor, *,
+                           average: bool = True) -> torch.Tensor:
+    """Readout over the slot-blocked layout (B6): gather along the layout,
+    map back through ``inv_pos``, combine over the instances."""
+    lay = _layout(index)
+    tables = tables.to(torch.float32).contiguous()
+    if on_card(lay.slot_lay, tables):
+        out_lay = bin_gather_blocked_cuda(lay.slot_lay, tables)
+    else:
+        out_lay = gather_blocked_ref(lay.slot_lay, tables)
+    return _combine(index, rows_to_points(lay, out_lay), average)
+
+
 def bin_readout_op(index: TableIndex, tables: torch.Tensor, *,
                    average: bool = True) -> torch.Tensor:
     """Per-point readout of tables (m, B) -> (n,), or (m, B, k) -> (n, k):
     mean over the instances of coeff * tables[s, slot] (sum when not
-    ``average``)."""
+    ``average``).  An index carrying the layout's kernel group reads over
+    the layout (B6), any other gathers per point (B4)."""
+    if _kernel_layout(index) is not None:
+        return bin_readout_blocked_op(index, tables, average=average)
     tables = tables.to(torch.float32).contiguous()
     if on_card(index.slot, tables):
         vals = bin_gather_cuda(index.slot, tables)
     else:
         vals = gather_ref(index.slot, tables)
-    signed = index.coeff * vals if vals.ndim == 2 else \
-        index.coeff[..., None] * vals
-    return signed.mean(0) if average else signed.sum(0)
+    return _combine(index, vals, average)
+
+
+def table_matvec_op(index: TableIndex, beta: torch.Tensor, *,
+                    average: bool = True) -> torch.Tensor:
+    """The split matvec: tables from beta, then the readout."""
+    return bin_readout_op(index, bin_loads_op(index, beta), average=average)
+
+
+def route_pack_op(cell_lay: torch.Tensor, contrib_lay: torch.Tensor,
+                  num_cells: int) -> torch.Tensor:
+    """Hash-join wire pack (B7): (num_cells[, k]) layout-order run sums."""
+    if on_card(cell_lay, contrib_lay):
+        return route_pack_cuda(cell_lay, contrib_lay.contiguous(), num_cells)
+    return route_pack_ref(cell_lay, contrib_lay, num_cells=num_cells)
+
+
+def route_unpack_op(cell_lay: torch.Tensor, coeff_lay: torch.Tensor,
+                    back: torch.Tensor) -> torch.Tensor:
+    """Hash-join wire unpack (B8): (m, L[, k]) coeff-weighted reads."""
+    if on_card(cell_lay, back):
+        return route_unpack_cuda(cell_lay, coeff_lay, back.contiguous())
+    return route_unpack_ref(cell_lay, coeff_lay, back)

@@ -45,3 +45,66 @@ def gather_ref(slot, tables):
     """out[s, i(, j)] = tables[s, slot[s, i](, j)] for tables (m, B[, k])."""
     rows = torch.arange(slot.shape[0], device=slot.device)[:, None]
     return tables[rows, slot.long()]
+
+
+def scatter_ref(slot, contrib, *, table_size: int):
+    """tables[s, b(, j)] = sum_{i: slot[s, i] = b} contrib[s, i(, j)] for
+    slot (m, n) and contrib (m, n) or (m, n, k) -> (m, B) or (m, B, k)."""
+    m, n = slot.shape
+    tail = tuple(contrib.shape[2:])
+    flat = slot.long() + table_size * torch.arange(m, device=slot.device
+                                                   )[:, None]
+    tables = torch.zeros((m * table_size,) + tail, dtype=torch.float32,
+                         device=slot.device)
+    tables.index_add_(0, flat.reshape(-1),
+                      contrib.reshape((m * n,) + tail).to(torch.float32))
+    return tables.view((m, table_size) + tail)
+
+
+def gather_blocked_ref(slot_lay, tables):
+    """out_lay[s, p(, j)] = tables[s, slot_lay[s, p](, j)]."""
+    return gather_ref(slot_lay, tables)
+
+
+def route_pack_ref(cell_lay, contrib_lay, *, num_cells: int):
+    """send[c(, j)] = the layout-order sum of contrib_lay[s, p(, j)] over
+    the run of positions with cell_lay[s, p] = c (cells >= num_cells are
+    skipped; unreached cells are 0).  Sums run head first, one addition
+    per run position, as the CUDA kernel adds them, so the two agree bit
+    for bit."""
+    m, L = cell_lay.shape
+    tail = tuple(contrib_lay.shape[2:])
+    cell = cell_lay.long()
+    real = (cell >= 0) & (cell < num_cells)
+    head = real.clone()
+    head[:, 1:] &= cell[:, 1:] != cell[:, :-1]
+    starts = head.view(-1).nonzero()[:, 0]
+    # run length: real positions up to the next head (runs are contiguous)
+    run_of = torch.cumsum(head.view(-1), 0) - 1
+    lengths = torch.bincount(run_of[real.view(-1)],
+                             minlength=starts.numel())
+    vals = contrib_lay.reshape((m * L,) + tail)
+    acc = torch.zeros((starts.numel(),) + tail, dtype=torch.float32,
+                      device=cell_lay.device)
+    r = 0
+    live = torch.arange(starts.numel(), device=cell_lay.device)
+    while live.numel():
+        acc[live] = acc[live] + vals[starts[live] + r]
+        r += 1
+        live = live[lengths[live] > r]
+    send = torch.zeros((num_cells,) + tail, dtype=torch.float32,
+                       device=cell_lay.device)
+    send[cell.view(-1)[starts]] = acc
+    return send
+
+
+def route_unpack_ref(cell_lay, coeff_lay, back):
+    """out_lay[s, p(, j)] = coeff_lay[s, p] * back[cell_lay[s, p](, j)],
+    with sentinel cells (>= len(back)) reading 0."""
+    num_cells = back.shape[0]
+    cell = cell_lay.long()
+    idx = torch.where((cell >= 0) & (cell < num_cells), cell, num_cells)
+    pad = torch.zeros((1,) + tuple(back.shape[1:]), dtype=back.dtype,
+                      device=back.device)
+    vals = torch.cat([back, pad])[idx]
+    return (coeff_lay if back.ndim == 1 else coeff_lay[..., None]) * vals

@@ -16,11 +16,16 @@ import repro_torch.core as T
 from repro_torch.core.lsh import lsh_params_from_numpy
 from repro_torch.data import make_regression
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.core import distributed as D
 from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
+                                         bin_gather_blocked_cuda,
                                          bin_gather_cuda,
                                          bin_scatter_blocked_cuda,
-                                         fused_matvec_ref, gather_ref,
-                                         scatter_blocked_ref)
+                                         bin_scatter_cuda, fused_matvec_ref,
+                                         gather_blocked_ref, gather_ref,
+                                         route_pack_cuda, route_pack_ref,
+                                         route_unpack_cuda, route_unpack_ref,
+                                         scatter_blocked_ref, scatter_ref)
 from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
 
 pytestmark = pytest.mark.gpu
@@ -127,13 +132,82 @@ def test_fit_on_card_matches_cpu(cuda, precond):
     gpu = T.wlsh_krr_fit(lsh, x, y, spec, device=cuda, **kw)
     p_gpu = T.wlsh_krr_predict(gpu, xq, batch_size=128).cpu()
     counts = launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    fit_path = ("featurize", "bin_fused_matvec", "bin_scatter_blocked",
+                "bin_gather")
+    assert all(counts[k] > 0 for k in fit_path), counts
     cpu = T.wlsh_krr_fit(lsh, x, y, spec, device="cpu", **kw)
     p_cpu = T.wlsh_krr_predict(cpu, xq)
     torch.testing.assert_close(p_gpu, p_cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("k", [0, 1, 4])
+def test_point_scatter_matches_plain(cuda, k):
+    """B5: global atomics, so the sum order varies: 1e-5 of max|out|."""
+    rng = np.random.default_rng(10 + k)
+    m, n, table_size = 5, 4000, 1 << 12
+    slot = torch.from_numpy(rng.integers(0, table_size, (m, n),
+                                         dtype=np.int32)).to(cuda)
+    slot[:, : n // 4] = 9                       # a heavy bucket
+    shape = (m, n) if k == 0 else (m, n, k)
+    contrib = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                               ).to(cuda)
+    got = bin_scatter_cuda(slot, contrib, table_size)
+    want = scatter_ref(slot, contrib, table_size=table_size)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_gather_blocked_is_bitwise(cuda, k):
+    rng = np.random.default_rng(20 + k)
+    lay = _layout(rng, 4, 3000, 1 << 12, cuda)
+    shape = (4, 1 << 12) if k == 0 else (4, 1 << 12, k)
+    tables = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                              ).to(cuda)
+    assert torch.equal(bin_gather_blocked_cuda(lay.slot_lay, tables),
+                       gather_blocked_ref(lay.slot_lay, tables))
+
+
+def _route(rng, device, n_shards=2, cap_factor=2.0):
+    m, n, table_size = 5, 3000, 1 << 12
+    slot = torch.from_numpy(rng.integers(0, table_size, (m, n),
+                                         dtype=np.int32)).to(device)
+    slot[:, : n // 4] = 9
+    lay = T.build_blocked_layout(slot, torch.ones((m, n), device=device),
+                                 table_size, block_n=64, parts="both")
+    pt_cell, _, _, cap, _, _ = D._routing_maps(slot, lay, n_shards,
+                                               table_size, cap_factor)
+    nb = n_shards * cap
+    return lay, D._make_route_plan(pt_cell, lay, nb), nb
+
+
+@pytest.mark.parametrize("cap_factor", [2.0, 0.05])
+@pytest.mark.parametrize("k", [0, 1, 4])
+def test_route_pack_and_unpack_are_bitwise(cuda, k, cap_factor):
+    """B7 sums each cell's run in layout order, as its plain version does;
+    B8 is one product per position: both bitwise, with dropped buckets
+    (cap_factor 0.05) on the sentinel."""
+    rng = np.random.default_rng(30 + k)
+    lay, cell_lay, nb = _route(rng, cuda, cap_factor=cap_factor)
+    m, L = cell_lay.shape
+    tail = () if k == 0 else (k,)
+    contrib = torch.from_numpy(rng.standard_normal(
+        (m, L) + tail, dtype=np.float32)).to(cuda)
+    assert torch.equal(route_pack_cuda(cell_lay, contrib, nb),
+                       route_pack_ref(cell_lay, contrib, num_cells=nb))
+    back = torch.from_numpy(rng.standard_normal(
+        (nb,) + tail, dtype=np.float32)).to(cuda)
+    assert torch.equal(route_unpack_cuda(cell_lay, lay.coeff_lay, back),
+                       route_unpack_ref(cell_lay, lay.coeff_lay, back))
 
 
 def test_bad_arguments_raise(cuda):
     slot = torch.zeros((2, 10), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         bin_gather_cuda(slot, torch.zeros((2, 16), device=cuda))
+    with pytest.raises(ValueError):
+        bin_scatter_cuda(slot.int(), torch.zeros((2, 11), device=cuda), 16)
+    with pytest.raises(ValueError):
+        route_unpack_cuda(slot.int(), torch.zeros((2, 10), device=cuda),
+                          torch.zeros((4,), dtype=torch.float64,
+                                      device=cuda))

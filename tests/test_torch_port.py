@@ -83,13 +83,13 @@ def test_operator_refuses_unported_paths():
         op.build_index(feats, mode="exact")
     idx = op.build_index(feats, blocked=False)
     beta = torch.ones(50)
-    # the unsorted scatter kernel is not ported: tables need the layout
-    for fn in (op.loads, op.matvec):
-        with pytest.raises(ValueError, match="slot-blocked"):
-            fn(idx, beta)
     full = op.build_index(feats)
-    torch.testing.assert_close(op.loads(full, beta),
-                               T.table_loads(full, beta))
+    # an index without the layout takes the point scatter and the split
+    # matvec; both agree with the layout's paths
+    for index in (idx, full):
+        torch.testing.assert_close(op.loads(index, beta),
+                                   T.table_loads(full, beta))
+    torch.testing.assert_close(op.matvec(idx, beta), op.matvec(full, beta))
 
 
 def test_regression_data_is_seeded_and_standardized():
