@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of WLSH-KRR on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
+predict and the distributed step, and LM serving.
 
     python3 chip_smoke.py [--seed 0]
 
 Run from the root of a checkout.  Phases, in order; any failure exits
 non-zero:
 
-1. Card and build: the card's name and power limit, then the eight kernels
-   built by nvcc for sm_90a from ``src/repro_torch/csrc`` (three sources,
+1. Card and build: the card's name and power limit, then the nine kernels
+   built by nvcc for sm_90a from ``src/repro_torch/csrc`` (four sources,
    one nvcc each, all started together).
 2. Per-kernel parity at full width (d = m = 64), at n = 2^16 and at the main
    phase's n = 2^22, each kernel against its plain PyTorch version on the
@@ -18,7 +19,12 @@ non-zero:
    layout at the split geometry (block_n = 64) and one rank's routing: the
    blocked scatter again, the point scatter B5 to 1e-5 of max|out| (global
    atomics), the layout gather B6 and the route pack/unpack B7/B8 bitwise,
-   at k = 1 and 4 for n = 2^16 and k = 1 at n = 2^22.
+   at k = 1 and 4 for n = 2^16 and k = 1 at n = 2^22.  Then flash decode
+   B9 at the kv-head shapes of gemma3-1b (KV 1, G 4, D 256; f32 and bf16
+   caches), qwen3-14b (KV 8, G 5, D 128, bf16), phi3-mini-3.8b (KV 32, G 1,
+   D 96, f32) and command-r-plus-104b (KV 8, G 12, D 128, bf16), each with
+   random lengths, one valid row, a wrapped ring and no valid row, T not a
+   multiple of the 32-row tile: 1e-5 of max|out| (f32), 1e-4 (bf16).
 3. Main phase: ``wlsh_krr_fit`` then ``wlsh_krr_predict`` at the repo's
    ``wlsh_krr`` config (n = 2^22, d = 64, m = 64, B = 2^23, rect,
    Gamma(2, 1), lam = 1, no preconditioner, 32 PCG iterations as the
@@ -41,10 +47,20 @@ non-zero:
    (a)'s predictions against phase 3's (1e-4 of max|pred|), and the two
    hash-join predictions bitwise.  Wall time, peak memory, phase split and
    StepStats of each step are printed.
-5. Times, run last: B1-B4 at the main phase's shapes and B5-B8 at phase 6's,
-   each kernel (CUDA events), its plain version, its bound from bytes and
-   operations, and one PyTorch library call computing the same function
-   where there is one.
+7. LM serving: gemma3-1b at its full config (26 layers, d_model 1152,
+   vocab 262144; f32, random weights from the seed) through
+   ``repro_torch.launch.serve.generate``: batch 8, a 2048-token prompt, 64
+   greedy tokens, so every 512-row local ring wraps and the global caches
+   hold 2112 rows.  Counts reset before and read after: B9 must launch 26
+   times per decode step.  Then decode_step(prefill(x[:2048]), x[2048])
+   against the last logits of prefill(x[:2049]) within 2e-3 of max|logit|,
+   and B9's share of a step from its times at the step's two cache shapes.
+5. Times, run last: B1-B4 at the main phase's shapes, B5-B8 at phase 6's
+   and B9 at the decode_32k shape (T = 32768; the gemma3-1b global layer in
+   f32 and bf16, qwen3-14b in bf16), each kernel (CUDA events), its plain
+   version, its bound from bytes and operations, and one PyTorch library
+   call computing the same function where there is one
+   (scaled_dot_product_attention for B9).
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -87,10 +103,31 @@ KERNELS = {
                    "src/repro/kernels/binning/kernel.py:437"),
     "route_unpack": ("src/repro_torch/csrc/route.cu",
                      "src/repro/kernels/binning/kernel.py:480"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode/kernel.py:64"),
 }
 # the kernels of the distributed step, with the phase-6 path that runs them
 DIST_PATHS = {"bin_scatter": "b", "bin_gather_blocked": "a",
               "route_pack": "c", "route_unpack": "c"}
+# the kernels of the LM serving path (phase 7)
+LM_KERNELS = ("flash_decode",)
+# phase 7: gemma3-1b at its full config, f32, seeded random weights
+LM = dict(arch="gemma3-1b", batch=8, prompt=2048, gen=64)
+# B9 parity shapes (name, B, KV, G, D, T, cache dtype): the kv-head shapes of
+# four dense archs, T not a multiple of the kernel's 32-row tile
+DECODE_PARITY = (("gemma3-1b", 8, 1, 4, 256, 2112, "float32"),
+                 ("gemma3-1b", 8, 1, 4, 256, 2111, "float32"),
+                 ("gemma3-1b", 8, 1, 4, 256, 2111, "bfloat16"),
+                 ("qwen3-14b", 4, 8, 5, 128, 1001, "bfloat16"),
+                 ("phi3-mini-3.8b", 4, 32, 1, 96, 517, "float32"),
+                 ("command-r-plus-104b", 4, 8, 12, 128, 777, "bfloat16"))
+# B9 times at the decode_32k shape (configs/base.py SHAPES: T = 32768,
+# B = 128, or the largest power of two whose cache, the plain version's f32
+# copies and a head-expanded copy for the library call fit in DECODE_GIB)
+DECODE_TIMED = (("gemma3-1b global", 1, 4, 256, "float32"),
+                ("gemma3-1b global", 1, 4, 256, "bfloat16"),
+                ("qwen3-14b", 8, 5, 128, "bfloat16"))
+DECODE_GIB = 60
 
 
 def fail(msg: str):
@@ -381,7 +418,7 @@ def phase_main(torch, data, seed):
     say(f"  peak device memory {peak / 2**30:.2f} GiB")
     say(f"  launches {counts}")
     missing = [k for k, v in counts.items()
-               if v <= 0 and k not in DIST_PATHS]
+               if v <= 0 and k not in DIST_PATHS and k not in LM_KERNELS]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
     if tel["iters"] != MAIN["maxiter"] or not hist[-1] < hist[0]:
@@ -650,7 +687,255 @@ def dist_times(torch, x, lsh, beta, ts):
     return rows
 
 
-def phase_times(torch, data, model, counts, errs, dist_state):
+def decode_inputs(torch, dev, b, kv, g, d, t, dtype, seed, lens="random"):
+    """Random q, k, v and a validity mask of one of four kinds: random
+    lengths, one valid row, a wrapped ring (all valid), no valid row."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    k = torch.randn((b, t, kv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kv, d), generator=gen, device=dev).to(dtype)
+    rows = torch.arange(t, device=dev)[None]
+    if lens == "random":
+        n = torch.randint(1, t + 1, (b, 1), generator=gen, device=dev)
+        valid = rows < n
+    elif lens == "one":
+        valid = (rows == t // 2).expand(b, -1)
+    elif lens == "wrapped":
+        valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+    else:
+        valid = torch.zeros((b, t), dtype=torch.bool, device=dev)
+    return q, k, v, valid.to(torch.int32).contiguous()
+
+
+def phase_parity_decode(torch, dev, seed):
+    """B9 against its plain version at the kv-head shapes of four dense
+    archs: 1e-5 of max|out| with an f32 cache, 1e-4 with bf16."""
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_ref)
+    say("== phase 2: flash decode (B9) against its plain version")
+    worst = 0.0
+    for i, (arch, b, kv, g, d, t, dt) in enumerate(DECODE_PARITY):
+        dtype = getattr(torch, dt)
+        lim_rel = 1e-5 if dtype == torch.float32 else 1e-4
+        errs = []
+        for lens in ("random", "one", "wrapped", "none"):
+            args = decode_inputs(torch, dev, b, kv, g, d, t, dtype,
+                                 seed + i, lens)
+            got = flash_decode_cuda(*args)
+            want = flash_decode_ref(*args)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"flash decode {arch} T={t} {dt} {lens}: non-finite")
+            err = max_err(got, want)
+            lim = lim_rel * float(want.abs().max())
+            if not err <= lim:
+                fail(f"flash decode {arch} T={t} {dt} {lens}: err {err} > "
+                     f"{lim}")
+            errs.append(err)
+            worst = max(worst, err)
+        say(f"  {arch} B={b} KV={kv} G={g} D={d} T={t} {dt}: max err "
+            f"{max(errs):.3g} over random lengths / one valid row / wrapped "
+            f"ring / no valid row (limit {lim_rel:g} of max|out|)")
+    return worst
+
+
+def phase_lm(torch, dev, seed):
+    """Phase 7: gemma3-1b at its full config served through
+    repro_torch.launch.serve.generate, then prefill/decode consistency."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_ref)
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as TM
+    from repro_torch.models.attention import ring_valid
+    cfg = registry.get_config(LM["arch"])
+    b, s, n_gen = LM["batch"], LM["prompt"], LM["gen"]
+    say(f"== phase 7: LM serving, {cfg.name} at its full config (f32, "
+        f"seeded random weights), batch {b}, prompt {s}, {n_gen} greedy "
+        f"tokens")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = sync_clock(torch)
+    params = TM.init(cfg, gen, torch.float32)
+    say(f"  {TM.count_params(cfg):,} parameters ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+        f"head_dim {cfg.head_dim}, vocab {cfg.vocab_size}) made in "
+        f"{sync_clock(torch) - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ids, t_pre, t_dec = generate(cfg, params, tokens, n_gen,
+                                 generator=gen)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = n_gen - 1
+    per_step = t_dec / steps * 1e3
+    say(f"  prefill {b}x{s}: {t_pre * 1e3:.2f} ms; decode {steps} steps: "
+        f"{per_step:.3f} ms per step, {b * steps / t_dec:.1f} tok/s; peak "
+        f"device memory {peak:.2f} GiB")
+    say(f"  launches {dict((k, v) for k, v in counts.items() if v)}")
+    if counts["flash_decode"] != cfg.n_layers * steps:
+        fail(f"phase 7: flash_decode launched {counts['flash_decode']} "
+             f"times, not {cfg.n_layers} per decode step x {steps}")
+    if ids.shape != (b, n_gen) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        fail(f"phase 7: generated ids of shape {tuple(ids.shape)} out of "
+             f"range")
+    say(f"  sample ids {ids[0, :8].tolist()} ...")
+
+    # prefill/decode consistency at full width: B9 on the rows written by the
+    # prefill (every local ring wrapped, global caches 2049 of 2112 valid)
+    with torch.inference_mode():
+        x = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                          device=dev)
+        ref, _, _ = TM.prefill(cfg, params, {"tokens": x},
+                               dtype=torch.float32)
+        _, cache, pos = TM.prefill(cfg, params, {"tokens": x[:, :s]},
+                                   max_cache_len=s + n_gen,
+                                   dtype=torch.float32)
+        got, _ = TM.decode_step(cfg, params, cache, x[:, s:], pos,
+                                dtype=torch.float32)
+    if not (bool(torch.isfinite(got).all()) and bool(
+            torch.isfinite(ref).all())):
+        fail("phase 7: non-finite logits")
+    err = max_err(got, ref) / float(ref.abs().max())
+    say(f"  decode_step(prefill(x[:{s}]), x[{s}]) vs prefill(x[:{s + 1}]) "
+        f"last logits: {err:.3g} of max|logit| {float(ref.abs().max()):.4g} "
+        f"(limit 2e-3)")
+    if not err <= 2e-3:
+        fail(f"phase 7: prefill/decode consistency {err} > 2e-3")
+
+    # B9's share of a decode step, at the step's two cache shapes
+    valid = {}
+    b9 = {}
+    for i, slot in enumerate(cfg.layer_pattern):
+        kind = "global" if slot.window == 0 else "local"
+        if kind in b9:
+            continue
+        ck, cv = cache[f"slot{i}"]["k"][0], cache[f"slot{i}"]["v"][0]
+        valid[kind] = ring_valid(pos + 1, ck.shape[1])
+        q = torch.randn((b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                         cfg.head_dim), generator=gen, device=dev)
+        args = (q, ck, cv, valid[kind])
+        ms = time_ms(torch, lambda: flash_decode_cuda(*args), reps=20)
+        plain = time_ms(torch, lambda: flash_decode_ref(*args), reps=5)
+        b9[kind] = (ms, plain, ck.shape[1], nbytes(q, ck, cv, valid[kind], q))
+    n_global = sum(1 for sl in cfg.layer_pattern if sl.window == 0)
+    n_local = cfg.n_layers - n_global
+    b9_step = n_global * b9["global"][0] + n_local * b9["local"][0]
+    for kind, (ms, plain, tc, nb) in b9.items():
+        say(f"  B9 at the {kind} cache (T = {tc}): {ms:.4f} ms (bound "
+            f"{bound(nb)[0]:.4f} ms), plain {plain:.4f} ms")
+    w_bytes = 4 * TM.count_params(cfg)
+    c_bytes = sum(t.numel() * t.element_size() for sl in cache.values()
+                  for t in sl.values())
+    say(f"  B9 per decode step: {n_global} x global + {n_local} x local = "
+        f"{b9_step:.3f} ms, {b9_step / per_step:.1%} of the step; the "
+        f"step's byte bound (weights {w_bytes / 1e9:.2f} GB + caches "
+        f"{c_bytes / 1e9:.3f} GB once) {bound(w_bytes + c_bytes)[0]:.3f} ms")
+    profile_decode(torch, cfg, params, cache, x[:, s:], pos + 1)
+    del params, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_decode(torch, cfg, params, cache, tok, pos, steps: int = 3):
+    """torch.profiler over a few decode steps: kernels launched per step,
+    the device's busy time (the sum of kernel times: one stream) against the
+    wall, and the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_decode_step
+    decode = make_decode_step(cfg, dtype=torch.float32)
+    with torch.inference_mode():
+        decode(params, cache, tok, pos)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = sync_clock(torch)
+            for i in range(steps):
+                decode(params, cache, tok, pos + 1 + i)
+            wall = (sync_clock(torch) - t0) * 1e3 / steps
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
+        say("  profiler: no device events recorded; device busy share not "
+            "measured")
+        return
+    busy = sum(us for _, us in by_name.values()) / 1e3 / steps
+    launches = sum(n for n, _ in by_name.values()) / steps
+    say(f"  profiled decode step (torch.profiler, {steps} steps): wall "
+        f"{wall:.3f} ms, {launches:.0f} kernels, device busy {busy:.3f} ms "
+        f"({busy / wall:.1%}; idle {1 - busy / wall:.1%})")
+    b9 = {part: sum(us for name, (_, us) in by_name.items()
+                    if f"{part}_kernel" in name) / 1e3 / steps
+          for part in ("split", "combine")}
+    say(f"    B9 on the device: split {b9['split']:.3f} + combine "
+        f"{b9['combine']:.3f} ms/step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    for name, (n, us) in top:
+        say(f"    {us / 1e3 / steps:.3f} ms/step in {n // steps} x "
+            f"{name[:90]}")
+
+
+def decode_batch(torch, kv, g, d, dtype):
+    """The decode_32k batch for one kv-head shape: 128, halved until the
+    cache, the plain version's f32 copies and a head-expanded copy for the
+    library call fit in DECODE_GIB."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    b = 128
+    while b > 1:
+        cache = 2 * b * 32768 * kv * d * elt
+        if cache * (1 + 4 / elt + g) <= DECODE_GIB * 2**30:
+            break
+        b //= 2
+    return b
+
+
+def decode_times(torch, dev, seed):
+    """B9 at the decode_32k shape, against its plain version, its byte
+    bound and scaled_dot_product_attention (enable_gqa, boolean mask) on
+    the same cache laid out (B, KV, T, D)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_ref)
+    t = 32768
+    rows = []
+    for i, (label, kv, g, d, dt) in enumerate(DECODE_TIMED):
+        dtype = getattr(torch, dt)
+        b = decode_batch(torch, kv, g, d, dtype)
+        q, k, v, valid = decode_inputs(torch, dev, b, kv, g, d, t, dtype,
+                                       seed + i)
+        run = lambda: flash_decode_cuda(q, k, v, valid)
+        out = run()
+        ms = time_ms(torch, run, reps=10)
+        plain = time_ms(torch, lambda: flash_decode_ref(q, k, v, valid),
+                        reps=3)
+        b_ms, b_by = bound(nbytes(q, k, v, valid, out),
+                           4.0 * b * kv * g * t * d)
+        kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
+        del k, v
+        torch.cuda.empty_cache()
+        qs = q.reshape(b, kv * g, 1, d).to(dtype)
+        mask = (valid > 0)[:, None, None, :]
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, enable_gqa=True), reps=3)
+        say(f"  B9 decode_32k {label} {dt}: B={b} KV={kv} G={g} D={d} "
+            f"T={t}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+            f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, "
+            f"scaled_dot_product_attention {lib:.4f} ms")
+        rows.append((ms, plain, (b_ms, b_by), lib))
+        del q, kt, vt, valid, out, qs, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_times(torch, data, model, counts, errs, dist_state, lm_counts,
+                seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                              bin_gather_cuda,
@@ -730,11 +1015,14 @@ def phase_times(torch, data, model, counts, errs, dist_state):
 
     del q_slot, idx, out
     rows.update(dist_times(torch, x, dist_state[0], dist_state[1], ts))
+    torch.cuda.empty_cache()
+    rows["flash_decode"] = decode_times(torch, data[0].device, seed)[0]
     entries = []
     for name, (ms, plain, (b_ms, b_by), lib) in rows.items():
         src, replaces = KERNELS[name]
         path = DIST_PATHS.get(name)
-        launches = (counts[name] if path is None
+        launches = (lm_counts[name] if name in LM_KERNELS
+                    else counts[name] if path is None
                     else dist_state[2][path][name])
         entries.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=launches,
@@ -775,11 +1063,14 @@ def main(argv=None) -> int:
     say(f"data: n={MAIN['n']} d={MAIN['d']} and {MAIN['n_query']} queries "
         f"from seed {args.seed} in {time.perf_counter() - t0:.2f} s")
     errs = phase_parity(torch, data[0], data[2], args.seed)
+    errs["flash_decode"] = phase_parity_decode(torch, dev, args.seed)
     model, counts, _, main_pred = phase_main(torch, data, args.seed)
     phase_small(torch, dev, args.seed)
     dist_state = phase_distributed(torch, data, args.seed, main_pred)
     del main_pred
-    entries = phase_times(torch, data, model, counts, errs, dist_state)
+    lm_counts = phase_lm(torch, dev, args.seed)
+    entries = phase_times(torch, data, model, counts, errs, dist_state,
+                          lm_counts, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

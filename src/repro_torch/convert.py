@@ -6,6 +6,10 @@ float32, r1, r2 as uint32; anything ``numpy.asarray`` reads) and
 table_size, bucket_name).  Both only read attributes and convert through
 numpy, so this module imports neither JAX nor the JAX package.  A converted
 model predicts through the port as the JAX model does.
+
+``lm_params_from_reference`` and ``lm_cache_from_reference`` take the LM
+stack's parameter and decode-cache trees (nested dicts of arrays, the stacked
+group axis first) and give tensor trees with the same keys.
 """
 from __future__ import annotations
 
@@ -47,3 +51,27 @@ def model_from_reference(model, device=None) -> WLSHKRRModel:
         cg_col_iters=None if col_iters is None
         else _tensor(col_iters, np.int32, dev),
         solve_fallback=str(getattr(model, "solve_fallback", "")))
+
+
+def _tensor_tree(tree, device):
+    """Nested dicts of arrays -> the same dicts of tensors on ``device``,
+    dtype kept (bfloat16, which numpy lacks, goes through float32)."""
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_reference(params, device=None) -> dict:
+    """The port's LM parameter tree from the JAX package's (``model.init``),
+    on ``device``."""
+    return _tensor_tree(params, resolve_device(device))
+
+
+def lm_cache_from_reference(cache, device=None) -> dict:
+    """The port's decode cache from the JAX package's (``model.prefill`` or
+    ``model.init_cache``), on ``device``."""
+    return _tensor_tree(cache, resolve_device(device))

@@ -11,6 +11,7 @@ from .binning.kernel import (bin_fused_matvec_cuda, bin_gather_blocked_cuda,
                              bin_scatter_cuda, route_pack_cuda,
                              route_unpack_cuda)
 from .featurize.kernel import featurize_cuda
+from .flash_decode.kernel import flash_decode_cuda
 
 KERNEL_WRAPPERS = {
     "featurize": featurize_cuda,
@@ -21,6 +22,7 @@ KERNEL_WRAPPERS = {
     "bin_gather_blocked": bin_gather_blocked_cuda,
     "route_pack": route_pack_cuda,
     "route_unpack": route_unpack_cuda,
+    "flash_decode": flash_decode_cuda,
 }
 
 

@@ -211,3 +211,94 @@ def test_bad_arguments_raise(cuda):
         route_unpack_cuda(slot.int(), torch.zeros((2, 10), device=cuda),
                           torch.zeros((4,), dtype=torch.float64,
                                       device=cuda))
+
+
+# (B, KV, G, D, T): gemma3-1b, qwen3-14b, phi3-mini-3.8b, command-r-plus-104b
+# kv-head shapes; T not a multiple of the 32-row tile, and T = 1
+DECODE_SHAPES = [(3, 1, 4, 256, 2112), (2, 8, 5, 128, 517),
+                 (2, 32, 1, 96, 300), (2, 8, 12, 128, 1000), (4, 2, 3, 16, 1)]
+
+
+@pytest.mark.parametrize("lens", ["random", "one", "wrapped", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kv,g,d,t", DECODE_SHAPES)
+def test_flash_decode_matches_plain(cuda, b, kv, g, d, t, dtype, lens):
+    """B9 against its plain version: random lengths, one valid row in the
+    middle, a wrapped ring (all valid) and no valid row; 1e-5 of max|out|
+    in f32, 1e-4 with a bf16 cache (f32 accumulation in both)."""
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_ref)
+    rng = np.random.default_rng(b * t + d)
+    q = torch.from_numpy(rng.standard_normal((b, kv, g, d),
+                                             dtype=np.float32)).to(cuda)
+    k = torch.from_numpy(rng.standard_normal((b, t, kv, d),
+                                             dtype=np.float32)).to(cuda)
+    v = torch.from_numpy(rng.standard_normal((b, t, kv, d),
+                                             dtype=np.float32)).to(cuda)
+    k, v = k.to(dtype), v.to(dtype)
+    lengths = rng.integers(1, t + 1, (b, 1))
+    valid = np.arange(t)[None] < lengths
+    if lens == "one":
+        valid = np.zeros((b, t), bool)
+        valid[:, t // 2] = True
+    elif lens == "wrapped":
+        valid = np.ones((b, t), bool)
+    elif lens == "none":
+        valid = np.zeros((b, t), bool)
+    valid = torch.from_numpy(valid.astype(np.int32)).to(cuda)
+    for softcap in (0.0, 5.0):
+        got = flash_decode_cuda(q, k, v, valid, softcap=softcap)
+        want = flash_decode_ref(q, k, v, valid, softcap=softcap)
+        torch.cuda.synchronize()
+        lim = (1e-5 if dtype == torch.float32 else 1e-4) * float(
+            want.abs().max())
+        assert float((got - want).abs().max()) <= lim
+
+
+def test_flash_decode_bad_arguments_raise(cuda):
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    q = torch.zeros((1, 1, 17, 16), device=cuda)
+    k = torch.zeros((1, 8, 1, 16), device=cuda)
+    valid = torch.ones((1, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        flash_decode_cuda(q, k, k, valid)                  # G > 16
+    with pytest.raises(ValueError):
+        flash_decode_cuda(q[:, :, :4], k, k.bfloat16(), valid)  # mixed dtype
+    with pytest.raises(ValueError):
+        flash_decode_cuda(q[:, :, :4], k, k, valid.long())
+    with pytest.raises(ValueError):                        # D % 8 != 0
+        flash_decode_cuda(q[:, :, :4, :12].contiguous(),
+                          k[..., :12].contiguous(), k[..., :12].contiguous(),
+                          valid)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-14b"])
+def test_decode_on_card_matches_cpu(cuda, arch):
+    """prefill + 6 decode steps of the smoke config on the card against the
+    same on the CPU (the same weights); B9 launched once per layer per step."""
+    from repro_torch.configs import registry
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import tree_map
+    cfg = registry.smoke_config(arch)
+    params = TM.init(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 14))).long()
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        tk = toks.to(dev)
+        reset_launch_counts()
+        logits, cache, pos = TM.prefill(cfg, p, {"tokens": tk[:, :8]},
+                                        max_cache_len=14, dtype=torch.float32)
+        steps = [logits]
+        for t in range(8, 14):
+            logits, cache = TM.decode_step(cfg, p, cache, tk[:, t:t + 1], pos,
+                                           dtype=torch.float32)
+            pos = pos + 1
+            steps.append(logits)
+        out[str(dev)] = torch.stack(steps).cpu()
+        if dev != "cpu":
+            assert launch_counts()["flash_decode"] == 6 * cfg.n_layers
+    scale = float(out["cpu"].abs().max())
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4 * scale,
+                               rtol=0)
