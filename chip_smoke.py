@@ -9,17 +9,22 @@ non-zero:
 
 1. Card and build: the card's name and power limit, then the nine kernels
    built by nvcc for sm_90a from ``src/repro_torch/csrc`` (four sources,
-   one nvcc each, all started together).
+   and a fifth of yardsticks timed in phase 5; one nvcc each, all started
+   together).
 2. Per-kernel parity at full width (d = m = 64), at n = 2^16 and at the main
    phase's n = 2^22, each kernel against its plain PyTorch version on the
    same inputs: featurize keys, slot and sign bitwise, weight and coeff to
    atol 2e-6; matvec and scatter to 1e-5 of the output's max (shared-memory
    atomics sum in another order), at k = 1 and, where the plain version
    fits, k = 4; gather bitwise.  Then the distributed step's kernels on a
-   layout at the split geometry (block_n = 64) and one rank's routing: the
-   blocked scatter again, the point scatter B5 to 1e-5 of max|out| (global
-   atomics), the layout gather B6 and the route pack/unpack B7/B8 bitwise,
-   at k = 1 and 4 for n = 2^16 and k = 1 at n = 2^22.  Then flash decode
+   layout at the split geometry (block_n = 64): the blocked scatter again,
+   the point scatter B5 to 1e-5 of max|out| (global atomics), the layout
+   gather B6, and the route pack B7 (f32, and bf16 out against the plain
+   pack cast to bf16) and unpack B8 bitwise, at k = 1 and 4 for n = 2^16
+   over four routings built on the one card (one owner; one owner with
+   cap_factor 0.1, which drops buckets; 2 and 4 owners), and again with
+   4096 points of every instance on one slot (1 and 2 owners); at
+   n = 2^22 one rank's routing and k = 1.  Then flash decode
    B9 at the kv-head shapes of gemma3-1b (KV 1, G 4, D 256; f32 and bf16
    caches), qwen3-14b (KV 8, G 5, D 128, bf16), phi3-mini-3.8b (KV 32, G 1,
    D 96, f32) and command-r-plus-104b (KV 8, G 12, D 128, bf16), each with
@@ -41,7 +46,8 @@ non-zero:
    (blocked_split=False), (c) ``run_krr_step_resilient`` on the bf16 wire
    and ``make_krr_predict_hashjoin`` with and without dedup.  Counts are
    reset before and read after each; a kernel of that path not launched
-   fails the run.  Then, outside the counts: (a)'s beta against the f32-wire
+   fails the run.  Then, outside the counts: the bf16-wire hash-join step
+   alone for (c)'s split, and (a)'s beta against the f32-wire
    hash join's and the fused step's (1e-4 of max|beta|), the bf16 wire's
    against the f32 wire's (1e-2 relative L2, the JAX package's band),
    (a)'s predictions against phase 3's (1e-4 of max|pred|), and the two
@@ -60,7 +66,14 @@ non-zero:
    f32 and bf16, qwen3-14b in bf16), each kernel (CUDA events), its plain
    version, its bound from bytes and operations, and one PyTorch library
    call computing the same function where there is one
-   (scaled_dot_product_attention for B9).
+   (scaled_dot_product_attention for B9).  B5 and B7 also against their
+   first designs (kept for that), B5 split into its kernels by
+   torch.profiler, and the zero fill of B7's send buffer alone (the
+   index_add_ yardstick leaves it out).  Each wrapper also counts its
+   launches by input shape; B1 (phase 3), B7 (phase 6 (c), f32 and bf16
+   out) and B9 (phase 7; device time from torch.profiler) are timed at
+   every shape their counted run launched them at, and listed with those
+   launches as ``by_shape``.
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -81,6 +94,10 @@ REPO = Path(__file__).resolve().parent
 MAIN = dict(n=1 << 22, n_query=1 << 20, batch=1 << 18, d=64, m=64,
             table_size=1 << 23, lam=1.0, maxiter=32)
 PARITY_NS = (1 << 16, MAIN["n"])
+# phase 2 routings at n = 2^16 (owners, cap_factor): one rank, one that
+# drops buckets past capacity, and 2 and 4 owners built on the one card
+SMALL_ROUTINGS = ((1, 2.0), (1, 0.1), (2, 2.0), (4, 2.0))
+HEAVY = 4096         # points on one slot in phase 2's heavy-bucket input
 SMALL = dict(n=1 << 12, n_query=1 << 10, k=4, rank=128, lengthscale=16.0,
              lam=0.5)
 # H100 SXM published peaks (NVIDIA data sheet; at the 700 W power limit)
@@ -164,6 +181,53 @@ def time_ms(torch, fn, reps: int = 5, warmup: bool = True) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_split(torch, fn, reps: int = 20) -> dict[str, float]:
+    """Device time of one fn() call by kernel (and memset) name, in ms,
+    from torch.profiler over ``reps`` calls: no host time, unlike an event
+    pair around launches the host cannot keep up with.  Empty when the
+    profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            split[e.name] = split.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / reps
+    return split
+
+
+def kernel_name(name: str) -> str:
+    """A profiler event's kernel name without namespace and arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].strip()
+
+
+def device_ms(torch, fn, reps: int = 20):
+    """Device time of one fn() call (``device_split`` summed); None when
+    the profiler records no device event."""
+    split = device_split(torch, fn, reps)
+    return sum(split.values()) if split else None
+
+
+def by_shape_entries(tally, timed, fmt):
+    """The ``by_shape`` list of one kernel: for each input shape the
+    counted run launched it at (``tally``, from its wrapper), those
+    launches and the times phase 5 took at that shape (``timed[shape]``, a
+    dict); a shape launched but not timed fails the run."""
+    missing = [sh for sh in tally if sh not in timed]
+    if missing:
+        fail(f"launched at shapes phase 5 did not time: {missing}")
+    return [dict(shape=fmt(sh), launches=n, **timed[sh])
+            for sh, n in sorted(tally.items())]
 
 
 def bound(nbytes: float, ops: float = 0.0):
@@ -263,26 +327,34 @@ def check_gather(torch, slot, tables):
         fail(f"gather {tuple(tables.shape)}: not bitwise equal")
 
 
-def split_setup(torch, slot, coeff, table_size):
-    """The distributed step's arrays at one rank: a layout at the split
+def split_setup(torch, slot, coeff, table_size, routings=((1, 2.0),)):
+    """The distributed step's arrays on the one card: a layout at the split
     geometry (both groups, then the sorted-segment group dropped once the
-    routing has used it) and the hash join's wire cells."""
+    routings have used it) and, for each (owners, cap_factor) in
+    ``routings``, the hash join's wire cells, ``used`` and cap, built for
+    that many owners from this card's points."""
     from repro_torch.core import distributed as D
     from repro_torch.core.wlsh import BLOCKED_SPLIT_N, build_blocked_layout
     lay = build_blocked_layout(slot, coeff, table_size,
                                block_n=BLOCKED_SPLIT_N, parts="both")
-    pt_cell, _, _, cap, _, _ = D._routing_maps(slot, lay, 1, table_size, 2.0)
-    cell_lay = D._make_route_plan(pt_cell, lay, cap)
+    routes = []
+    for n_shards, cap_factor in routings:
+        pt_cell, _, _, cap, dropped, _, used = D._routing_maps(
+            slot, lay, n_shards, table_size, cap_factor)
+        routes.append(dict(n_shards=n_shards, cap_factor=cap_factor,
+                           cell_lay=D._make_route_plan(pt_cell, lay,
+                                                       n_shards * cap),
+                           used=used, cap=cap, dropped=int(dropped)))
+        del pt_cell
     lay = lay._replace(perm=None, seg_id=None, seg_pt=None,
                        coeff_sorted=None)
-    return lay, cell_lay, cap
+    return lay, routes
 
 
-def check_dist_kernels(torch, slot, coeff, lay, cell_lay, nb, beta,
-                       table_size):
-    """B5 (to 1e-5 of max|out|), B6, B7 and B8 (bitwise) against their
-    plain versions on the same inputs; beta (n,) or (n, k).  Returns B5's
-    max error."""
+def check_dist_kernels(torch, slot, coeff, lay, routes, beta, table_size):
+    """B5 (to 1e-5 of max|out|), B6 (bitwise) and, for every routing, B7 in
+    f32 and bf16 and B8 (bitwise) against their plain versions on the same
+    inputs; beta (n,) or (n, k).  Returns B5's max error."""
     from repro_torch.kernels.binning import (bin_gather_blocked_cuda,
                                              bin_scatter_cuda,
                                              gather_blocked_ref,
@@ -309,13 +381,26 @@ def check_dist_kernels(torch, slot, coeff, lay, cell_lay, nb, beta,
         lay.coeff_lay[..., None]
     contrib_lay = coeff_lay * beta_lay
     del beta_lay
-    send = route_pack_ref(cell_lay, contrib_lay, num_cells=nb)
-    if not torch.equal(route_pack_cuda(cell_lay, contrib_lay, nb), send):
-        fail(f"route pack k={k}: not bitwise equal")
-    del contrib_lay
-    if not torch.equal(route_unpack_cuda(cell_lay, lay.coeff_lay, send),
-                       route_unpack_ref(cell_lay, lay.coeff_lay, send)):
-        fail(f"route unpack k={k}: not bitwise equal")
+    for rt in routes:
+        cell_lay, used, cap = rt["cell_lay"], rt["used"], rt["cap"]
+        nb = rt["n_shards"] * cap
+        what = f"k={k}, {rt['n_shards']} owner(s), cap_factor " \
+            f"{rt['cap_factor']}"
+        send = route_pack_ref(cell_lay, contrib_lay, num_cells=nb)
+        if not torch.equal(route_pack_cuda(cell_lay, contrib_lay, used, cap),
+                           send):
+            fail(f"route pack {what}: not bitwise equal")
+        got16 = route_pack_cuda(cell_lay, contrib_lay, used, cap,
+                                out_dtype=torch.bfloat16)
+        if not torch.equal(got16.view(torch.int16),
+                           send.to(torch.bfloat16).view(torch.int16)):
+            fail(f"route pack {what}, bf16 out: not bitwise equal to the "
+                 f"plain pack cast to bf16")
+        del got16
+        if not torch.equal(route_unpack_cuda(cell_lay, lay.coeff_lay, send),
+                           route_unpack_ref(cell_lay, lay.coeff_lay, send)):
+            fail(f"route unpack {what}: not bitwise equal")
+        del send
     return e5
 
 
@@ -366,27 +451,51 @@ def phase_parity(torch, x, xq, seed):
             say(f"  n={n} k=4: not compared (the plain version's int64 "
                 f"index and (m, k, L) temporaries need about 55 GB)")
         del lay
-        lay, cell_lay, nb = split_setup(torch, slot, coeff, table_size)
-        for k in ((1, 4) if n != MAIN["n"] else (1,)):
+        full = n == MAIN["n"]
+        lay, routes = split_setup(torch, slot, coeff, table_size,
+                                  ((1, 2.0),) if full else SMALL_ROUTINGS)
+        say(f"  n={n} routings (owners, cap_factor: wire cells, dropped "
+            f"buckets): " + "; ".join(
+                f"{r['n_shards']}, {r['cap_factor']}: "
+                f"{r['n_shards'] * r['cap']}, {r['dropped']}"
+                for r in routes))
+        for k in ((1,) if full else (1, 4)):
             b = beta if k == 1 else torch.randn(n, k, device=x.device)
             e_mv, e_sc, _ = check_binning(torch, lay, b, k)
-            e5 = check_dist_kernels(torch, slot, coeff, lay, cell_lay, nb, b,
+            e5 = check_dist_kernels(torch, slot, coeff, lay, routes, b,
                                     table_size)
-            say(f"  n={n} k={k} split geometry (block_n={lay.block_n}, "
-                f"{nb} wire cells): fused matvec err {e_mv:.3g}, blocked "
-                f"scatter err {e_sc:.3g}, point scatter err {e5:.3g}; "
-                f"layout gather, route pack, route unpack bitwise")
-            if n == MAIN["n"]:
+            say(f"  n={n} k={k} split geometry (block_n={lay.block_n}): "
+                f"fused matvec err {e_mv:.3g}, blocked scatter err "
+                f"{e_sc:.3g}, point scatter err {e5:.3g} (limit 1e-5 of "
+                f"max|out|); layout gather, route pack (f32 and bf16 out, "
+                f"every routing), route unpack bitwise")
+            if full:
                 errs.update(bin_scatter=e5, bin_gather_blocked=0.0,
                             route_pack=0.0, route_unpack=0.0)
-        del lay, cell_lay, slot, coeff
+        del lay, routes
+        if not full:
+            # a heavy bucket: HEAVY points of every instance on one slot
+            heavy = slot.clone()
+            heavy[:, :HEAVY] = table_size // 3
+            lay, routes = split_setup(torch, heavy, coeff, table_size,
+                                      ((1, 2.0), (2, 2.0)))
+            for k in (1, 4):
+                b = beta if k == 1 else torch.randn(n, k, device=x.device)
+                e5 = check_dist_kernels(torch, heavy, coeff, lay, routes, b,
+                                        table_size)
+                say(f"  n={n} k={k} {HEAVY} points per instance on one "
+                    f"slot: point scatter err {e5:.3g}; route pack (1 and "
+                    f"2 owners, f32 and bf16 out) and unpack bitwise")
+            del lay, routes, heavy
+        del slot, coeff
         torch.cuda.empty_cache()
     return errs
 
 
 def phase_main(torch, data, seed):
     import repro_torch.core as T
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
     from repro_torch.kernels.binning import gather_ref
     from repro_torch.kernels.featurize import featurize_ref
     say("== phase 3: main path at the wlsh_krr config")
@@ -405,6 +514,7 @@ def phase_main(torch, data, seed):
     pred = T.wlsh_krr_predict(model, xq, batch_size=MAIN["batch"])
     t2 = sync_clock(torch)
     counts = launch_counts()
+    shapes = launch_counts_by_shape()
     peak = torch.cuda.max_memory_allocated()
     tel = model.telemetry
     phases = dict(tel["phase_seconds"], predict=t2 - t1)
@@ -416,7 +526,8 @@ def phase_main(torch, data, seed):
     say(f"  PCG iterations {tel['iters']}, resnorm {hist[0]:.4g} -> "
         f"{hist[-1]:.4g} (relative {hist[-1] / bnorm:.3g})")
     say(f"  peak device memory {peak / 2**30:.2f} GiB")
-    say(f"  launches {counts}")
+    say(f"  launches {counts}; featurize by (n, d, m): "
+        f"{shapes['featurize']}")
     missing = [k for k, v in counts.items()
                if v <= 0 and k not in DIST_PATHS and k not in LM_KERNELS]
     if missing:
@@ -435,7 +546,7 @@ def phase_main(torch, data, seed):
         f"{nq} queries max err {err:.3g}")
     if err > 1e-5:
         fail(f"main predictions differ from the plain path by {err}")
-    return model, counts, phases, pred
+    return model, (counts, shapes), phases, pred
 
 
 def phase_small(torch, dev, seed):
@@ -472,7 +583,8 @@ def phase_distributed(torch, data, seed, main_pred):
     import torch.distributed as dist
     import repro_torch.core as T
     from repro_torch.core import distributed as D
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
     say("== phase 6: distributed step at the wlsh_krr config, one NCCL rank")
     x, y, xq = data
@@ -484,7 +596,7 @@ def phase_distributed(torch, data, seed, main_pred):
                               MAIN["d"], T.GammaPDF(2.0, 1.0), device=dev)
     base = dict(m=MAIN["m"], table_size=MAIN["table_size"], lam=MAIN["lam"],
                 cg_iters=MAIN["maxiter"])
-    counts, report = {}, {}
+    counts, shapes, report = {}, {}, {}
 
     def run(path, label, fn, need=()):
         """One step, synchronised; counts reset before and read after when
@@ -495,7 +607,7 @@ def phase_distributed(torch, data, seed, main_pred):
         t0 = sync_clock(torch)
         out = fn()
         wall = sync_clock(torch) - t0
-        c = launch_counts()
+        c, sh = launch_counts(), launch_counts_by_shape()
         peak = torch.cuda.max_memory_allocated()
         ran = {k: v for k, v in c.items() if v}
         say(f"  ({path}) {label}: wall {wall:.4f} s, peak device memory "
@@ -504,7 +616,7 @@ def phase_distributed(torch, data, seed, main_pred):
         if missing:
             fail(f"phase 6 ({path}): kernels not launched: {missing}")
         if need:
-            counts[path] = c
+            counts[path], shapes[path] = c, sh
         report[path] = dict(wall_s=wall, peak_gib=peak / 2**30)
         return out
 
@@ -552,11 +664,19 @@ def phase_distributed(torch, data, seed, main_pred):
     beta_c, res_c, stats_c = run(
         "c", "hash-join resilient step (bf16 wire) + predict dedup on/off",
         path_c, ("featurize", "route_pack", "route_unpack"))
+    say(f"      route_pack by (m, L, k, cells, out dtype): "
+        f"{shapes['c']['route_pack']}")
     say(f"      resnorm {float(res_c):.4g}; StepStats overflow_dropped "
         f"{int(stats_c.overflow_dropped)}, wire_nonfinite "
         f"{int(stats_c.wire_nonfinite)}")
 
-    # comparisons, outside the counted paths
+    # comparisons, outside the counted paths; (c)'s step split from the
+    # same step on its own
+    step_c = D.make_krr_step_hashjoin(mesh, cfg_c, T.RECT,
+                                      payload_dtype=torch.bfloat16)
+    run("hj-bf16", "hash-join step (bf16 wire, as in (c))",
+        lambda: step_c(x, y, lsh))
+    say(f"      step split ms: {split(step_c)}")
     step_hj = D.make_krr_step_hashjoin(mesh, cfg_c, T.RECT,
                                        payload_dtype=torch.float32)
     beta_hj, _, _, stats_hj = run("hj-f32", "hash-join step (f32 wire)",
@@ -592,12 +712,15 @@ def phase_distributed(torch, data, seed, main_pred):
                (beta_a, beta_b, beta_c, pred_a, pred_hj[True])):
         fail("phase 6: non-finite betas or predictions")
     dist.destroy_process_group()
-    return lsh, beta_a, counts
+    return lsh, beta_a, counts, shapes
 
 
 def dist_times(torch, x, lsh, beta, ts):
     """B5-B8 at phase 6's shapes (n = 2^22, one rank's routing), with
-    their plain versions and library calls."""
+    their plain versions and library calls; B5 and B7 also against their
+    first designs, B5 split by the profiler into its kernels, and B7's zero
+    fill of the send buffer alone.  Returns the rows and B7's times by its
+    wrapper's shape key, f32 and bf16 out."""
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_gather_blocked_cuda,
                                              bin_scatter_cuda,
@@ -605,6 +728,8 @@ def dist_times(torch, x, lsh, beta, ts):
                                              route_pack_cuda, route_pack_ref,
                                              route_unpack_cuda,
                                              route_unpack_ref, scatter_ref)
+    from repro_torch.kernels.binning.variants import (bin_scatter_v1_cuda,
+                                                      route_pack_v1_cuda)
     from repro_torch.kernels.binning.ops import layout_rows
     from repro_torch.kernels.featurize import featurize_cuda
     m = lsh.m
@@ -616,6 +741,7 @@ def dist_times(torch, x, lsh, beta, ts):
     run = lambda: bin_scatter_cuda(slot, contrib, ts)
     tables = run()
     ms = time_ms(torch, run)
+    v1 = time_ms(torch, lambda: bin_scatter_v1_cuda(slot, contrib, ts))
     plain = time_ms(torch, lambda: scatter_ref(slot, contrib, table_size=ts),
                     reps=1, warmup=False)
     flat = (slot.long() + ts * torch.arange(m, device=x.device)[:, None]
@@ -624,11 +750,19 @@ def dist_times(torch, x, lsh, beta, ts):
     lib = time_ms(torch, lambda: acc.index_add_(0, flat, contrib.view(-1)))
     rows["bin_scatter"] = (ms, plain, bound(nbytes(slot, contrib, tables),
                                             contrib.numel()), lib)
+    say(f"  B5 point scatter: partitioned into shared tiles {ms:.4f} ms, "
+        f"first design (memset + global atomics) {v1:.4f} ms")
+    say("    device split (torch.profiler): " + ", ".join(
+        f"{kernel_name(name)} {t:.4f} ms"
+        for name, t in device_split(torch, run).items()))
     del flat, acc, contrib
     torch.cuda.empty_cache()
 
-    lay, cell_lay, nb = split_setup(torch, slot, coeff, ts)
-    del slot, coeff
+    lay, routes = split_setup(torch, slot, coeff, ts)
+    cell_lay, used, cap = (routes[0][key] for key in ("cell_lay", "used",
+                                                      "cap"))
+    nb = cap
+    del slot, coeff, routes
     L = lay.slot_lay.shape[1]
     real = lay.src < x.shape[0]
     head = real.clone()
@@ -646,27 +780,47 @@ def dist_times(torch, x, lsh, beta, ts):
     rows["bin_gather_blocked"] = (ms, plain, bound(
         nbytes(lay.slot_lay, out) + 4 * distinct), lib)
     say(f"  split layout: L = {L} per instance, {distinct} distinct "
-        f"(instance, slot) buckets, {nb} wire cells")
+        f"(instance, slot) buckets, {nb} wire cells, {int(used.sum())} "
+        f"of them reached")
     del out, idx, tables
     torch.cuda.empty_cache()
 
     contrib_lay = lay.coeff_lay * layout_rows(lay, beta)
-    run = lambda: route_pack_cuda(cell_lay, contrib_lay, nb)
+    run = lambda: route_pack_cuda(cell_lay, contrib_lay, used, cap)
     send = run()
     ms = time_ms(torch, run)
+    ms16 = time_ms(torch, lambda: route_pack_cuda(
+        cell_lay, contrib_lay, used, cap, out_dtype=torch.bfloat16))
+    v1 = time_ms(torch, lambda: route_pack_v1_cuda(cell_lay, contrib_lay,
+                                                   nb))
+    v1_cast = time_ms(torch, lambda: route_pack_v1_cuda(
+        cell_lay, contrib_lay, nb).to(torch.bfloat16))
     plain = time_ms(torch, lambda: route_pack_ref(cell_lay, contrib_lay,
                                                   num_cells=nb),
                     reps=1, warmup=False)
-    # the library call adds the real positions only: sentinels sent to one
-    # spare cell would all add to one address
+    # the library call adds the real positions only (sentinels sent to one
+    # spare cell would all add to one address), into a buffer it never
+    # zeroes again: the zero fill is timed on its own
     real = (cell_lay < nb).view(-1).nonzero()[:, 0]
     cells, vals = cell_lay.view(-1)[real].long(), contrib_lay.view(-1)[real]
     del real
     acc = torch.zeros(nb, device=x.device)
     lib = time_ms(torch, lambda: acc.index_add_(0, cells, vals))
+    fill = time_ms(torch, lambda: acc.zero_())
     rows["route_pack"] = (ms, plain, bound(nbytes(cell_lay, contrib_lay,
                                                   send),
                                            contrib_lay.numel()), lib)
+    b16, _ = bound(nbytes(cell_lay, contrib_lay) + 2 * send.numel(),
+                   contrib_lay.numel())
+    key = tuple(cell_lay.shape) + (1, nb)
+    pack_timed = {key + ("float32",): dict(ms=ms,
+                                           bound_ms=rows["route_pack"][2][0]),
+                  key + ("bfloat16",): dict(ms=ms16, bound_ms=b16)}
+    say(f"  B7 route pack: one pass {ms:.4f} ms f32, {ms16:.4f} ms bf16 out "
+        f"(bound {b16:.4f} ms); first design (memset + run-head walks) "
+        f"{v1:.4f} ms f32, {v1_cast:.4f} ms with the bf16 cast after it; "
+        f"index_add_ {lib:.4f} ms on the real positions, plus the zero fill "
+        f"of the send buffer it leaves out, {fill:.4f} ms")
     del acc, contrib_lay, cells, vals
     torch.cuda.empty_cache()
 
@@ -684,7 +838,7 @@ def dist_times(torch, x, lsh, beta, ts):
         out.numel()), lib)
     say("  (library calls: index_add_ for B5 and B7, torch.gather for B6 "
         "and B8 -- B8's without the coeff product)")
-    return rows
+    return rows, pack_timed
 
 
 def decode_inputs(torch, dev, b, kv, g, d, t, dtype, seed, lens="random"):
@@ -743,7 +897,8 @@ def phase_lm(torch, dev, seed):
     """Phase 7: gemma3-1b at its full config served through
     repro_torch.launch.serve.generate, then prefill/decode consistency."""
     from repro_torch.configs import registry
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
     from repro_torch.kernels.flash_decode import (flash_decode_cuda,
                                                   flash_decode_ref)
     from repro_torch.launch.serve import generate
@@ -768,14 +923,16 @@ def phase_lm(torch, dev, seed):
     reset_launch_counts()
     ids, t_pre, t_dec = generate(cfg, params, tokens, n_gen,
                                  generator=gen)
-    counts = launch_counts()
+    counts, shapes = launch_counts(), launch_counts_by_shape()
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = n_gen - 1
     per_step = t_dec / steps * 1e3
     say(f"  prefill {b}x{s}: {t_pre * 1e3:.2f} ms; decode {steps} steps: "
         f"{per_step:.3f} ms per step, {b * steps / t_dec:.1f} tok/s; peak "
         f"device memory {peak:.2f} GiB")
-    say(f"  launches {dict((k, v) for k, v in counts.items() if v)}")
+    say(f"  launches {dict((k, v) for k, v in counts.items() if v)}; "
+        f"flash_decode by (B, T, KV, G, D, cache dtype): "
+        f"{shapes['flash_decode']}")
     if counts["flash_decode"] != cfg.n_layers * steps:
         fail(f"phase 7: flash_decode launched {counts['flash_decode']} "
              f"times, not {cfg.n_layers} per decode step x {steps}")
@@ -838,7 +995,7 @@ def phase_lm(torch, dev, seed):
     profile_decode(torch, cfg, params, cache, x[:, s:], pos + 1)
     del params, cache
     torch.cuda.empty_cache()
-    return counts
+    return counts, shapes
 
 
 def profile_decode(torch, cfg, params, cache, tok, pos, steps: int = 3):
@@ -934,8 +1091,32 @@ def decode_times(torch, dev, seed):
     return rows
 
 
-def phase_times(torch, data, model, counts, errs, dist_state, lm_counts,
-                seed):
+def decode_serve_times(torch, dev, seed, tally):
+    """B9 at every shape phase 7 launched it at (``tally``: its launches by
+    (B, T, KV, G, D, cache dtype); gemma3-1b: the global layers' caches
+    and the local layers' rings): device time from the profiler against
+    the bound, on a wrapped ring (every row valid)."""
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    timed = {}
+    for key in tally:
+        b, t, kv, g, d, dt = key
+        q, k, v, valid = decode_inputs(torch, dev, b, kv, g, d, t,
+                                       getattr(torch, dt), seed,
+                                       lens="wrapped")
+        out = flash_decode_cuda(q, k, v, valid)
+        dms = device_ms(torch, lambda: flash_decode_cuda(q, k, v, valid))
+        b_ms, _ = bound(nbytes(q, k, v, valid, out), 4.0 * q.numel() * t)
+        timed[key] = dict(device_ms=dms, bound_ms=b_ms)
+        say(f"  B9 at phase 7's B={b} KV={kv} G={g} D={d} T={t} {dt}: "
+            f"device {'not measured' if dms is None else f'{dms:.4f} ms'} "
+            f"(torch.profiler), bound {b_ms:.4f} ms, {tally[key]} launches "
+            f"in phase 7")
+        del q, k, v, valid, out
+    return timed
+
+
+def phase_times(torch, data, model, main_counts, errs, dist_state,
+                lm_counts, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                              bin_gather_cuda,
@@ -950,6 +1131,7 @@ def phase_times(torch, data, model, counts, errs, dist_state, lm_counts,
     x, _, xq = data
     lsh, ts = model.lsh, model.table_size
     n, d, m = x.shape[0], x.shape[1], lsh.m
+    counts, main_shapes = main_counts
     rows = {}
 
     run = lambda: featurize_cuda(x, *lsh, f=T.RECT, table_size=ts)
@@ -960,6 +1142,26 @@ def phase_times(torch, data, model, counts, errs, dist_state, lm_counts,
                     reps=1, warmup=False)
     rows["featurize"] = (ms, plain, bound(nbytes(x, *lsh, *feats),
                                           5.0 * m * n * d), None)
+    # B1 at every shape phase 3 launched it at: the fit's points and
+    # predict's query batches
+    feat_timed = {}
+    for key in main_shapes["featurize"]:
+        src = x if key[0] == n else xq[:key[0]]
+        if tuple(src.shape) + (m,) != key:
+            fail(f"featurize launched at (n, d, m) = {key}, not a shape "
+                 f"of phase 3's data")
+        fb = featurize_cuda(src, *lsh, f=T.RECT, table_size=ts)
+        ms_b = time_ms(torch, lambda: featurize_cuda(src, *lsh, f=T.RECT,
+                                                     table_size=ts))
+        b_b, _ = bound(nbytes(src, *lsh, *fb), 5.0 * m * key[0] * d)
+        feat_timed[key] = dict(ms=ms_b, bound_ms=b_b)
+        say(f"  featurize at n={key[0]}: {ms_b:.4f} ms (bound {b_b:.4f} "
+            f"ms), {main_shapes['featurize'][key]} of phase 3's "
+            f"{counts['featurize']} launches")
+        del fb
+    by_shape = {"featurize": by_shape_entries(
+        main_shapes["featurize"], feat_timed,
+        lambda k: f"n={k[0]} d={k[1]} m={k[2]}")}
     slot, coeff = feats[4], feats[5]
     del feats
     lay = build_blocked_layout(slot, coeff, ts)
@@ -1014,20 +1216,32 @@ def phase_times(torch, data, model, counts, errs, dist_state, lm_counts,
     rows["bin_gather"] = (ms, plain, bound(nbytes(q_slot, out, out)), lib)
 
     del q_slot, idx, out
-    rows.update(dist_times(torch, x, dist_state[0], dist_state[1], ts))
+    lsh_d, beta_d, dist_counts, dist_shapes = dist_state
+    dist_rows, pack_timed = dist_times(torch, x, lsh_d, beta_d, ts)
+    rows.update(dist_rows)
+    by_shape["route_pack"] = by_shape_entries(
+        dist_shapes["c"]["route_pack"], pack_timed,
+        lambda k: f"m={k[0]} L={k[1]} k={k[2]} cells={k[3]} {k[4]} out")
     torch.cuda.empty_cache()
     rows["flash_decode"] = decode_times(torch, data[0].device, seed)[0]
+    lm_counts, lm_shapes = lm_counts
+    by_shape["flash_decode"] = by_shape_entries(
+        lm_shapes["flash_decode"], decode_serve_times(
+            torch, data[0].device, seed, lm_shapes["flash_decode"]),
+        lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
     entries = []
     for name, (ms, plain, (b_ms, b_by), lib) in rows.items():
         src, replaces = KERNELS[name]
         path = DIST_PATHS.get(name)
         launches = (lm_counts[name] if name in LM_KERNELS
                     else counts[name] if path is None
-                    else dist_state[2][path][name])
+                    else dist_counts[path][name])
         entries.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=launches,
                             max_abs_err=errs[name], ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        if name in by_shape:
+            entries[-1]["by_shape"] = by_shape[name]
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}")

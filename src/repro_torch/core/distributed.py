@@ -313,15 +313,19 @@ class _Routing(NamedTuple):
     spp: int                 # slots per data rank
     cap: int                 # cells per destination rank
     dropped: torch.Tensor    # () int32 distinct buckets past capacity here
+    used: torch.Tensor       # (n_shards,) int32 cells bound for owner o:
+                             #   the dense range [o*cap, o*cap + used[o])
 
 
 def _routing_maps(slot: torch.Tensor, lay, n_shards: int, table_size: int,
                   cap_factor: float):
     """Pure half of the routing build (no collectives, no sort), bitwise
     as the JAX package's: (pt_cell, send_packed, spp, cap, dropped,
-    owner_max).  Owners ascend with the layout's sorted slots, so group
-    starts come from ``searchsorted`` and in-group ranks from the layout's
-    segment ids."""
+    owner_max), and the port's ``used`` (n_shards,) int32: the distinct
+    buckets bound for each owner, clamped to cap, so owner o's real cells
+    are exactly [o*cap, o*cap + used[o]).  Owners ascend with the layout's
+    sorted slots, so group starts come from ``searchsorted`` and in-group
+    ranks from the layout's segment ids."""
     m_loc, n_loc = slot.shape
     dev, i32 = slot.device, torch.int32
     e = m_loc * n_loc
@@ -352,7 +356,9 @@ def _routing_maps(slot: torch.Tensor, lay, n_shards: int, table_size: int,
     del owner_l, first_seg, rank, fpos
     keep = is_first & (pos < cap)
     dropped = (is_first & (pos >= cap)).sum(dtype=i32)
-    owner_max = ucount.sum(0, dtype=i32).max()
+    per_owner = ucount.sum(0, dtype=i32)
+    owner_max = per_owner.max()
+    used = per_owner.clamp(max=cap)
     cell = owner * cap + pos                                  # where keep
     del pos, owner
     flat_seg = inst * n_loc + lay.seg_id                      # (m, n)
@@ -366,7 +372,7 @@ def _routing_maps(slot: torch.Tensor, lay, n_shards: int, table_size: int,
     send_packed = torch.full((nb,), -1, dtype=i32, device=dev)
     send_packed[cell[keep]] = packed[keep]
     return (pt_cell, send_packed.view(n_shards, cap), spp, cap, dropped,
-            owner_max)
+            owner_max, used)
 
 
 def _log_routing_build(owner_max: int, *, cap: int, n_shards: int) -> None:
@@ -406,7 +412,7 @@ def _build_routing(slot: torch.Tensor, lay, mesh: Mesh, table_size: int,
     per solve (slots are fixed).  The max cells per owner is read back to
     the host once and logged: the headroom signal for ``cap_factor``."""
     n_shards = mesh.data
-    pt_cell, send_packed, spp, cap, dropped, owner_max = _routing_maps(
+    pt_cell, send_packed, spp, cap, dropped, owner_max, used = _routing_maps(
         slot, lay, n_shards, table_size, cap_factor)
     _log_routing_build(int(owner_max), cap=cap, n_shards=n_shards)
     cell_lay = _make_route_plan(pt_cell, lay, n_shards * cap)
@@ -428,7 +434,8 @@ def _build_routing(slot: torch.Tensor, lay, mesh: Mesh, table_size: int,
     hit = (recv_ids[cand] == recv_ids[None]) & (recv_ids < m_loc * spp)[None]
     serve_map = torch.where(hit, cand, nb)
     return _Routing(cell_lay=cell_lay, recv_ids=recv_ids,
-                    serve_map=serve_map, spp=spp, cap=cap, dropped=dropped)
+                    serve_map=serve_map, spp=spp, cap=cap, dropped=dropped,
+                    used=used)
 
 
 def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -443,15 +450,16 @@ def _take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _hashjoin_send(rt: _Routing, lay, beta_local: torch.Tensor,
                    payload_dtype, plan: FaultPlan | None = None):
     """Route pack (B7): per-point contributions -> (n_shards, cap[, k])
-    wire payload, summed per distinct bucket in f32 and cast to the wire
-    dtype once.  ``plan`` (tests) drops or poisons cells after the cast."""
+    wire payload in one pass: each distinct bucket summed in f32 and
+    rounded once to the wire dtype by the pack itself, each owner's
+    unreached tail written as zeros.  ``plan`` (tests) drops or poisons
+    cells after the pack."""
     tail = tuple(beta_local.shape[1:])
-    n_shards = rt.recv_ids.shape[0] // rt.cap
     beta_lay = layout_rows(lay, beta_local)                  # (m, L[, k])
     coeff = lay.coeff_lay if not tail else lay.coeff_lay[..., None]
-    send = route_pack_op(rt.cell_lay, coeff * beta_lay,
-                         rt.recv_ids.shape[0])
-    wire = send.to(payload_dtype).view((n_shards, rt.cap) + tail)
+    send = route_pack_op(rt.cell_lay, coeff * beta_lay, rt.used, rt.cap,
+                         out_dtype=payload_dtype)
+    wire = send.view((rt.used.shape[0], rt.cap) + tail)
     return apply_wire_fault(plan, wire)
 
 

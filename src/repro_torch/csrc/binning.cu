@@ -169,25 +169,276 @@ __global__ void gather_kernel(const int32_t* __restrict__ slot,
 //   tables[s,b,j] = sum_{i: slot[s,i] = b} contrib[s,i,j]   for an index
 //   with no slot-blocked layout (the psum step without `blocked_split`).
 // The TPU kernel is an O(n*B) one-hot cross product because the TPU has no
-// scatter atomics; here it is O(n): the output is zeroed, then one thread
-// per (point, column) adds into global memory with atomicAdd (all k
-// columns in one launch).  The sum order varies from run to run.
+// scatter atomics; here it is O(n).
 // Bound: device-memory bytes (slot and contrib read once, the (m, B, k)
 // tables written once).
+// Design: the slots are random, about half a point per slot, so a global
+// atomic per point hits its own sector of a table far larger than the
+// 50 MB L2; and into tables that fit L2 a global float atomic per point
+// is still held to about 80 G adds/s on an H100 (PERF.md).  So no point
+// reaches the table through a global atomic: points are partitioned into
+// bins of W slots (W*kc floats fill a shared tile) and each bin summed in
+// shared memory.  For each group of G instances, each group of at most kc
+// columns and each window of at most P bins (one of each at the step's
+// shapes; a wide table or many columns take several passes, each
+// re-reading the group's slot rows and skipping the points outside its
+// window):
+//   1. part_hist: a block per chunk of C points counts them per bin in
+//      shared memory, then adds its counts to the group's (G, P) counts;
+//   2. part_scan: each instance's bin offsets, and a cursor per bin;
+//   3. part_scatter: a block stages its chunk sorted by bin in shared
+//      memory, reserves each bin's run at the bin's cursor (one global
+//      atomic per bin and block) and writes the runs out, consecutive
+//      threads on consecutive entries: (slot within the bin as uint16,
+//      contrib) pairs;
+//   4. bin_accumulate: a block per (instance, bin) adds the bin's pairs
+//      into a zeroed shared tile and writes the tile to the table whole,
+//      coalesced.
+// Every table cell is written once, with no memset.  In one pass device
+// memory moves slot twice, contrib once, the pairs (2 + 4kc bytes a point)
+// once each way and the tables once.  The passes are latency-bound phases
+// between barriers, so blocks are large (512 threads by default) and each
+// thread loads its whole share of a chunk (at most ITEMS points) at once
+// and keeps it in registers from the count to the placement; the
+// accumulate loads ACC_ITEMS pairs a thread before adding them.  Float
+// shared atomics are compare-and-swap loops on this card, and the sum
+// order varies from run to run.
 // ---------------------------------------------------------------------------
-__global__ void scatter_kernel(const int32_t* __restrict__ slot,
-                               const float* __restrict__ contrib,
-                               float* __restrict__ tables, long long n,
-                               long long B, int k) {
-  const long long s = blockIdx.y;
-  const int32_t* srow = slot + s * n;
-  const float* crow = contrib + s * n * k;
-  float* trow = tables + s * B * k;
-  const long long nk = n * k;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < nk; e += (long long)gridDim.x * blockDim.x) {
-    const long long i = k == 1 ? e : e / k;
-    atomicAdd(&trow[(long long)srow[i] * k + (e - i * k)], crow[e]);
+constexpr int MAX_WARPS = 32;  // of a block of the partition kernels
+constexpr int ITEMS = 16;      // points a partition thread loads at once
+constexpr int ACC_ITEMS = 8;   // pairs an accumulate thread loads at once
+
+struct PartArgs {
+  const int32_t* slot;   // the group's first instance row
+  const float* contrib;  // its first row, at the pass's first column
+  float* tables;         // likewise
+  long long n, B;
+  int k;                 // columns of a contrib and a table row
+  int kc;                // columns this pass adds
+  int W, P, C;           // bin slots, bins of this pass, chunk points
+  int wshift;            // W = 1 << wshift
+  int b0;                // this pass's first bin
+  int* counts;           // (G, P) points per bin
+  int* offsets;          // (G, P + 1) bin starts within an instance's n
+  int* cursor;           // (G, P) next free pair of each bin
+  uint16_t* pslot;       // (G * n) slot within the bin
+  float* pval;           // (G * n * kc)
+};
+
+// The bin of slot s within this pass, or -1 for no point (s = -1) or a
+// slot outside the pass's window.
+__device__ __forceinline__ int pass_bin(const PartArgs& a, int s) {
+  const int b = (s >> a.wshift) - a.b0;
+  return (unsigned)b < (unsigned)a.P ? b : -1;
+}
+
+// Exclusive prefix sum over the block of one int per thread; the block's
+// total in *total.  Every thread of the block calls it.
+__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      const int t = warp_sums[w];
+      warp_sums[w] = run;
+      run += t;
+    }
+    *total = run;
+  }
+  __syncthreads();
+  const int r = x - v + warp_sums[warp];
+  __syncthreads();
+  return r;
+}
+
+// out[b] = in[0] + ... + in[b - 1] for b < P (in and out may alias); the
+// sum of all in *total.  Each thread takes a run of consecutive entries,
+// an odd number of them, so a warp's reads fall in distinct banks.
+__device__ void block_scan_bins(const int* in, int* out, int P,
+                                int* warp_sums, int* total) {
+  const int per = ((P + blockDim.x - 1) / blockDim.x) | 1;
+  const int lo = min(P, (int)threadIdx.x * per), hi = min(P, lo + per);
+  int sum = 0;
+  for (int b = lo; b < hi; ++b) sum += in[b];
+  int run = block_exclusive_scan(sum, warp_sums, total);
+  for (int b = lo; b < hi; ++b) {
+    const int c = in[b];
+    out[b] = run;
+    run += c;
+  }
+}
+
+// A thread's share of the block's entries [0, cnt) of src, cnt at most
+// ITEMS * blockDim.x: positions threadIdx.x + u * blockDim.x, so each load
+// is coalesced and all are in flight together; -1 past cnt.
+template <typename T>
+__device__ __forceinline__ void load_items(const T* src, int cnt, int* v) {
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int i = threadIdx.x + u * (int)blockDim.x;
+    v[u] = i < cnt ? (int)src[i] : -1;
+  }
+}
+
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+part_hist_kernel(PartArgs a) {
+  extern __shared__ int hist[];  // P
+  const int g = blockIdx.y;
+  const long long p0 = (long long)blockIdx.x * a.C;
+  const int32_t* sp = a.slot + g * a.n + p0;
+  const int cnt = (int)(min(p0 + a.C, a.n) - p0);
+  int v[ITEMS];
+  load_items(sp, cnt, v);
+  for (int b = threadIdx.x; b < a.P; b += blockDim.x) hist[b] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    const int b = pass_bin(a, v[u]);
+    if (b >= 0) atomicAdd(&hist[b], 1);
+  }
+  __syncthreads();
+  int* counts = a.counts + (long long)g * a.P;
+  for (int b = threadIdx.x; b < a.P; b += blockDim.x)
+    if (hist[b]) atomicAdd(counts + b, hist[b]);
+}
+
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+part_scan_kernel(PartArgs a) {
+  __shared__ int warp_sums[MAX_WARPS];
+  __shared__ int total;
+  const int g = blockIdx.x;
+  int* off = a.offsets + (long long)g * (a.P + 1);
+  block_scan_bins(a.counts + (long long)g * a.P, off, a.P, warp_sums, &total);
+  __syncthreads();
+  for (int b = threadIdx.x; b < a.P; b += blockDim.x)
+    a.cursor[(long long)g * a.P + b] = (int)(g * a.n) + off[b];
+  if (threadIdx.x == 0) off[a.P] = total;
+}
+
+// ONE_PASS: the pass holds every bin and column (the step's shapes).  It
+// finds a point's bin by a division where the multi-pass case shifts:
+// with the shift, this kernel measured about 10 % slower on an H100 at
+// the same bytes (PERF.md).
+template <bool ONE_PASS>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+part_scatter_kernel(PartArgs a) {
+  extern __shared__ int smem[];
+  __shared__ int warp_sums[MAX_WARPS];
+  __shared__ int total;
+  int* hist = smem;            // points per bin, then the rank counters
+  int* lstart = hist + a.P;    // bin starts in the staged chunk
+  int* gbase = lstart + a.P;   // bin runs reserved in the pair buffer
+  float* sval = reinterpret_cast<float*>(gbase + a.P);            // C * kc
+  uint16_t* sbin = reinterpret_cast<uint16_t*>(sval + a.C * a.kc);  // C
+  uint16_t* sslot = sbin + a.C;                                     // C
+  const int g = blockIdx.y, k = a.k, kc = ONE_PASS ? a.k : a.kc;
+  const long long p0 = (long long)blockIdx.x * a.C;
+  const int32_t* sp = a.slot + g * a.n + p0;
+  const float* cp = a.contrib + (g * a.n + p0) * k;
+  const int cnt = (int)(min(p0 + a.C, a.n) - p0);
+  int v[ITEMS];
+  float w[ITEMS];
+  load_items(sp, cnt, v);
+  if (k == 1) {
+#pragma unroll
+    for (int u = 0; u < ITEMS; ++u) {
+      const int i = threadIdx.x + u * (int)blockDim.x;
+      w[u] = i < cnt ? cp[i] : 0.0f;
+    }
+  }
+  for (int b = threadIdx.x; b < a.P; b += blockDim.x) hist[b] = 0;
+  __syncthreads();
+  // count; across passes keep each point as (bin << 16 | slot within the
+  // bin), or -1 outside the pass's window
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    if (ONE_PASS) {
+      if (v[u] >= 0) atomicAdd(&hist[v[u] / a.W], 1);
+    } else {
+      const int b = pass_bin(a, v[u]);
+      if (b >= 0) atomicAdd(&hist[b], 1);
+      v[u] = b >= 0 ? b << 16 | (v[u] & (a.W - 1)) : -1;
+    }
+  }
+  __syncthreads();
+  block_scan_bins(hist, lstart, a.P, warp_sums, &total);
+  __syncthreads();
+  int* cursor = a.cursor + (long long)g * a.P;
+  for (int b = threadIdx.x; b < a.P; b += blockDim.x) {
+    const int c = hist[b];
+    gbase[b] = c ? atomicAdd(cursor + b, c) : 0;
+    hist[b] = 0;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < ITEMS; ++u) {
+    if (v[u] < 0) continue;
+    const int i = threadIdx.x + u * (int)blockDim.x;
+    const int b = ONE_PASS ? v[u] / a.W : v[u] >> 16;
+    const int q = lstart[b] + atomicAdd(&hist[b], 1);
+    sbin[q] = (uint16_t)b;
+    sslot[q] = (uint16_t)(ONE_PASS ? v[u] - b * a.W : v[u] & 0xffff);
+    if (k == 1)
+      sval[q] = w[u];
+    else
+      for (int j = 0; j < kc; ++j) sval[q * kc + j] = cp[(long long)i * k + j];
+  }
+  __syncthreads();
+  const int staged = ONE_PASS ? cnt : total;  // points in the window
+  for (int q = threadIdx.x; q < staged; q += blockDim.x) {
+    const int b = sbin[q];
+    a.pslot[gbase[b] + (q - lstart[b])] = sslot[q];
+  }
+  for (int e = threadIdx.x; e < staged * kc; e += blockDim.x) {
+    const int q = kc == 1 ? e : e / kc, b = sbin[q];
+    a.pval[(long long)(gbase[b] + (q - lstart[b])) * kc + (e - q * kc)] =
+        sval[e];
+  }
+}
+
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+bin_accumulate_kernel(PartArgs a) {
+  extern __shared__ float tile[];  // W * kc
+  const int b = blockIdx.x, g = blockIdx.y, k = a.k, kc = a.kc;
+  const long long lo = (long long)(a.b0 + b) * a.W;
+  const int width = (int)min((long long)a.W, a.B - lo) * kc;
+  for (int e = threadIdx.x; e < width; e += blockDim.x) tile[e] = 0.0f;
+  __syncthreads();
+  const int* off = a.offsets + (long long)g * (a.P + 1);
+  const long long q0 = g * a.n + off[b];
+  const int run = off[b + 1] - off[b];
+  const uint16_t* ps = a.pslot + q0;
+  const float* pv = a.pval + q0 * kc;
+  for (int e0 = threadIdx.x; e0 < run * kc; e0 += ACC_ITEMS * blockDim.x) {
+    int cell[ACC_ITEMS];
+    float val[ACC_ITEMS];
+#pragma unroll
+    for (int u = 0; u < ACC_ITEMS; ++u) {
+      const int e = e0 + u * (int)blockDim.x, q = kc == 1 ? e : e / kc;
+      cell[u] = e < run * kc ? ps[q] * kc + (e - q * kc) : -1;
+      val[u] = e < run * kc ? pv[e] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < ACC_ITEMS; ++u)
+      if (cell[u] >= 0) atomicAdd(&tile[cell[u]], val[u]);
+  }
+  __syncthreads();
+  float* dst = a.tables + (g * a.B + lo) * k;
+  if (kc == k) {
+    for (int e = threadIdx.x; e < width; e += blockDim.x) dst[e] = tile[e];
+  } else {  // one column group of wider table rows
+    for (int e = threadIdx.x; e < width; e += blockDim.x) {
+      const int r = e / kc;
+      dst[(long long)r * k + (e - r * kc)] = tile[e];
+    }
   }
 }
 
@@ -239,17 +490,73 @@ extern "C" int bin_gather_blocked_launch(const int32_t* slot_lay,
   return bin_gather_launch(slot_lay, tables, out, m, L, B, k, stream);
 }
 
+// tables (m, B, k) f32; W slots a bin (a power of 2, at most 2^16), C
+// points a partition chunk (at most ITEMS * threads), G instances a group,
+// blocks of `threads` (a multiple of 32, at most 1024); passes of at most
+// `window`
+// bins (at most 2^15) and kc columns.  Scratch for one pass: counts
+// (G*window), offsets (G*(window+1)), cursor (G*window) int32, pslot (G*n)
+// uint16, pval (G*n*kc) f32, with G*n < 2^31.
 extern "C" int bin_scatter_launch(const int32_t* slot, const float* contrib,
                                   float* tables, int m, long long n,
-                                  long long B, int k, void* stream) {
+                                  long long B, int k, int W, int window,
+                                  int kc, int C, int G, int threads,
+                                  int* counts, int* offsets, int* cursor,
+                                  uint16_t* pslot, float* pval,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(tables, 0, (size_t)m * B * k *
-                                  sizeof(float), st);
+  if (m == 0 || B == 0 || k == 0) return (int)cudaGetLastError();
+  if (C > ITEMS * threads || W < 1 || W > 65536 || (W & (W - 1)) ||
+      window > 32768 || kc < 1)
+    return (int)cudaErrorInvalidValue;
+  const int hist_smem = window * (int)sizeof(int);
+  const int scatter_smem = 3 * hist_smem + C * (4 * kc + 4);
+  const int tile_smem = W * kc * (int)sizeof(float);
+  const long long bins = (B + W - 1) / W;
+  const bool one_pass = bins <= window && kc >= k;
+  void (*scatter)(PartArgs) = one_pass ? part_scatter_kernel<true>
+                                       : part_scatter_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      scatter, cudaFuncAttributeMaxDynamicSharedMemorySize, scatter_smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(bin_accumulate_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tile_smem);
   if (e != cudaSuccess) return (int)e;
-  if (n == 0 || m == 0 || k == 0) return (int)cudaGetLastError();
-  scatter_kernel<<<row_grid(n * k, m), THREADS, 0, st>>>(slot, contrib,
-                                                          tables, n, B, k);
-  return (int)cudaGetLastError();
+  const unsigned chunks = (unsigned)((n + C - 1) / C);
+  PartArgs a;
+  a.n = n; a.B = B; a.k = k; a.W = W; a.C = C;
+  a.wshift = 0;
+  while ((1 << a.wshift) < W) ++a.wshift;
+  a.counts = counts; a.offsets = offsets; a.cursor = cursor;
+  a.pslot = pslot; a.pval = pval;
+  for (int g0 = 0; g0 < m; g0 += G) {
+    const int groups = m - g0 < G ? m - g0 : G;
+    for (int j0 = 0; j0 < k; j0 += kc) {
+      a.kc = k - j0 < kc ? k - j0 : kc;
+      a.slot = slot + g0 * n;
+      a.contrib = contrib + g0 * n * k + j0;
+      a.tables = tables + g0 * B * k + j0;
+      for (long long b0 = 0; b0 < bins; b0 += window) {
+        a.b0 = (int)b0;
+        a.P = (int)(bins - b0 < window ? bins - b0 : window);
+        e = cudaMemsetAsync(counts, 0, (size_t)groups * a.P * sizeof(int),
+                            st);
+        if (e != cudaSuccess) return (int)e;
+        if (chunks)
+          part_hist_kernel<<<dim3(chunks, groups), threads, hist_smem,
+                             st>>>(a);
+        part_scan_kernel<<<groups, threads, 0, st>>>(a);
+        if (chunks)
+          scatter<<<dim3(chunks, groups), threads, scatter_smem, st>>>(a);
+        bin_accumulate_kernel<<<dim3(a.P, groups), threads, tile_smem,
+                                st>>>(a);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+      }
+    }
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* binning_error_string(int e) {

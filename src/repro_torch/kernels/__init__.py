@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-``launch_counts`` reads the launch counter of every kernel wrapper and
-``reset_launch_counts`` sets them to 0, so a run can show that its main path
-went through the kernels.
+``launch_counts`` reads the launch counter of every kernel wrapper,
+``launch_counts_by_shape`` the same counts split by the shape of the
+kernel's inputs, and ``reset_launch_counts`` sets them all to 0, so a run
+can show that its main path went through the kernels, and at which shapes.
 """
 from __future__ import annotations
 
@@ -30,6 +31,11 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def launch_counts_by_shape() -> dict[str, dict[tuple, int]]:
+    return {name: dict(fn.launches_by_shape)
+            for name, fn in KERNEL_WRAPPERS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+        fn.launches, fn.launches_by_shape = 0, {}

@@ -24,7 +24,10 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("featurize", "binning", "route", "flash_decode")
+# every library the port builds; scatter_variants holds the first designs
+# of B5 and B7, timed beside them and run on no path
+SOURCES = ("featurize", "binning", "route", "flash_decode",
+           "scatter_variants")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -95,6 +98,18 @@ def check(rc: int, what: str, error_string) -> None:
     if rc != 0:
         msg = error_string(rc).decode(errors="replace")
         raise RuntimeError(f"CUDA launch of {what} failed: {msg} ({rc})")
+
+
+def count_launch(fn, shape: tuple) -> None:
+    """Count one launch of the kernel behind wrapper ``fn``: in
+    ``fn.launches`` and, under the shape of its inputs, in
+    ``fn.launches_by_shape``."""
+    fn.launches += 1
+    fn.launches_by_shape[shape] = fn.launches_by_shape.get(shape, 0) + 1
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
 
 def stream_ptr(device) -> int:

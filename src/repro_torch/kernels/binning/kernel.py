@@ -4,14 +4,16 @@
 ``bin_gather_blocked_pallas``, ``route_pack_pallas`` and
 ``route_unpack_pallas``.  Each checks its arguments, allocates its output
 with ``torch.empty``, launches on the current stream, raises on a launch
-error and counts its launches in ``<wrapper>.launches``."""
+error and counts its launches in ``<wrapper>.launches`` and, by input
+shape, in ``<wrapper>.launches_by_shape``."""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from .._build import check, load, stream_ptr
+from .._build import check, count_launch, dtype_name, load, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,7 +31,8 @@ def _lib():
         lib.bin_gather_launch.argtypes = [_P] * 3 + [_I, _I, _L, _I, _P]
         lib.bin_gather_blocked_launch.argtypes = [_P] * 3 + [
             _I, _I, _L, _I, _P]
-        lib.bin_scatter_launch.argtypes = [_P] * 3 + [_I, _L, _L, _I, _P]
+        lib.bin_scatter_launch.argtypes = [_P] * 3 + [
+            _I, _L, _L] + [_I] * 7 + [_P] * 6
         for fn in (lib.bin_fused_matvec_launch,
                    lib.bin_scatter_blocked_launch, lib.bin_gather_launch,
                    lib.bin_gather_blocked_launch, lib.bin_scatter_launch):
@@ -76,7 +79,7 @@ def bin_fused_matvec_cuda(blk_start, slot_lay, coeff_lay, beta_lay, *,
     if m == 0 or L == 0 or k == 0:
         return out
     lib = _lib()
-    bin_fused_matvec_cuda.launches += 1
+    count_launch(bin_fused_matvec_cuda, (m, L, k))
     rc = lib.bin_fused_matvec_launch(
         blk_start.data_ptr(), slot_lay.data_ptr(), coeff_lay.data_ptr(),
         beta_lay.data_ptr(), out.data_ptr(), m, num_tiles, block_n, block_t,
@@ -100,7 +103,7 @@ def bin_scatter_blocked_cuda(blk_start, slot_lay, contrib_lay, *,
     if tables.numel() == 0:
         return tables
     lib = _lib()
-    bin_scatter_blocked_cuda.launches += 1
+    count_launch(bin_scatter_blocked_cuda, (m, L, k))
     rc = lib.bin_scatter_blocked_launch(
         blk_start.data_ptr(), slot_lay.data_ptr(), contrib_lay.data_ptr(),
         tables.data_ptr(), m, num_tiles, block_n, block_t, L, k, kc,
@@ -131,7 +134,7 @@ def bin_gather_cuda(slot, tables):
     if out.numel() == 0:
         return out
     lib = _lib()
-    bin_gather_cuda.launches += 1
+    count_launch(bin_gather_cuda, (m, n, B, k))
     rc = lib.bin_gather_launch(slot.data_ptr(), tables.data_ptr(),
                                out.data_ptr(), m, n, B, k,
                                stream_ptr(out.device))
@@ -147,7 +150,7 @@ def bin_gather_blocked_cuda(slot_lay, tables):
     if out.numel() == 0:
         return out
     lib = _lib()
-    bin_gather_blocked_cuda.launches += 1
+    count_launch(bin_gather_blocked_cuda, (m, L, B, k))
     rc = lib.bin_gather_blocked_launch(slot_lay.data_ptr(), tables.data_ptr(),
                                        out.data_ptr(), m, L, B, k,
                                        stream_ptr(out.device))
@@ -155,28 +158,126 @@ def bin_gather_blocked_cuda(slot_lay, tables):
     return out
 
 
-def bin_scatter_cuda(slot, contrib, table_size: int):
-    """tables[s, b(, j)] = sum_{i: slot[s, i] = b} contrib[s, i(, j)] for
-    an index without a layout; slot (m, n) int32 in [0, table_size),
-    contrib (m, n) or (m, n, k) f32 -> (m, B) or (m, B, k)."""
+class ScatterPlan(NamedTuple):
+    """B5's cut of the work (csrc/binning.cu, bin_scatter)."""
+
+    tile_slots: int   # W: slots of one bin, its shared tile W*cols floats
+    bins: int         # ceil(B / W) bins per instance
+    window: int       # bins one pass takes: a pass per window of bins
+    cols: int         # columns one pass takes: a pass per group of columns
+    chunk: int        # C: points a partition block stages
+    group: int        # G: instances partitioned at a time
+    threads: int      # of every block
+
+
+# the best of the plans timed at the distributed step's shape (PERF.md)
+SCATTER_TILE_BYTES = 64 << 10      # a bin's shared tile
+SCATTER_STAGE_BYTES = 64 << 10     # a partition block's staged chunk
+SCATTER_THREADS = 512
+SCATTER_SCRATCH_BYTES = 512 << 20  # the pairs of one group of instances
+SCATTER_MAX_BINS = 8192            # bins a pass takes (shared bin arrays)
+SCATTER_MAX_COLS = 32              # columns a pass stages per point
+_SCATTER_SMEM = 200 << 10          # a partition block's shared memory
+_SCATTER_ITEMS = 16                # points a thread holds (csrc ITEMS)
+
+
+def scatter_plan(m: int, n: int, table_size: int, k: int, *,
+                 tile_bytes: int = SCATTER_TILE_BYTES,
+                 stage_bytes: int = SCATTER_STAGE_BYTES,
+                 scratch_bytes: int = SCATTER_SCRATCH_BYTES,
+                 threads: int = SCATTER_THREADS,
+                 max_bins: int = SCATTER_MAX_BINS,
+                 max_cols: int = SCATTER_MAX_COLS) -> ScatterPlan:
+    """The k columns in the fewest even groups of at most ``max_cols``
+    (cols a group), bins of W slots, the largest power of 2 whose W*cols
+    floats fit tile_bytes (at most 2^16: the pairs keep a bin's slot as
+    uint16; no more than table_size needs), taken ``max_bins`` a pass,
+    chunks of C points whose staged (bin, slot, contrib) fit stage_bytes
+    beside the pass's three bin counters and whose points the block's
+    ``threads`` hold 16 a thread, and groups of instances whose pairs
+    (2 + 4*cols bytes a point) fit scratch_bytes, balanced over the m
+    instances.  Every (table_size, k) gets a plan."""
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"scatter: threads={threads} is not a multiple of "
+                         f"32 in [32, 1024]")
+    if not (1 <= max_bins <= SCATTER_MAX_BINS
+            and 1 <= max_cols <= SCATTER_MAX_COLS):
+        raise ValueError(f"scatter: max_bins={max_bins}, max_cols="
+                         f"{max_cols} out of [1, {SCATTER_MAX_BINS}], "
+                         f"[1, {SCATTER_MAX_COLS}]")
+    k = max(1, k)
+    max_cols = max(1, min(max_cols, (2 ** 31 - 1) // max(1, n)))  # n*cols: int
+    cols = -(-k // -(-k // max_cols))
+    w = min(1 << (max(1, tile_bytes // (4 * cols)).bit_length() - 1),
+            1 << 16, 1 << (max(1, table_size) - 1).bit_length())
+    bins = -(-table_size // w)
+    window = max(1, min(bins, max_bins))
+    stage = min(stage_bytes, _SCATTER_SMEM - 12 * window)
+    chunk = max(32, min(stage // (4 * cols + 4), _SCATTER_ITEMS * threads)
+                // 32 * 32)
+    group = max(1, min(m, scratch_bytes // max(1, n * (2 + 4 * cols)),
+                       (2 ** 31 - 1) // max(1, n)))
+    group = -(-m // -(-m // group))
+    return ScatterPlan(w, bins, window, cols, chunk, group, threads)
+
+
+def _scatter_args(slot, contrib, table_size):
     m, n = slot.shape
     _need(slot, "slot", torch.int32, (m, n))
     _need(contrib, "contrib", torch.float32)
     if contrib.ndim not in (2, 3) or tuple(contrib.shape[:2]) != (m, n):
         raise ValueError(f"contrib must be (m={m}, n={n}[, k]), got "
                          f"{tuple(contrib.shape)}")
-    if m > 65535:
-        raise ValueError(f"scatter: m={m} out of range")
-    k = contrib.shape[2] if contrib.ndim == 3 else 1
-    tables = torch.empty((m, int(table_size)) + tuple(contrib.shape[2:]),
-                         dtype=torch.float32, device=slot.device)
+    if m > 65535 or not 0 <= table_size < 2 ** 31:
+        raise ValueError(f"scatter: m={m}, table_size={table_size} out of "
+                         f"range")
+    return m, n, contrib.shape[2] if contrib.ndim == 3 else 1
+
+
+def _tables(slot, contrib, table_size):
+    return torch.empty((slot.shape[0], int(table_size))
+                       + tuple(contrib.shape[2:]), dtype=torch.float32,
+                       device=slot.device)
+
+
+def bin_scatter_cuda(slot, contrib, table_size: int):
+    """tables[s, b(, j)] = sum_{i: slot[s, i] = b} contrib[s, i(, j)] for
+    an index without a layout; slot (m, n) int32 in [0, table_size),
+    contrib (m, n) or (m, n, k) f32 -> (m, B) or (m, B, k).  Points are
+    partitioned into bins of the table and each bin summed in shared
+    memory, as ``scatter_plan`` cuts the work."""
+    m, n, k = _scatter_args(slot, contrib, table_size)
+    return _bin_scatter(slot, contrib, table_size,
+                        scatter_plan(m, n, int(table_size), k))
+
+
+def _bin_scatter(slot, contrib, table_size: int, plan: ScatterPlan):
+    """``bin_scatter_cuda`` at a given plan (tests try others)."""
+    m, n, k = _scatter_args(slot, contrib, table_size)
+    tables = _tables(slot, contrib, table_size)
     if tables.numel() == 0:
         return tables
+    dev = slot.device
+    smem = max(plan.tile_slots * plan.cols * 4,
+               12 * plan.window + plan.chunk * (4 * plan.cols + 4))
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"scatter: {plan} needs {smem} bytes of shared "
+                         f"memory a block, more than the card's {limit}")
+    g, p = plan.group, plan.window
+    counts = torch.empty(g * p, dtype=torch.int32, device=dev)
+    offsets = torch.empty(g * (p + 1), dtype=torch.int32, device=dev)
+    cursor = torch.empty(g * p, dtype=torch.int32, device=dev)
+    pslot = torch.empty(g * n, dtype=torch.int16, device=dev)
+    pval = torch.empty(g * n * plan.cols, dtype=torch.float32, device=dev)
     lib = _lib()
-    bin_scatter_cuda.launches += 1
-    rc = lib.bin_scatter_launch(slot.data_ptr(), contrib.data_ptr(),
-                                tables.data_ptr(), m, n, int(table_size), k,
-                                stream_ptr(tables.device))
+    count_launch(bin_scatter_cuda, (m, n, int(table_size), k))
+    rc = lib.bin_scatter_launch(
+        slot.data_ptr(), contrib.data_ptr(), tables.data_ptr(), m, n,
+        int(table_size), k, plan.tile_slots, plan.window, plan.cols,
+        plan.chunk, g, plan.threads, counts.data_ptr(), offsets.data_ptr(),
+        cursor.data_ptr(), pslot.data_ptr(), pval.data_ptr(),
+        stream_ptr(dev))
     check(rc, "bin_scatter", lib.binning_error_string)
     return tables
 
@@ -184,10 +285,11 @@ def bin_scatter_cuda(slot, contrib, table_size: int):
 def _route_lib():
     lib = load("route")
     if lib.route_pack_launch.argtypes is None:
-        lib.route_pack_launch.argtypes = [_P] * 3 + [_I, _L, _L, _I, _P]
+        lib.route_pack_launch.argtypes = [_P] * 4 + [
+            _I, _L, _L, _I, _I, _I, _P]
         lib.route_unpack_launch.argtypes = [_P] * 4 + [_I, _L, _L, _I, _P]
-        lib.route_pack_launch.restype = _I
-        lib.route_unpack_launch.restype = _I
+        for fn in (lib.route_pack_launch, lib.route_unpack_launch):
+            fn.restype = _I
         lib.route_error_string.argtypes = [_I]
         lib.route_error_string.restype = ctypes.c_char_p
     return lib
@@ -196,33 +298,52 @@ def _route_lib():
 def _cells(cell_lay, num_cells):
     m, L = cell_lay.shape
     _need(cell_lay, "cell_lay", torch.int32, (m, L))
-    if m > 65535 or not 0 <= num_cells < 2 ** 31:
+    if m > 65534 or not 0 <= num_cells < 2 ** 31:
         raise ValueError(f"route: m={m}, num_cells={num_cells} out of range")
     return m, L
 
 
-def route_pack_cuda(cell_lay, contrib_lay, num_cells: int):
-    """send[c(, j)] = sum over layout positions (s, p) with cell_lay[s, p]
-    = c of contrib_lay[s, p(, j)], summed in layout order; cell_lay (m, L)
-    int32 (cells >= num_cells are sentinels, skipped), contrib_lay (m, L)
-    or (m, L, k) f32 -> (num_cells,) or (num_cells, k), unreached cells 0.
-    Each real cell must be one contiguous run of one instance's layout (the
-    hash-join routing guarantees it)."""
+def _pack_args(cell_lay, contrib_lay, num_cells):
     m, L = _cells(cell_lay, num_cells)
     _need(contrib_lay, "contrib_lay", torch.float32)
     if contrib_lay.ndim not in (2, 3) or \
             tuple(contrib_lay.shape[:2]) != (m, L):
         raise ValueError(f"contrib_lay must be (m={m}, L={L}[, k]), got "
                          f"{tuple(contrib_lay.shape)}")
-    k = contrib_lay.shape[2] if contrib_lay.ndim == 3 else 1
-    send = torch.empty((int(num_cells),) + tuple(contrib_lay.shape[2:]),
-                       dtype=torch.float32, device=cell_lay.device)
+    return m, L, contrib_lay.shape[2] if contrib_lay.ndim == 3 else 1
+
+
+def route_pack_cuda(cell_lay, contrib_lay, used, cap: int, *,
+                    out_dtype=torch.float32):
+    """send[c(, j)] = sum over layout positions (s, p) with cell_lay[s, p]
+    = c of contrib_lay[s, p(, j)], summed in layout order in f32 and
+    rounded once to ``out_dtype`` (f32 or bf16, nearest even); cell_lay
+    (m, L) int32 (cells >= num_cells are sentinels, skipped), contrib_lay
+    (m, L) or (m, L, k) f32 -> (num_cells,) or (num_cells, k) with
+    num_cells = len(used) * cap, unreached cells 0.  Each real cell must be
+    one contiguous run of one instance's layout, and the cells of owner o
+    must be exactly [o*cap, o*cap + used[o]) (``used`` (n_shards,) int32 on
+    the card): the hash-join routing guarantees both.  L % 4 == 0."""
+    cap = int(cap)
+    n_shards = used.shape[0] if used.ndim == 1 else -1
+    _need(used, "used", torch.int32, (n_shards,))
+    m, L, k = _pack_args(cell_lay, contrib_lay, n_shards * cap)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"route_pack: out_dtype must be float32 or "
+                         f"bfloat16, got {out_dtype}")
+    if L % 4 or cell_lay.data_ptr() % 16 or contrib_lay.data_ptr() % 16:
+        raise ValueError(f"route_pack: needs L % 4 == 0 (L={L}) and "
+                         f"16-byte aligned cell and contrib rows")
+    send = torch.empty((n_shards * cap,) + tuple(contrib_lay.shape[2:]),
+                       dtype=out_dtype, device=cell_lay.device)
     if send.numel() == 0:
         return send
     lib = _route_lib()
-    route_pack_cuda.launches += 1
+    count_launch(route_pack_cuda, (m, L, k, n_shards * cap,
+                                   dtype_name(out_dtype)))
     rc = lib.route_pack_launch(cell_lay.data_ptr(), contrib_lay.data_ptr(),
-                               send.data_ptr(), m, L, int(num_cells), k,
+                               send.data_ptr(), used.data_ptr(), m, L, cap,
+                               n_shards, k, int(out_dtype == torch.bfloat16),
                                stream_ptr(send.device))
     check(rc, "route_pack", lib.route_error_string)
     return send
@@ -246,7 +367,7 @@ def route_unpack_cuda(cell_lay, coeff_lay, back):
     if out.numel() == 0:
         return out
     lib = _route_lib()
-    route_unpack_cuda.launches += 1
+    count_launch(route_unpack_cuda, (m, L, num_cells, k))
     rc = lib.route_unpack_launch(cell_lay.data_ptr(), coeff_lay.data_ptr(),
                                  back.data_ptr(), out.data_ptr(), m, L,
                                  num_cells, k, stream_ptr(out.device))
@@ -257,5 +378,5 @@ def route_unpack_cuda(cell_lay, coeff_lay, back):
 for _fn in (bin_fused_matvec_cuda, bin_scatter_blocked_cuda, bin_gather_cuda,
             bin_gather_blocked_cuda, bin_scatter_cuda, route_pack_cuda,
             route_unpack_cuda):
-    _fn.launches = 0
+    _fn.launches, _fn.launches_by_shape = 0, {}
 del _fn

@@ -14,7 +14,9 @@ the CPU).
 * ``table_matvec_op`` — the split matvec, loads then readout (the tables
   round-trip through device memory: the psum-able path).
 * ``route_pack_op`` / ``route_unpack_op`` — the hash join's wire pack and
-  unpack along the layout.
+  unpack along the layout.  The pack writes the wire dtype itself (the
+  cast to bf16 is fused into B7, rounded once after the f32 run sums),
+  and zeroes only the unreached tail of each owner's cells.
 
 Around the kernels, beta is laid out through ``src`` and results map back
 through ``inv_pos`` with PyTorch indexing (int32 indices, no int64 copies).
@@ -187,11 +189,16 @@ def table_matvec_op(index: TableIndex, beta: torch.Tensor, *,
 
 
 def route_pack_op(cell_lay: torch.Tensor, contrib_lay: torch.Tensor,
-                  num_cells: int) -> torch.Tensor:
-    """Hash-join wire pack (B7): (num_cells[, k]) layout-order run sums."""
-    if on_card(cell_lay, contrib_lay):
-        return route_pack_cuda(cell_lay, contrib_lay.contiguous(), num_cells)
-    return route_pack_ref(cell_lay, contrib_lay, num_cells=num_cells)
+                  used: torch.Tensor, cap: int,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """Hash-join wire pack (B7): (len(used) * cap[, k]) layout-order run
+    sums in f32, rounded once to ``out_dtype``; owner o's cells are
+    [o*cap, o*cap + used[o])."""
+    if on_card(cell_lay, contrib_lay, used):
+        return route_pack_cuda(cell_lay, contrib_lay.contiguous(), used, cap,
+                               out_dtype=out_dtype)
+    return route_pack_ref(cell_lay, contrib_lay,
+                          num_cells=used.shape[0] * cap).to(out_dtype)
 
 
 def route_unpack_op(cell_lay: torch.Tensor, coeff_lay: torch.Tensor,

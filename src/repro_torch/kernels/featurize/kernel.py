@@ -1,7 +1,7 @@
 """Wrapper of the CUDA featurize kernel (csrc/featurize.cu), which replaces
 the TPU kernel ``featurize_pallas``.  Launches on the current stream; the
 outputs come from ``torch.empty``; ``featurize_cuda.launches`` counts the
-launches."""
+launches (``launches_by_shape`` by (n, d, m))."""
 from __future__ import annotations
 
 import ctypes
@@ -9,7 +9,7 @@ import ctypes
 import torch
 
 from ...core.bucket_fns import BucketFn
-from .._build import check, load, stream_ptr
+from .._build import check, count_launch, load, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,7 +60,7 @@ def featurize_cuda(x, w, z, r1, r2, *, f: BucketFn, table_size: int):
     if n == 0 or m == 0:
         return key1, key2, weight, sign, slot, coeff
     lib = _lib()
-    featurize_cuda.launches += 1
+    count_launch(featurize_cuda, (n, d, m))
     rc = lib.featurize_launch(
         x.data_ptr(), w.data_ptr(), z.data_ptr(), r1.data_ptr(),
         r2.data_ptr(), key1.data_ptr(), key2.data_ptr(), weight.data_ptr(),
@@ -70,4 +70,4 @@ def featurize_cuda(x, w, z, r1, r2, *, f: BucketFn, table_size: int):
     return key1, key2, weight, sign, slot, coeff
 
 
-featurize_cuda.launches = 0
+featurize_cuda.launches, featurize_cuda.launches_by_shape = 0, {}

@@ -1,14 +1,15 @@
 """Wrapper of the CUDA flash-decode kernel (csrc/flash_decode.cu), which
 replaces the TPU kernel ``flash_decode_pallas``.  Launches on the current
 stream; outputs and the split scratch come from ``torch.empty``;
-``flash_decode_cuda.launches`` counts the launches."""
+``flash_decode_cuda.launches`` counts the launches (``launches_by_shape``
+by (B, T, KV, G, D, cache dtype))."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from .._build import check, load, stream_ptr
+from .._build import check, count_launch, dtype_name, load, stream_ptr
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,7 +85,8 @@ def flash_decode_cuda(q, k, v, valid, softcap: float = 0.0):
     acc_part = torch.empty((b * kv, n_split, g, d), dtype=torch.float32,
                            device=dev)
     lib = _lib()
-    flash_decode_cuda.launches += 1
+    count_launch(flash_decode_cuda,
+                 (b, t, kv, g, d, dtype_name(k.dtype)))
     rc = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
@@ -95,3 +97,4 @@ def flash_decode_cuda(q, k, v, valid, softcap: float = 0.0):
 
 
 flash_decode_cuda.launches = 0
+flash_decode_cuda.launches_by_shape = {}

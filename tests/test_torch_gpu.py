@@ -26,6 +26,9 @@ from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                          route_pack_cuda, route_pack_ref,
                                          route_unpack_cuda, route_unpack_ref,
                                          scatter_blocked_ref, scatter_ref)
+from repro_torch.kernels.binning import variants as V
+from repro_torch.kernels.binning.kernel import _bin_scatter, scatter_plan
+from repro_torch.kernels.binning.ops import layout_rows
 from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
 
 pytestmark = pytest.mark.gpu
@@ -140,21 +143,120 @@ def test_fit_on_card_matches_cpu(cuda, precond):
     torch.testing.assert_close(p_gpu, p_cpu, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("k", [0, 1, 4])
-def test_point_scatter_matches_plain(cuda, k):
-    """B5: global atomics, so the sum order varies: 1e-5 of max|out|."""
+# B5 plans: many bins, chunks and groups in blocks of 64 threads; a ragged
+# last bin at 600-byte tiles in blocks of 1024; several passes (windows of
+# 3 bins, groups of at most 3 columns); the defaults (one bin for these
+# tables)
+SCATTER_PLANS = [dict(tile_bytes=512, stage_bytes=2048, scratch_bytes=40000,
+                      threads=64),
+                 dict(tile_bytes=600, stage_bytes=5000, threads=1024),
+                 dict(tile_bytes=1024, stage_bytes=2048, max_bins=3,
+                      max_cols=3),
+                 dict()]
+
+
+def _scatter(slot, contrib, table_size, plan_kw):
+    """B5 at the plan ``plan_kw`` makes; the defaults through the public
+    wrapper."""
+    if not plan_kw:
+        return bin_scatter_cuda(slot, contrib, table_size)
+    m, n = slot.shape
+    k = contrib.shape[2] if contrib.ndim == 3 else 1
+    return _bin_scatter(slot, contrib, table_size,
+                        scatter_plan(m, n, table_size, k, **plan_kw))
+
+
+@pytest.mark.parametrize("plan_kw", SCATTER_PLANS)
+@pytest.mark.parametrize("k", [0, 1, 4, 7])
+def test_point_scatter_matches_plain(cuda, k, plan_kw):
+    """B5: shared atomics, so the sum order varies: 1e-5 of max|out|, at
+    several plans, with a heavy bucket; n = 4002 is no multiple of the
+    chunk."""
     rng = np.random.default_rng(10 + k)
-    m, n, table_size = 5, 4000, 1 << 12
+    m, table_size = 5, 1 << 12
+    for n in (4000, 4002):
+        slot = torch.from_numpy(rng.integers(0, table_size, (m, n),
+                                             dtype=np.int32)).to(cuda)
+        slot[:, : n // 4] = 9                   # a heavy bucket
+        shape = (m, n) if k == 0 else (m, n, k)
+        contrib = torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(cuda)
+        got = _scatter(slot, contrib, table_size, plan_kw)
+        want = scatter_ref(slot, contrib, table_size=table_size)
+        torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("plan_kw", SCATTER_PLANS)
+def test_point_scatter_heavy_slot(cuda, plan_kw):
+    """B5 with 4096 points of each instance on one slot, the rest
+    spread: 1e-5 of max|out|."""
+    rng = np.random.default_rng(41)
+    m, n, table_size = 8, 1 << 16, 1 << 17
     slot = torch.from_numpy(rng.integers(0, table_size, (m, n),
                                          dtype=np.int32)).to(cuda)
-    slot[:, : n // 4] = 9                       # a heavy bucket
-    shape = (m, n) if k == 0 else (m, n, k)
+    slot[:, 1000:5096] = 12345
+    contrib = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)
+                               ).to(cuda)
+    got = _scatter(slot, contrib, table_size, plan_kw)
+    want = scatter_ref(slot, contrib, table_size=table_size)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("table_size,k", [(1 << 23, 32), (1 << 20, 40),
+                                          (1 << 28, 1)])
+def test_point_scatter_wide_tables(cuda, table_size, k):
+    """B5 where one pass does not hold the table: B = 2^23 at k = 32 (two
+    windows of bins), k = 40 (two column groups), B = 2^28 at k = 1 (two
+    windows); 1e-5 of max|out|."""
+    rng = np.random.default_rng(42 + k)
+    m, n = 2, 1 << 16
+    plan = scatter_plan(m, n, table_size, k)
+    assert plan.window < plan.bins or plan.cols < k
+    slot = torch.from_numpy(rng.integers(0, table_size, (m, n),
+                                         dtype=np.int32)).to(cuda)
+    slot[:, :4096] = table_size - 1
+    shape = (m, n) if k == 1 else (m, n, k)
     contrib = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                                ).to(cuda)
     got = bin_scatter_cuda(slot, contrib, table_size)
     want = scatter_ref(slot, contrib, table_size=table_size)
     torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
                                rtol=1e-5)
+
+
+def test_point_scatter_empty_and_single_bin(cuda):
+    """B5 with no points writes zeros over the whole table; one point."""
+    slot = torch.zeros((3, 0), dtype=torch.int32, device=cuda)
+    got = bin_scatter_cuda(slot, torch.zeros((3, 0), device=cuda), 100000)
+    assert torch.equal(got, torch.zeros((3, 100000), device=cuda))
+    slot = torch.full((2, 1), 99999, dtype=torch.int32, device=cuda)
+    got = bin_scatter_cuda(slot, torch.ones((2, 1), device=cuda), 100000)
+    assert float(got.sum()) == 2.0 and float(got[:, 99999].sum()) == 2.0
+
+
+@pytest.mark.parametrize("k", [0, 4])
+def test_scatter_yardsticks_match_plain(cuda, k):
+    """The first designs of B5 and B7, which phase 5 times beside the
+    kernels."""
+    rng = np.random.default_rng(70 + k)
+    m, n, table_size = 5, 4000, 1 << 12
+    slot = torch.from_numpy(rng.integers(0, table_size, (m, n),
+                                         dtype=np.int32)).to(cuda)
+    shape = (m, n) if k == 0 else (m, n, k)
+    contrib = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                               ).to(cuda)
+    want = scatter_ref(slot, contrib, table_size=table_size)
+    tol = dict(atol=1e-5 * want.abs().max(), rtol=1e-5)
+    torch.testing.assert_close(V.bin_scatter_v1_cuda(slot, contrib,
+                                                     table_size), want, **tol)
+    lay, cell_lay, nb, used, cap = _route(rng, cuda)
+    cl = torch.from_numpy(rng.standard_normal(
+        tuple(cell_lay.shape) + (() if k == 0 else (k,)),
+        dtype=np.float32)).to(cuda)
+    assert torch.equal(V.route_pack_v1_cuda(cell_lay, cl, nb),
+                       route_pack_ref(cell_lay, cl, num_cells=nb))
 
 
 @pytest.mark.parametrize("k", [0, 3])
@@ -168,17 +270,20 @@ def test_gather_blocked_is_bitwise(cuda, k):
                        gather_blocked_ref(lay.slot_lay, tables))
 
 
-def _route(rng, device, n_shards=2, cap_factor=2.0):
-    m, n, table_size = 5, 3000, 1 << 12
+def _route(rng, device, n_shards=2, cap_factor=2.0, heavy=None):
+    """One rank's routing at ``n_shards`` owners; ``heavy`` points (default
+    a quarter) share slot 9."""
+    m, table_size = 5, 1 << 12
+    n = 3000 if heavy is None else heavy + 3000
     slot = torch.from_numpy(rng.integers(0, table_size, (m, n),
                                          dtype=np.int32)).to(device)
-    slot[:, : n // 4] = 9
+    slot[:, : n // 4 if heavy is None else heavy] = 9
     lay = T.build_blocked_layout(slot, torch.ones((m, n), device=device),
                                  table_size, block_n=64, parts="both")
-    pt_cell, _, _, cap, _, _ = D._routing_maps(slot, lay, n_shards,
-                                               table_size, cap_factor)
+    pt_cell, _, _, cap, _, _, used = D._routing_maps(
+        slot, lay, n_shards, table_size, cap_factor)
     nb = n_shards * cap
-    return lay, D._make_route_plan(pt_cell, lay, nb), nb
+    return lay, D._make_route_plan(pt_cell, lay, nb), nb, used, cap
 
 
 @pytest.mark.parametrize("cap_factor", [2.0, 0.05])
@@ -188,17 +293,68 @@ def test_route_pack_and_unpack_are_bitwise(cuda, k, cap_factor):
     B8 is one product per position: both bitwise, with dropped buckets
     (cap_factor 0.05) on the sentinel."""
     rng = np.random.default_rng(30 + k)
-    lay, cell_lay, nb = _route(rng, cuda, cap_factor=cap_factor)
+    lay, cell_lay, nb, used, cap = _route(rng, cuda, cap_factor=cap_factor)
     m, L = cell_lay.shape
     tail = () if k == 0 else (k,)
     contrib = torch.from_numpy(rng.standard_normal(
         (m, L) + tail, dtype=np.float32)).to(cuda)
-    assert torch.equal(route_pack_cuda(cell_lay, contrib, nb),
+    assert torch.equal(route_pack_cuda(cell_lay, contrib, used, cap),
                        route_pack_ref(cell_lay, contrib, num_cells=nb))
     back = torch.from_numpy(rng.standard_normal(
         (nb,) + tail, dtype=np.float32)).to(cuda)
     assert torch.equal(route_unpack_cuda(cell_lay, lay.coeff_lay, back),
                        route_unpack_ref(cell_lay, lay.coeff_lay, back))
+
+
+@pytest.mark.parametrize("heavy", [None, 4096])
+@pytest.mark.parametrize("cap_factor", [2.0, 0.05])
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("k", [0, 1, 4])
+def test_route_pack_owners_and_bf16_are_bitwise(cuda, k, n_shards,
+                                                cap_factor, heavy):
+    """B7 at 1, 2 and 4 owners, with dropped buckets, and with a
+    4096-point run: f32 bitwise with the plain pack, bf16 bitwise with the
+    plain pack rounded by ``.to(bfloat16)``; a NaN contribution stays NaN
+    in both."""
+    rng = np.random.default_rng(50 + k + n_shards)
+    lay, cell_lay, nb, used, cap = _route(rng, cuda, n_shards, cap_factor,
+                                          heavy)
+    m, L = cell_lay.shape
+    tail = () if k == 0 else (k,)
+    contrib = torch.from_numpy(rng.standard_normal(
+        (m, L) + tail, dtype=np.float32)).to(cuda)
+    contrib.view(-1)[7] = float("nan")
+    want = route_pack_ref(cell_lay, contrib, num_cells=nb)
+    got = route_pack_cuda(cell_lay, contrib, used, cap)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert torch.equal(got.isnan(), want.isnan())
+    got16 = route_pack_cuda(cell_lay, contrib, used, cap,
+                            out_dtype=torch.bfloat16)
+    want16 = want.to(torch.bfloat16)
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16.isnan(), want16.isnan())
+    fin = ~want16.isnan()
+    assert torch.equal(got16[fin].view(torch.int16),
+                       want16[fin].view(torch.int16))
+
+
+@pytest.mark.parametrize("k", [None, 2])
+def test_hashjoin_send_bf16_on_card(cuda, k):
+    """The hash join's bf16 send on the card (B7 rounding once) is bitwise
+    the f32 plain pack cast by ``.to(bfloat16)``, at 2 owners."""
+    rng = np.random.default_rng(60)
+    lay, cell_lay, nb, used, cap = _route(rng, cuda, 2)
+    n = lay.inv_pos.shape[1]
+    beta = torch.from_numpy(rng.standard_normal(
+        (n,) if k is None else (n, k), dtype=np.float32)).to(cuda)
+    rt = D._Routing(cell_lay=cell_lay, recv_ids=None, serve_map=None, spp=0,
+                    cap=cap, dropped=None, used=used)
+    got = D._hashjoin_send(rt, lay, beta, torch.bfloat16)
+    coeff = lay.coeff_lay if k is None else lay.coeff_lay[..., None]
+    want = route_pack_ref(cell_lay, coeff * layout_rows(lay, beta),
+                          num_cells=nb).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16),
+                       want.view(got.shape).view(torch.int16))
 
 
 def test_bad_arguments_raise(cuda):
@@ -211,6 +367,17 @@ def test_bad_arguments_raise(cuda):
         route_unpack_cuda(slot.int(), torch.zeros((2, 10), device=cuda),
                           torch.zeros((4,), dtype=torch.float64,
                                       device=cuda))
+    used = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):   # L % 4 != 0
+        route_pack_cuda(slot[:, :9].int().contiguous(),
+                        torch.zeros((2, 9), device=cuda), used, 4)
+    with pytest.raises(ValueError):
+        route_pack_cuda(slot.int()[:, :8].contiguous(),
+                        torch.zeros((2, 8), device=cuda), used, 4,
+                        out_dtype=torch.float16)
+    with pytest.raises(ValueError):   # more shared memory than the card's
+        _bin_scatter(slot.int(), torch.zeros((2, 10), device=cuda), 1 << 20,
+                     scatter_plan(2, 10, 1 << 20, 1, tile_bytes=1 << 20))
 
 
 # (B, KV, G, D, T): gemma3-1b, qwen3-14b, phi3-mini-3.8b, command-r-plus-104b

@@ -95,7 +95,7 @@ def test_routing_build_has_no_sort(monkeypatch):
         monkeypatch.setattr(torch, name, no_sort)
     monkeypatch.setattr(torch.Tensor, "sort", no_sort)
     monkeypatch.setattr(torch.Tensor, "argsort", no_sort)
-    pt_cell, _, _, cap, _, _ = D._routing_maps(slot, lay, 4, 1024, 2.0)
+    pt_cell, _, _, cap, _, _, _ = D._routing_maps(slot, lay, 4, 1024, 2.0)
     cell_lay = D._make_route_plan(pt_cell, lay, 4 * cap)
     build_route_schedule(cell_lay, num_cell_tiles=-(-4 * cap // 512),
                          block_n=lay.block_n, block_t=512)
