@@ -24,12 +24,21 @@ non-zero:
    over four routings built on the one card (one owner; one owner with
    cap_factor 0.1, which drops buckets; 2 and 4 owners), and again with
    4096 points of every instance on one slot (1 and 2 owners); at
-   n = 2^22 one rank's routing and k = 1.  Then flash decode
+   n = 2^22 one rank's routing and k = 1.  B1 also on its edge operands
+   (``repro_torch.testing.operands``: NaN, +-inf, |t| at 2^22, 2^23 and
+   2^31, ties +- 1 ulp, widths past the fast path's range), all three
+   bucket functions, and B1's fast-path quotient bitwise against IEEE
+   division on the card for every one of the 2^23 significands of w, each
+   at about 5.6 quotients next to a midpoint of two float32s (in [0.5, 2),
+   scaled to about 2^20 and to about -2^-30).  Then flash decode
    B9 at the kv-head shapes of gemma3-1b (KV 1, G 4, D 256; f32 and bf16
    caches), qwen3-14b (KV 8, G 5, D 128, bf16), phi3-mini-3.8b (KV 32, G 1,
-   D 96, f32) and command-r-plus-104b (KV 8, G 12, D 128, bf16), each with
-   random lengths, one valid row, a wrapped ring and no valid row, T not a
-   multiple of the 32-row tile: 1e-5 of max|out| (f32), 1e-4 (bf16).
+   D 96, f32) and command-r-plus-104b (KV 8, G 12, D 128, bf16) and one
+   long gemma3-1b cache (B 1, T 8191: more splits than a cluster), each
+   with random lengths, one valid row, a wrapped ring and no valid row, T
+   not a multiple of the tile: 1e-5 of max|out| (f32), 1e-4 (bf16); and at
+   phase 7's two shapes (T 512 and 2112) and the long cache, each called
+   twice in a row and on two streams.
 3. Main phase: ``wlsh_krr_fit`` then ``wlsh_krr_predict`` at the repo's
    ``wlsh_krr`` config (n = 2^22, d = 64, m = 64, B = 2^23, rect,
    Gamma(2, 1), lam = 1, no preconditioner, 32 PCG iterations as the
@@ -60,7 +69,8 @@ non-zero:
    hold 2112 rows.  Counts reset before and read after: B9 must launch 26
    times per decode step.  Then decode_step(prefill(x[:2048]), x[2048])
    against the last logits of prefill(x[:2049]) within 2e-3 of max|logit|,
-   and B9's share of a step from its times at the step's two cache shapes.
+   B9's share of a step from its times at the step's two cache shapes, and
+   a profiled step, in which B9 must run one device kernel per call.
 5. Times, run last: B1-B4 at the main phase's shapes, B5-B8 at phase 6's
    and B9 at the decode_32k shape (T = 32768; the gemma3-1b global layer in
    f32 and bf16, qwen3-14b in bf16), each kernel (CUDA events), its plain
@@ -69,7 +79,14 @@ non-zero:
    (scaled_dot_product_attention for B9).  B5 and B7 also against their
    first designs (kept for that), B5 split into its kernels by
    torch.profiler, and the zero fill of B7's send buffer alone (the
-   index_add_ yardstick leaves it out).  Each wrapper also counts its
+   index_add_ yardstick leaves it out).  B1 and B9 against their first
+   designs where ``--old-src`` finds those sources (a parent checkout;
+   not part of the program), B1 beside its SASS instruction floor, B9 at
+   phase 7's shapes in alternating turns (new, old, old, new, three
+   times), and B9 on one long cache (B 1, T 32768, f32 and bf16) at its
+   plan (splits combined by the last block) against the same kernel with
+   its splits capped at a cluster's and against its first design.  Each
+   wrapper also counts its
    launches by input shape; B1 (phase 3), B7 (phase 6 (c), f32 and bf16
    out) and B9 (phase 7; device time from torch.profiler) are timed at
    every shape their counted run launched them at, and listed with those
@@ -128,6 +145,8 @@ DIST_PATHS = {"bin_scatter": "b", "bin_gather_blocked": "a",
               "route_pack": "c", "route_unpack": "c"}
 # the kernels of the LM serving path (phase 7)
 LM_KERNELS = ("flash_decode",)
+# B9's device kernels (csrc/flash_decode.cu), by name in a profiler trace
+B9_KERNELS = ("fma_kernel<", "mma_kernel<")
 # phase 7: gemma3-1b at its full config, f32, seeded random weights
 LM = dict(arch="gemma3-1b", batch=8, prompt=2048, gen=64)
 # B9 parity shapes (name, B, KV, G, D, T, cache dtype): the kv-head shapes of
@@ -137,7 +156,21 @@ DECODE_PARITY = (("gemma3-1b", 8, 1, 4, 256, 2112, "float32"),
                  ("gemma3-1b", 8, 1, 4, 256, 2111, "bfloat16"),
                  ("qwen3-14b", 4, 8, 5, 128, 1001, "bfloat16"),
                  ("phi3-mini-3.8b", 4, 32, 1, 96, 517, "float32"),
-                 ("command-r-plus-104b", 4, 8, 12, 128, 777, "bfloat16"))
+                 ("command-r-plus-104b", 4, 8, 12, 128, 777, "bfloat16"),
+                 # one long cache: more splits than a cluster, combined by
+                 # the last block through device memory
+                 ("gemma3-1b", 1, 1, 4, 256, 8191, "float32"),
+                 ("gemma3-1b", 1, 1, 4, 256, 8191, "bfloat16"))
+# B9 at the gemma3-1b serve run's shapes (phase 7: batch 8, the local layers'
+# 512-row rings and the global layers' 2112-row caches; splits combined in a
+# cluster) and at one long cache (splits combined through device memory by
+# the last block, whose arrival counters must reset), each called twice in a
+# row and on two streams
+DECODE_SERVE = (("gemma3-1b local", 8, 1, 4, 256, 512, "float32"),
+                ("gemma3-1b global", 8, 1, 4, 256, 2112, "float32"),
+                ("gemma3-1b long", 1, 1, 4, 256, 8191, "float32"))
+# B1's edge operands (repro_torch.testing.operands) at full width
+EDGE_N = 1 << 16
 # B9 times at the decode_32k shape (configs/base.py SHAPES: T = 32768,
 # B = 128, or the largest power of two whose cache, the plain version's f32
 # copies and a head-expanded copy for the library call fit in DECODE_GIB)
@@ -145,6 +178,9 @@ DECODE_TIMED = (("gemma3-1b global", 1, 4, 256, "float32"),
                 ("gemma3-1b global", 1, 4, 256, "bfloat16"),
                 ("qwen3-14b", 8, 5, 128, "bfloat16"))
 DECODE_GIB = 60
+# where phase 5 finds the first designs of B1 and B9 (a parent checkout
+# unpacked into a git-ignored directory; not part of the program)
+OLD_SRC = REPO / "scratch_checkout" / "parent" / "src" / "repro_torch" / "csrc"
 
 
 def fail(msg: str):
@@ -211,13 +247,6 @@ def kernel_name(name: str) -> str:
     return name.split("(")[0].strip()
 
 
-def device_ms(torch, fn, reps: int = 20):
-    """Device time of one fn() call (``device_split`` summed); None when
-    the profiler records no device event."""
-    split = device_split(torch, fn, reps)
-    return sum(split.values()) if split else None
-
-
 def by_shape_entries(tally, timed, fmt):
     """The ``by_shape`` list of one kernel: for each input shape the
     counted run launched it at (``tally``, from its wrapper), those
@@ -244,6 +273,136 @@ def nbytes(*tensors) -> int:
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def card_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0].split()[0])
+
+
+def sass_fast_path(lib_path, kernel_key):
+    """The instructions a thread issues per turn of the innermost loop of
+    ``kernel_key`` in a built library, walked from the loop head along the
+    path where no predicated branch is taken (B1's fast path): (the loop's
+    static length, the path's length, counts by opcode); None when cuobjdump
+    is missing."""
+    import collections
+    import re
+    from repro_torch.kernels._build import _nvcc
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", sass)
+                 if kernel_key in f.split("\n")[0]), None)
+    if body is None:
+        return None
+    ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s*([^;]*);", body)]
+    where = {a: i for i, (a, _) in enumerate(ins)}
+
+    def target(t):
+        hit = re.search(r"BRA\s+(?:\S+\s+)?0x([0-9a-f]+)", t)
+        return int(hit.group(1), 16) if hit else None
+
+    loops = [(a, target(t)) for a, t in ins
+             if target(t) is not None and target(t) < a]
+    inner = [(a, h) for a, h in loops
+             if not any(o != (a, h) and h <= o[1] and o[0] <= a
+                        for o in loops)]
+    end, head = max(inner, key=lambda lp: lp[0] - lp[1])
+    i, path = where[head], []
+    while True:
+        a, t = ins[i]
+        path.append(t)
+        if a == end:
+            break
+        tg = target(t)
+        if tg is not None and tg > a and not t.startswith("@"):
+            i = where[tg]
+        else:
+            i += 1
+    ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                              for t in path)
+    return (end - head) // 16 + 1, len(path), ops
+
+
+# ---------------------------------------------------------------------------
+# the first designs of B1 and B9, for the side-by-side times of phase 5
+# ---------------------------------------------------------------------------
+
+def load_old_designs(torch, src_dir):
+    """The first designs of B1 and B9, built by nvcc from the
+    ``featurize.cu`` and ``flash_decode.cu`` in ``src_dir`` (a parent
+    checkout's sources, kept out of the program) into ``_build/old``;
+    callables on the first designs' C interfaces.  None without the
+    sources."""
+    import ctypes
+    from repro_torch.kernels import _build
+    if src_dir is None or not (src_dir / "featurize.cu").exists() or \
+            not (src_dir / "flash_decode.cu").exists():
+        return None
+    out_dir = _build.BUILD_DIR / "old"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+         str(out_dir / f"lib{name}_old.so"), str(src_dir / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("featurize", "flash_decode")}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"the first design of {name}.cu did not build:\n{log}")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fz = ctypes.CDLL(str(out_dir / "libfeaturize_old.so"))
+    fz.featurize_launch.argtypes = [P] * 11 + [I] * 4 + [
+        ctypes.c_float, ctypes.c_uint32, P]
+    fd = ctypes.CDLL(str(out_dir / "libflash_decode_old.so"))
+    fd.flash_decode_launch.argtypes = [P] * 8 + [I] * 8 + [ctypes.c_float, P]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def featurize(x, w, z, r1, r2, f, table_size):
+        n, d = x.shape
+        m = w.shape[0]
+        outs = [torch.empty((m, n), dtype=dt, device=x.device) for dt in (
+            torch.uint32, torch.uint32, torch.float32, torch.float32,
+            torch.int32, torch.float32)]
+        rc = fz.featurize_launch(
+            x.data_ptr(), w.data_ptr(), z.data_ptr(), r1.data_ptr(),
+            r2.data_ptr(), *(o.data_ptr() for o in outs), n, d, m,
+            f.kernel_id, f.kernel_const, table_size - 1,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"first featurize design: launch error {rc}")
+        return outs
+
+    def flash_decode(q, k, v, valid):
+        b, kv, g, d = q.shape
+        t = k.shape[1]
+        n_tiles = -(-t // 32)               # the first design's split: ~8 blocks an SM
+        per = -(-n_tiles // min(max(1, -(-8 * sms // (b * kv))), n_tiles))
+        rows = per * 32
+        ns = -(-t // rows)
+        out = torch.empty((b, kv, g, d), device=q.device)
+        m_part = torch.empty((b * kv, ns, g), device=q.device)
+        l_part = torch.empty_like(m_part)
+        acc = torch.empty((b * kv, ns, g, d), device=q.device)
+        rc = fd.flash_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), b, t, kv, g, d, ns, rows,
+            int(k.dtype == torch.bfloat16), 0.0,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"first flash decode design: launch error {rc}")
+        return out
+
+    return dict(featurize=featurize, flash_decode=flash_decode)
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +563,54 @@ def check_dist_kernels(torch, slot, coeff, lay, routes, beta, table_size):
     return e5
 
 
+def check_featurize_edges(torch, dev, seed):
+    """B1 on its edge operands (where the fast divide and rounding hand
+    over to the exact path, and ties) for all three bucket functions."""
+    import repro_torch.core as T
+    from repro_torch.core.lsh import lsh_params_from_numpy
+    from repro_torch.testing.operands import featurize_edge_case
+    x, w, z, r1, r2 = featurize_edge_case(seed, EDGE_N, MAIN["d"], MAIN["m"])
+    xt = torch.from_numpy(x).to(dev)
+    lsh = lsh_params_from_numpy(w, z, r1, r2, dev)
+    for fname in ("rect", "tent", "smooth"):
+        _, err = check_featurize(torch, xt, lsh, T.get_bucket_fn(fname),
+                                 MAIN["table_size"])
+        say(f"  featurize[{fname}] on the edge operands (n={EDGE_N}: NaN, "
+            f"+-inf, subnormal, |t| at 2^22 / 2^23 / 2^31, k + 1/2 +- 1 ulp; "
+            f"w at 2^-60 / 2^60 and past them, near FLT_MIN and FLT_MAX): "
+            f"keys/slot/sign bitwise, weight/coeff max err {err:.3g}")
+
+
+def check_featurize_quotient(torch, dev):
+    """B1's fast-path quotient (the kernel's device function, run alone)
+    bitwise against IEEE division (torch's on the card, and numpy's on a
+    sample) at quotients next to a midpoint of two float32s, for every
+    significand of w."""
+    from repro_torch.kernels.featurize.kernel import fast_quotient_cuda
+    from repro_torch.testing.operands import tie_adjacent_quotients
+    t0 = time.perf_counter()
+    a, w = tie_adjacent_quotients(torch.arange(1 << 23, 1 << 24,
+                                               device=dev))
+    total = 0
+    for scale in (1.0, 2.0 ** 20, -(2.0 ** -30)):
+        sa = a * scale
+        got, want = fast_quotient_cuda(sa, w), sa / w
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            i = int((got != want).nonzero()[0])
+            fail(f"featurize quotient differs from IEEE division at "
+                 f"a={float(sa[i])!r}, w={float(w[i])!r}: "
+                 f"{float(got[i])!r} against {float(want[i])!r}")
+        pick = torch.randperm(sa.numel(), device=dev)[:1 << 20]
+        an, wn = sa[pick].cpu().numpy(), w[pick].cpu().numpy()
+        if not np.array_equal(got[pick].cpu().numpy(), an / wn):
+            fail(f"featurize quotient differs from numpy's division on a "
+                 f"sample (scale {scale})")
+        total += sa.numel()
+    say(f"  featurize quotient at tie-adjacent a / w, every significand of "
+        f"w (2^23), {total} operands over 3 scales: bitwise equal to IEEE "
+        f"division ({time.perf_counter() - t0:.2f} s)")
+
+
 def phase_parity(torch, x, xq, seed):
     import repro_torch.core as T
     from repro_torch.core.wlsh import build_blocked_layout
@@ -423,6 +630,9 @@ def phase_parity(torch, x, xq, seed):
                                          T.get_bucket_fn(fname), table_size)
             say(f"  n={n} featurize[{fname}]: keys/slot/sign bitwise, "
                 f"weight/coeff max err {e_f:.3g}")
+        if n != MAIN["n"]:
+            check_featurize_edges(torch, x.device, seed)
+            check_featurize_quotient(torch, x.device)
         slot, coeff = feats[4], feats[5]
         del feats
         lay = build_blocked_layout(slot, coeff, table_size)
@@ -890,6 +1100,32 @@ def phase_parity_decode(torch, dev, seed):
         say(f"  {arch} B={b} KV={kv} G={g} D={d} T={t} {dt}: max err "
             f"{max(errs):.3g} over random lengths / one valid row / wrapped "
             f"ring / no valid row (limit {lim_rel:g} of max|out|)")
+    for i, (arch, b, kv, g, d, t, dt) in enumerate(DECODE_SERVE):
+        errs = []
+        for lens in ("random", "one", "wrapped", "none"):
+            args = decode_inputs(torch, dev, b, kv, g, d, t,
+                                 getattr(torch, dt), seed + 100 + i, lens)
+            want = flash_decode_ref(*args)
+            lim = 1e-5 * float(want.abs().max())
+            outs = [flash_decode_cuda(*args), flash_decode_cuda(*args)]
+            torch.cuda.synchronize()
+            streams = (torch.cuda.Stream(), torch.cuda.Stream())
+            for st in streams:
+                st.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(st):
+                    outs.append(flash_decode_cuda(*args))
+            torch.cuda.synchronize()
+            for j, got in enumerate(outs):
+                err = max_err(got, want)
+                if not (bool(torch.isfinite(got).all()) and err <= lim):
+                    fail(f"flash decode {arch} serve T={t} {lens}, call "
+                         f"{j + 1} of 4 (2 in a row, then 2 streams): err "
+                         f"{err} > {lim}")
+                errs.append(err)
+        worst = max(worst, max(errs))
+        say(f"  {arch} B={b} KV={kv} G={g} D={d} T={t} {dt}: max err "
+            f"{max(errs):.3g} over the four masks, each called twice in a "
+            f"row and on two streams (limit 1e-5 of max|out|)")
     return worst
 
 
@@ -1028,11 +1264,15 @@ def profile_decode(torch, cfg, params, cache, tok, pos, steps: int = 3):
     say(f"  profiled decode step (torch.profiler, {steps} steps): wall "
         f"{wall:.3f} ms, {launches:.0f} kernels, device busy {busy:.3f} ms "
         f"({busy / wall:.1%}; idle {1 - busy / wall:.1%})")
-    b9 = {part: sum(us for name, (_, us) in by_name.items()
-                    if f"{part}_kernel" in name) / 1e3 / steps
-          for part in ("split", "combine")}
-    say(f"    B9 on the device: split {b9['split']:.3f} + combine "
-        f"{b9['combine']:.3f} ms/step")
+    b9 = {kernel_name(name): (n, us) for name, (n, us) in by_name.items()
+          if kernel_name(name).startswith(B9_KERNELS)}
+    b9_n = sum(n for n, _ in b9.values()) / steps
+    say(f"    B9 on the device: {b9_n:.0f} kernels a step, one a call "
+        f"({', '.join(b9)}), {sum(us for _, us in b9.values()) / 1e3 / steps:.3f}"
+        f" ms/step")
+    if b9_n != cfg.n_layers:
+        fail(f"phase 7: {b9_n} B9 kernels a decode step on the device, not "
+             f"one per layer ({cfg.n_layers})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (n, us) in top:
         say(f"    {us / 1e3 / steps:.3f} ms/step in {n // steps} x "
@@ -1053,10 +1293,11 @@ def decode_batch(torch, kv, g, d, dtype):
     return b
 
 
-def decode_times(torch, dev, seed):
+def decode_times(torch, dev, seed, old=None):
     """B9 at the decode_32k shape, against its plain version, its byte
-    bound and scaled_dot_product_attention (enable_gqa, boolean mask) on
-    the same cache laid out (B, KV, T, D)."""
+    bound, scaled_dot_product_attention (enable_gqa, boolean mask) on the
+    same cache laid out (B, KV, T, D) and, given ``old``, its first
+    design (turns: new, old, old, new)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode_cuda,
                                                   flash_decode_ref)
@@ -1070,6 +1311,12 @@ def decode_times(torch, dev, seed):
         run = lambda: flash_decode_cuda(q, k, v, valid)
         out = run()
         ms = time_ms(torch, run, reps=10)
+        t_old = None
+        if old is not None:
+            prev = lambda: old["flash_decode"](q, k, v, valid)
+            t_old = (time_ms(torch, prev, reps=10)
+                     + time_ms(torch, prev, reps=10)) / 2
+            ms = (ms + time_ms(torch, run, reps=10)) / 2
         plain = time_ms(torch, lambda: flash_decode_ref(q, k, v, valid),
                         reps=3)
         b_ms, b_by = bound(nbytes(q, k, v, valid, out),
@@ -1084,18 +1331,46 @@ def decode_times(torch, dev, seed):
         say(f"  B9 decode_32k {label} {dt}: B={b} KV={kv} G={g} D={d} "
             f"T={t}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, "
-            f"scaled_dot_product_attention {lib:.4f} ms")
-        rows.append((ms, plain, (b_ms, b_by), lib))
+            f"scaled_dot_product_attention {lib:.4f} ms, first design "
+            + ("not timed" if t_old is None else f"{t_old:.4f} ms"))
+        rows.append((ms, plain, (b_ms, b_by), lib, t_old))
         del q, kt, vt, valid, out, qs, mask
         torch.cuda.empty_cache()
     return rows
 
 
-def decode_serve_times(torch, dev, seed, tally):
+def device_ms(torch, fn):
+    """Device time of one fn() call, summed over its kernels (profiler), or
+    None when the profiler records no device event."""
+    split = device_split(torch, fn)
+    return sum(split.values()) if split else None
+
+
+def turns(torch, fns: dict, rounds: int = 3) -> dict:
+    """Device times of each fn in ``fns`` (name -> fn) in alternating turns:
+    the names in order, then in reverse, ``rounds`` times.  {name: [ms of
+    each turn]}; a turn the profiler saw nothing of is left out."""
+    out = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in order + order[::-1]:
+            ms = device_ms(torch, fns[name])
+            if ms is not None:
+                out[name].append(ms)
+    return out
+
+
+def spread(ts) -> str:
+    return (f"{sum(ts) / len(ts):.4f} ms (min {min(ts):.4f}, max "
+            f"{max(ts):.4f}, {len(ts)} turns)" if ts else "not measured")
+
+
+def decode_serve_times(torch, dev, seed, tally, old=None):
     """B9 at every shape phase 7 launched it at (``tally``: its launches by
     (B, T, KV, G, D, cache dtype); gemma3-1b: the global layers' caches
     and the local layers' rings): device time from the profiler against
-    the bound, on a wrapped ring (every row valid)."""
+    the bound, on a wrapped ring (every row valid), in alternating turns
+    with the first design (its split and combine kernels) given ``old``."""
     from repro_torch.kernels.flash_decode import flash_decode_cuda
     timed = {}
     for key in tally:
@@ -1104,19 +1379,99 @@ def decode_serve_times(torch, dev, seed, tally):
                                        getattr(torch, dt), seed,
                                        lens="wrapped")
         out = flash_decode_cuda(q, k, v, valid)
-        dms = device_ms(torch, lambda: flash_decode_cuda(q, k, v, valid))
+        run = lambda: flash_decode_cuda(q, k, v, valid)
+        names = [kernel_name(n) for n in device_split(torch, run)]
+        fns = {"new": run}
+        if old is not None:
+            fns["old"] = lambda: old["flash_decode"](q, k, v, valid)
+        got = turns(torch, fns)
         b_ms, _ = bound(nbytes(q, k, v, valid, out), 4.0 * q.numel() * t)
-        timed[key] = dict(device_ms=dms, bound_ms=b_ms)
+        mean = lambda ts: sum(ts) / len(ts) if ts else None
+        timed[key] = dict(device_ms=mean(got["new"]), bound_ms=b_ms)
+        text = ""
+        if old is not None:
+            timed[key]["old_device_ms"] = mean(got["old"])
+            text = "; first design " + spread(got["old"]) + " (" + ", ".join(
+                kernel_name(n) for n in device_split(torch, fns["old"])) + ")"
         say(f"  B9 at phase 7's B={b} KV={kv} G={g} D={d} T={t} {dt}: "
-            f"device {'not measured' if dms is None else f'{dms:.4f} ms'} "
-            f"(torch.profiler), bound {b_ms:.4f} ms, {tally[key]} launches "
-            f"in phase 7")
+            f"device {spread(got['new'])} (torch.profiler: "
+            + ", ".join(names) + f"), bound {b_ms:.4f} ms, {tally[key]} "
+            f"launches in phase 7{text}; turns new "
+            + " ".join(f"{x:.4f}" for x in got["new"])
+            + ("" if old is None else
+               "; old " + " ".join(f"{x:.4f}" for x in got["old"])))
         del q, k, v, valid, out
     return timed
 
 
+def decode_long_times(torch, dev, seed, old=None):
+    """B9 on one long cache (gemma3-1b global, B 1, T 32768, every row
+    valid; f32 and bf16), where its plan has more splits than a cluster and
+    the last block combines them: device time at that plan, at the same
+    kernel's splits capped at a cluster's (combined in the cluster), and
+    given ``old`` the first design's, in alternating turns."""
+    from repro_torch.kernels.flash_decode import kernel
+    b, kv, g, d, t = 1, 1, 4, 256, 32768
+    for i, dt in enumerate(("float32", "bfloat16")):
+        q, k, v, valid = decode_inputs(torch, dev, b, kv, g, d, t,
+                                       getattr(torch, dt), seed + i,
+                                       lens="wrapped")
+        rows, slots = kernel.kernel_geometry(dev, g, d, dt == "bfloat16")
+        plan = kernel.split_plan(b, kv, t, slots, rows)
+        capped = kernel.split_plan(b, kv, t, kernel.MAX_CLUSTER * b * kv,
+                                   rows)
+        fns = {"plan": lambda: kernel._launch(q, k, v, valid, 0.0, *plan),
+               "capped": lambda: kernel._launch(q, k, v, valid, 0.0,
+                                                *capped)}
+        want = fns["capped"]()
+        err = max_err(fns["plan"](), want) / float(want.abs().max())
+        if err > (1e-5 if dt == "float32" else 1e-4):
+            fail(f"B9 long cache {dt}: plan and capped plan differ by "
+                 f"{err:.3g} of max|out|")
+        if old is not None:
+            fns["old"] = lambda: old["flash_decode"](q, k, v, valid)
+        got = turns(torch, fns)
+        b_ms, _ = bound(nbytes(q, k, v, valid, want), 4.0 * q.numel() * t)
+        say(f"  B9 long cache B={b} KV={kv} G={g} D={d} T={t} {dt}: plan "
+            f"{plan[0]} splits of {plan[1]} rows ("
+            + ("last-block" if plan[0] > kernel.MAX_CLUSTER else "cluster")
+            + f" combine) {spread(got['plan'])}; capped at {capped[0]} "
+            f"splits of {capped[1]} rows (cluster combine) "
+            f"{spread(got['capped'])}; "
+            f"first design " + (spread(got["old"]) if old else "not timed")
+            + f"; bound {b_ms:.4f} ms; plans agree to {err:.2g} of max|out|")
+        del q, k, v, valid, want
+        torch.cuda.empty_cache()
+
+
+_B1_WALKS = {}
+
+
+def b1_floor(torch, m, n, d):
+    """B1's SASS instruction floor at (m, n, d): the instructions a thread
+    issues per element on the fast path of the rect kernel the launcher
+    takes for d (from cuobjdump of the built library), times m n d, over
+    the SMs' issue rate (4 warp instructions a clock at the maximum SM
+    clock).  (floor ms, per element, opcodes) or None."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.featurize.kernel import featurize_plan
+    plan = featurize_plan(d)
+    if d not in _B1_WALKS:
+        _B1_WALKS[d] = sass_fast_path(
+            _build.library_path("featurize"),
+            f"featurize_kernelILi0ELi{plan['points']}E")
+    walk = _B1_WALKS[d]
+    if walk is None:
+        return None
+    _, length, ops = walk
+    per_elem = length / (2 * plan["points"] * plan["instances"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 4 * 32 * card_clock_mhz() * 1e6     # thread instructions/s
+    return m * n * d * per_elem / rate * 1e3, per_elem, ops
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
-                lm_counts, seed):
+                lm_counts, seed, old=None):
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                              bin_gather_cuda,
@@ -1151,14 +1506,35 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
             fail(f"featurize launched at (n, d, m) = {key}, not a shape "
                  f"of phase 3's data")
         fb = featurize_cuda(src, *lsh, f=T.RECT, table_size=ts)
-        ms_b = time_ms(torch, lambda: featurize_cuda(src, *lsh, f=T.RECT,
-                                                     table_size=ts))
+        new = lambda: featurize_cuda(src, *lsh, f=T.RECT, table_size=ts)
         b_b, _ = bound(nbytes(src, *lsh, *fb), 5.0 * m * key[0] * d)
-        feat_timed[key] = dict(ms=ms_b, bound_ms=b_b)
-        say(f"  featurize at n={key[0]}: {ms_b:.4f} ms (bound {b_b:.4f} "
-            f"ms), {main_shapes['featurize'][key]} of phase 3's "
+        floor = b1_floor(torch, m, key[0], d)
+        entry = dict(ms=time_ms(torch, new), bound_ms=b_b)
+        text = f"{entry['ms']:.4f} ms"
+        if old is not None:     # turns: new, old, old, new
+            prev = lambda: old["featurize"](src, *lsh, T.RECT, ts)
+            if not all(torch.equal(a, b) for a, b in zip(fb, prev())):
+                fail(f"featurize n={key[0]}: the new design differs from "
+                     f"the first one")
+            t_old = (time_ms(torch, prev) + time_ms(torch, prev)) / 2
+            entry["ms"] = (entry["ms"] + time_ms(torch, new)) / 2
+            entry["old_ms"] = t_old
+            text = (f"{entry['ms']:.4f} ms, first design {t_old:.4f} ms "
+                    f"(outputs bitwise equal)")
+        feat_timed[key] = entry
+        say(f"  featurize at n={key[0]}: {text}; byte bound {b_b:.4f} ms, "
+            f"instruction floor " + ("not measured" if floor is None else
+                                     f"{floor[0]:.4f} ms ({floor[1]:.2f} "
+                                     f"per element)")
+            + f"; {main_shapes['featurize'][key]} of phase 3's "
             f"{counts['featurize']} launches")
         del fb
+    floor = b1_floor(torch, m, n, d)
+    if floor is not None:
+        say(f"  B1 fast path per element (rect, SASS): {floor[1]:.2f} "
+            f"instructions; by opcode per loop turn: "
+            + ", ".join(f"{k} {v}" for k, v in floor[2].most_common()))
+    old_ms = {"featurize": feat_timed.get((n, d, m), {}).get("old_ms")}
     by_shape = {"featurize": by_shape_entries(
         main_shapes["featurize"], feat_timed,
         lambda k: f"n={k[0]} d={k[1]} m={k[2]}")}
@@ -1223,12 +1599,14 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         dist_shapes["c"]["route_pack"], pack_timed,
         lambda k: f"m={k[0]} L={k[1]} k={k[2]} cells={k[3]} {k[4]} out")
     torch.cuda.empty_cache()
-    rows["flash_decode"] = decode_times(torch, data[0].device, seed)[0]
+    b9 = decode_times(torch, data[0].device, seed, old)[0]
+    rows["flash_decode"], old_ms["flash_decode"] = b9[:4], b9[4]
     lm_counts, lm_shapes = lm_counts
     by_shape["flash_decode"] = by_shape_entries(
         lm_shapes["flash_decode"], decode_serve_times(
-            torch, data[0].device, seed, lm_shapes["flash_decode"]),
+            torch, data[0].device, seed, lm_shapes["flash_decode"], old),
         lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
+    decode_long_times(torch, data[0].device, seed, old)
     entries = []
     for name, (ms, plain, (b_ms, b_by), lib) in rows.items():
         src, replaces = KERNELS[name]
@@ -1242,6 +1620,8 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib))
         if name in by_shape:
             entries[-1]["by_shape"] = by_shape[name]
+        if old_ms.get(name) is not None:
+            entries[-1]["old_ms"] = old_ms[name]
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}")
@@ -1251,6 +1631,11 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--old-src", type=Path, default=OLD_SRC,
+                    help="csrc directory of a parent checkout whose "
+                    "featurize.cu and flash_decode.cu phase 5 times beside "
+                    "the current designs (default: %(default)s, when "
+                    "present)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1283,8 +1668,12 @@ def main(argv=None) -> int:
     dist_state = phase_distributed(torch, data, args.seed, main_pred)
     del main_pred
     lm_counts = phase_lm(torch, dev, args.seed)
+    old = load_old_designs(torch, args.old_src)
+    say("first designs of B1 and B9: " + (
+        f"built from {args.old_src}" if old else
+        f"not timed (no sources at {args.old_src})"))
     entries = phase_times(torch, data, model, counts, errs, dist_state,
-                          lm_counts, args.seed)
+                          lm_counts, args.seed, old)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

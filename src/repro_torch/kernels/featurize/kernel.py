@@ -23,7 +23,22 @@ def _lib():
         lib.featurize_launch.restype = _I
         lib.featurize_error_string.argtypes = [_I]
         lib.featurize_error_string.restype = ctypes.c_char_p
+        lib.featurize_plan.argtypes = [_I, ctypes.POINTER(_I)]
+        lib.featurize_plan.restype = None
+        lib.featurize_quotient.argtypes = [_P, _P, _P, ctypes.c_longlong,
+                                           _P]
+        lib.featurize_quotient.restype = _I
     return lib
+
+
+def featurize_plan(d: int) -> dict:
+    """The launch plan the kernel takes for ``d`` coordinates: points a
+    thread holds, threads a group, groups a block, instances a group
+    carries at once (builds the library)."""
+    out = (ctypes.c_int * 4)()
+    _lib().featurize_plan(d, out)
+    return dict(zip(("points", "group_threads", "groups", "instances"),
+                    out))
 
 
 def _need(t: torch.Tensor, name: str, dtype, shape):
@@ -46,8 +61,8 @@ def featurize_cuda(x, w, z, r1, r2, *, f: BucketFn, table_size: int):
         _need(t, name, dt, (m, d))
     if not 1 <= d <= 443:
         raise ValueError(f"featurize kernel takes 1 <= d <= 443, got {d}")
-    if n >= 2 ** 31 or m > 8 * 65535:
-        raise ValueError(f"featurize kernel: n={n}, m={m} out of range")
+    if n >= 2 ** 31:
+        raise ValueError(f"featurize kernel: n={n} out of range")
     if table_size < 0 or table_size & (table_size - 1) or table_size > 2**31:
         raise ValueError(f"table_size must be a power of 2, got {table_size}")
     dev = x.device
@@ -71,3 +86,24 @@ def featurize_cuda(x, w, z, r1, r2, *, f: BucketFn, table_size: int):
 
 
 featurize_cuda.launches, featurize_cuda.launches_by_shape = 0, {}
+
+
+def fast_quotient_cuda(a, w):
+    """a / w, elementwise (a, w f32 of one shape, on the card), as the
+    kernel's fast path divides: the guarded reciprocal and Markstein's
+    correction (NaN where |w| is outside [2^-60, 2^60]).  For checking that
+    arithmetic against IEEE division; no path runs it."""
+    _need(a, "a", torch.float32, a.shape)
+    _need(w, "w", torch.float32, a.shape)
+    t = torch.empty_like(a)
+    if a.numel() == 0:
+        return t
+    lib = _lib()
+    count_launch(fast_quotient_cuda, (a.numel(),))
+    rc = lib.featurize_quotient(a.data_ptr(), w.data_ptr(), t.data_ptr(),
+                                a.numel(), stream_ptr(a.device))
+    check(rc, "featurize quotient", lib.featurize_error_string)
+    return t
+
+
+fast_quotient_cuda.launches, fast_quotient_cuda.launches_by_shape = 0, {}

@@ -1,8 +1,13 @@
 """Wrapper of the CUDA flash-decode kernel (csrc/flash_decode.cu), which
-replaces the TPU kernel ``flash_decode_pallas``.  Launches on the current
-stream; outputs and the split scratch come from ``torch.empty``;
-``flash_decode_cuda.launches`` counts the launches (``launches_by_shape``
-by (B, T, KV, G, D, cache dtype))."""
+replaces the TPU kernel ``flash_decode_pallas``.  One launch a call on the
+current stream.  The output comes from ``torch.empty``; so does the split
+scratch where the splits of a cache are more than a cluster holds, and
+then the arrival counters come from ``_counters`` (zeros, kept per device
+and stream: the kernel's last block of each (batch, kv head) sets its
+counter back to 0, so the next launch on that stream finds them zeroed,
+and a launch on another stream, which may overlap it, uses its own).
+``flash_decode_cuda.launches`` counts the launches (``launches_by_shape`` by
+(B, T, KV, G, D, cache dtype))."""
 from __future__ import annotations
 
 import ctypes
@@ -14,21 +19,75 @@ from .._build import check, count_launch, dtype_name, load, stream_ptr
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-TILE_T = 32          # cache rows a block scores at a time (csrc BT)
 MAX_G = 16           # query heads per kv head the kernel holds (csrc MAXG)
 MAX_D = 256          # head_dim (csrc MAXD)
-BLOCKS_PER_SM = 8    # split the cache until about this many blocks per SM
+MAX_SPLIT = 1024     # ranges per (batch, kv head) (csrc MAX_SPLIT)
+MAX_CLUSTER = 8      # splits combined within a cluster (csrc MAX_CLUSTER)
+MIN_TILES = 2        # tiles a split takes at least, where the cache has them
+
+_geometry: dict[tuple, tuple[int, int]] = {}
+_counters: dict[tuple, torch.Tensor] = {}
 
 
 def _lib():
     lib = load("flash_decode")
     if lib.flash_decode_launch.argtypes is None:
-        lib.flash_decode_launch.argtypes = [_P] * 8 + [_I] * 8 + [
+        lib.flash_decode_launch.argtypes = [_P] * 9 + [_I] * 8 + [
             ctypes.c_float, _P]
         lib.flash_decode_launch.restype = _I
+        lib.flash_decode_geometry.argtypes = [_I, _I, _I,
+                                              ctypes.POINTER(_I)]
+        lib.flash_decode_geometry.restype = _I
         lib.flash_decode_error_string.argtypes = [_I]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_geometry(dev, g: int, d: int, bf16: bool) -> tuple[int, int]:
+    """(tile rows, blocks the card holds at once) of the kernel that takes
+    (G, D, cache dtype) on ``dev``."""
+    key = (dev.index, g, d, bf16)
+    if key not in _geometry:
+        lib = _lib()
+        out = (_I * 4)()
+        with torch.cuda.device(dev):
+            check(lib.flash_decode_geometry(g, d, int(bf16), out),
+                  "flash_decode geometry", lib.flash_decode_error_string)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _geometry[key] = (out[0], max(1, out[2]) * sms)
+    return _geometry[key]
+
+
+def _counter_buffer(dev, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros for the arrival counters of launches on
+    the current stream of ``dev``."""
+    key = (dev.index, stream_ptr(dev))
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _counters[key] = buf
+    return buf
+
+
+def split_plan(b: int, kv: int, t: int, slots: int,
+               tile_rows: int) -> tuple[int, int]:
+    """(n_split, split_rows): cut each (batch, kv head) cache of ``t`` rows
+    into splits of whole tiles of ``tile_rows``, at least MIN_TILES tiles a
+    split where the cache has them, and none empty.  The grid stays one
+    wave of the ``slots`` blocks the card holds at once.  Up to 2
+    MAX_CLUSTER splits a cache fit that wave, the splits are capped at
+    MAX_CLUSTER, whose blocks the kernel launches as one cluster and
+    combines in shared memory; with fewer caches still (a long cache at a
+    batch of a few) the splits fill the wave, up to MAX_SPLIT, and the last
+    block to finish combines them through device memory."""
+    n_tiles = -(-t // tile_rows)
+    per_cache = max(1, slots // (b * kv))
+    if per_cache <= 2 * MAX_CLUSTER:
+        per_cache = min(per_cache, MAX_CLUSTER)
+    per = max(min(MIN_TILES, n_tiles), -(-n_tiles // per_cache),
+              -(-n_tiles // MAX_SPLIT))
+    split_rows = per * tile_rows
+    return -(-t // split_rows), split_rows
 
 
 def _need(t: torch.Tensor, name: str, dtypes, shape):
@@ -37,17 +96,6 @@ def _need(t: torch.Tensor, name: str, dtypes, shape):
         raise ValueError(f"{name}: need a contiguous {dtypes} CUDA tensor of "
                          f"shape {tuple(shape)}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
-
-
-def split_plan(b: int, kv: int, t: int, num_sms: int) -> tuple[int, int]:
-    """(n_split, split_rows): cut each (batch, kv head) cache of ``t`` rows
-    into splits of whole tiles, enough of them that the grid has about
-    BLOCKS_PER_SM blocks per SM, and no split empty."""
-    n_tiles = -(-t // TILE_T)
-    want = max(1, -(-BLOCKS_PER_SM * num_sms // (b * kv)))
-    per = -(-n_tiles // min(want, n_tiles))
-    split_rows = per * TILE_T
-    return -(-t // split_rows), split_rows
 
 
 def flash_decode_cuda(q, k, v, valid, softcap: float = 0.0):
@@ -74,22 +122,32 @@ def flash_decode_cuda(q, k, v, valid, softcap: float = 0.0):
         raise ValueError(f"flash decode kernel: B={b}, KV={kv}, T={t} out "
                          f"of range")
     dev = q.device
-    out = torch.empty((b, kv, g, d), dtype=torch.float32, device=dev)
     if b == 0:
-        return out
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, split_rows = split_plan(b, kv, t, sms)
-    m_part = torch.empty((b * kv, n_split, g), dtype=torch.float32,
-                         device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b * kv, n_split, g, d), dtype=torch.float32,
-                           device=dev)
+        return torch.empty((b, kv, g, d), dtype=torch.float32, device=dev)
+    tile_rows, slots = kernel_geometry(dev, g, d, k.dtype == torch.bfloat16)
+    return _launch(q, k, v, valid, softcap,
+                   *split_plan(b, kv, t, slots, tile_rows))
+
+
+def _launch(q, k, v, valid, softcap, n_split, split_rows):
+    """One launch of the kernel on checked inputs, at the plan (n_split,
+    split_rows)."""
+    b, kv, g, d = q.shape
+    t = k.shape[1]
+    dev = q.device
+    out = torch.empty((b, kv, g, d), dtype=torch.float32, device=dev)
+    scratch = []        # held until the launch is queued
+    if n_split > MAX_CLUSTER:
+        m_part = torch.empty((b * kv, n_split, g), dtype=torch.float32,
+                             device=dev)
+        scratch = [m_part, torch.empty_like(m_part),
+                   torch.empty((b * kv, n_split, g, d), dtype=torch.float32,
+                               device=dev), _counter_buffer(dev, b * kv)]
+    parts = [x.data_ptr() for x in scratch] or [None] * 4
     lib = _lib()
-    count_launch(flash_decode_cuda,
-                 (b, t, kv, g, d, dtype_name(k.dtype)))
+    count_launch(flash_decode_cuda, (b, t, kv, g, d, dtype_name(k.dtype)))
     rc = lib.flash_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), *parts,
         out.data_ptr(), b, t, kv, g, d, n_split, split_rows,
         int(k.dtype == torch.bfloat16), float(softcap), stream_ptr(dev))
     check(rc, "flash_decode", lib.flash_decode_error_string)

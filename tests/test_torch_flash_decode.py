@@ -12,7 +12,8 @@ from repro.kernels.flash_decode import flash_decode_pallas
 from repro.kernels.flash_decode import flash_decode_ref as jax_ref
 from repro.models.attention import _expand_kv, _sdpa
 from repro_torch.kernels.flash_decode import decode_attend_op, flash_decode_ref
-from repro_torch.kernels.flash_decode.kernel import TILE_T, split_plan
+from repro_torch.kernels.flash_decode.kernel import (MAX_CLUSTER, MAX_SPLIT,
+                                                     MIN_TILES, split_plan)
 
 
 def _inputs(b, kv, g, d, t, seed):
@@ -77,8 +78,9 @@ def test_masked_stretches_match_reference(pattern):
     j, p = _both(q, k, v, valid, False)
     want = np.asarray(jax_ref(*j))
     np.testing.assert_allclose(flash_decode_ref(*p).numpy(), want, atol=3e-6)
-    np.testing.assert_allclose(_split_kv(*p, num_sms=4).numpy(), want,
-                               atol=3e-6)
+    for tiles in KERNEL_TILES:
+        np.testing.assert_allclose(_split_kv(*p, slots=4, **tiles).numpy(),
+                                   want, atol=3e-6)
     if pattern == "none":
         np.testing.assert_allclose(want, np.broadcast_to(
             v.mean(1)[:, :, None, :], want.shape), atol=1e-5)
@@ -129,38 +131,65 @@ def test_op_reshape_matches_reference_op():
 # the CUDA kernel's split-KV scheme, emulated in PyTorch
 # ---------------------------------------------------------------------------
 
-def _split_kv(q, k, v, valid, softcap=0.0, num_sms=132):
+# the tiles of the kernel's two code paths: fma_kernel (32-row tiles, one
+# state a block) and mma_kernel (64-row tiles, a state per 16-row warp share)
+KERNEL_TILES = (dict(tile_rows=32), dict(tile_rows=64, warp_rows=16))
+
+
+def _online(q, k, v, valid, rows, softcap, state):
+    """One online-softmax step over cache rows ``rows`` (a slice), float64."""
+    m, l, acc = state
+    d = q.shape[-1]
+    sc = torch.einsum("bkgd,btkd->bkgt", q, k[:, rows]) / d ** 0.5
+    if softcap > 0:
+        sc = softcap * torch.tanh(sc / softcap)
+    sc = torch.where(valid[:, None, None, rows] > 0, sc, -1e30)
+    m_new = torch.maximum(m, sc.amax(-1))
+    p = torch.exp(sc - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    return (m_new, l * alpha + p.sum(-1),
+            acc * alpha[..., None] + torch.einsum("bkgt,btkd->bkgd", p,
+                                                  v[:, rows]))
+
+
+def _merge(states):
+    """Partials (m, l, acc) weighed by exp(m_s - M), as the kernel's merge
+    of its warps and its last block's combine of the splits."""
+    mx = torch.stack([st[0] for st in states]).amax(0)
+    w = [torch.exp(st[0] - mx) for st in states]
+    return (mx, sum(wi * st[1] for wi, st in zip(w, states)),
+            sum(wi[..., None] * st[2] for wi, st in zip(w, states)))
+
+
+def _split_kv(q, k, v, valid, softcap=0.0, slots=132, tile_rows=32,
+              warp_rows=None):
     """What csrc/flash_decode.cu computes, in its order: per (batch, kv
-    head), splits of ``split_rows`` rows from ``split_plan``, each walked
-    in tiles of TILE_T rows with the online softmax from m = -1e30, then the
-    splits combined with weights exp(m_s - M)."""
+    head), splits of ``split_rows`` rows from ``split_plan``; a split walks
+    its tiles of ``tile_rows`` with the online softmax from m = -1e30 (with
+    ``warp_rows``, each warp its own rows of every tile and its own state,
+    the warps merged at the end of the split); the last block to finish
+    merges the splits and divides by the weighed sum."""
     b, kv, g, d = q.shape
     t = k.shape[1]
-    n_split, rows = split_plan(b, kv, t, num_sms)
+    n_split, rows = split_plan(b, kv, t, slots, tile_rows)
     qf, kf, vf = q.double(), k.double(), v.double()
+    per = warp_rows or tile_rows
+    init = (torch.full((b, kv, g), -1e30, dtype=torch.float64),
+            torch.zeros((b, kv, g), dtype=torch.float64),
+            torch.zeros((b, kv, g, d), dtype=torch.float64))
     parts = []
     for s in range(n_split):
-        m = torch.full((b, kv, g), -1e30, dtype=torch.float64)
-        l = torch.zeros((b, kv, g), dtype=torch.float64)
-        acc = torch.zeros((b, kv, g, d), dtype=torch.float64)
-        for t0 in range(s * rows, min(t, (s + 1) * rows), TILE_T):
-            sl = slice(t0, min(t0 + TILE_T, (s + 1) * rows, t))
-            sc = torch.einsum("bkgd,btkd->bkgt", qf, kf[:, sl]) / d ** 0.5
-            if softcap > 0:
-                sc = softcap * torch.tanh(sc / softcap)
-            sc = torch.where(valid[:, None, None, sl] > 0, sc, -1e30)
-            m_new = torch.maximum(m, sc.amax(-1))
-            p = torch.exp(sc - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum("bkgt,btkd->bkgd", p,
-                                                        vf[:, sl])
-            m = m_new
-        parts.append((m, l, acc))
-    mx = torch.stack([p[0] for p in parts]).amax(0)
-    w = [torch.exp(p[0] - mx) for p in parts]
-    lsum = sum(wi * p[1] for wi, p in zip(w, parts))
-    osum = sum(wi[..., None] * p[2] for wi, p in zip(w, parts))
+        end = min(t, (s + 1) * rows)
+        states = [init] * (tile_rows // per)
+        for t0 in range(s * rows, end, tile_rows):
+            for w in range(tile_rows // per):
+                lo = t0 + w * per
+                if lo < end:
+                    states[w] = _online(qf, kf, vf, valid,
+                                        slice(lo, min(lo + per, end)),
+                                        softcap, states[w])
+        parts.append(_merge(states))
+    _, lsum, osum = _merge(parts)
     return (osum / lsum.clamp_min(1e-30)[..., None]).float()
 
 
@@ -168,11 +197,36 @@ def _split_kv(q, k, v, valid, softcap=0.0, num_sms=132):
                                         (8, 1, 512, 132), (128, 1, 32768, 132),
                                         (3, 8, 517, 132), (2, 2, 1000, 1)])
 def test_split_plan_covers_the_cache(b, kv, t, sms):
-    n_split, rows = split_plan(b, kv, t, sms)
-    assert rows % TILE_T == 0 and n_split >= 1
-    assert (n_split - 1) * rows < t <= n_split * rows      # no empty split
-    # one tile per split, or at least half the blocks asked for
-    assert n_split == -(-t // TILE_T) or 2 * b * kv * n_split >= 8 * sms
+    """No empty split; MIN_TILES tiles a split where the cache has them;
+    one wave of blocks (1 and 2 blocks an SM)."""
+    for tile_rows in (32, 64):
+        for slots in (sms, 2 * sms):
+            n_split, rows = split_plan(b, kv, t, slots, tile_rows)
+            n_tiles = -(-t // tile_rows)
+            assert rows % tile_rows == 0 and 1 <= n_split <= MAX_SPLIT
+            assert (n_split - 1) * rows < t <= n_split * rows
+            assert rows // tile_rows >= min(MIN_TILES, n_tiles)
+            assert n_split <= max(1, slots // (b * kv))
+
+
+@pytest.mark.parametrize("t,n_split,tiles", [(512, 8, 2), (2112, 8, 9)])
+def test_split_plan_at_the_serve_shapes(t, n_split, tiles):
+    """gemma3-1b's decode (B 8, KV 1, f32: 32-row tiles, one block an SM):
+    the local rings (T 512) in 8 splits of 2 tiles, the global caches
+    (T 2112) in 8 splits of 9 tiles (the last 3): one cluster a cache."""
+    assert split_plan(8, 1, t, 132, 32) == (n_split, tiles * 32)
+
+
+@pytest.mark.parametrize("b,kv,t,n_split", [(1, 1, 32768, 128),
+                                            (4, 1, 8192, 32),
+                                            (8, 1, 8192, 8),
+                                            (128, 1, 32768, 1)])
+def test_split_plan_clusters_unless_few_caches(b, kv, t, n_split):
+    """At most MAX_CLUSTER splits (one cluster a cache) while a wave holds
+    no more than 2 MAX_CLUSTER a cache; beyond, the splits fill the wave."""
+    got = split_plan(b, kv, t, 132, 32)[0]
+    assert got == n_split
+    assert got <= MAX_CLUSTER or 132 // (b * kv) > 2 * MAX_CLUSTER
 
 
 @pytest.mark.parametrize("t,lens", [(2112, "random"), (517, "wrapped"),
@@ -189,6 +243,7 @@ def test_split_scheme_matches_plain(t, lens):
         valid[:, t // 2] = 1
     p = _both(q, k, v, valid, False)[1]
     for softcap in (0.0, 1.5):
-        np.testing.assert_allclose(
-            _split_kv(*p, softcap=softcap, num_sms=16).numpy(),
-            flash_decode_ref(*p, softcap=softcap).numpy(), atol=3e-6)
+        for tiles in KERNEL_TILES:
+            np.testing.assert_allclose(
+                _split_kv(*p, softcap=softcap, slots=16, **tiles).numpy(),
+                flash_decode_ref(*p, softcap=softcap).numpy(), atol=3e-6)

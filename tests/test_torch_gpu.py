@@ -381,9 +381,12 @@ def test_bad_arguments_raise(cuda):
 
 
 # (B, KV, G, D, T): gemma3-1b, qwen3-14b, phi3-mini-3.8b, command-r-plus-104b
-# kv-head shapes; T not a multiple of the 32-row tile, and T = 1
+# kv-head shapes; T not a multiple of the 32-row tile, and T = 1; D = 64;
+# one long cache (more splits than a cluster: combined through device
+# memory)
 DECODE_SHAPES = [(3, 1, 4, 256, 2112), (2, 8, 5, 128, 517),
-                 (2, 32, 1, 96, 300), (2, 8, 12, 128, 1000), (4, 2, 3, 16, 1)]
+                 (2, 32, 1, 96, 300), (2, 8, 12, 128, 1000), (4, 2, 3, 16, 1),
+                 (2, 4, 8, 64, 700), (1, 1, 4, 256, 8191)]
 
 
 @pytest.mark.parametrize("lens", ["random", "one", "wrapped", "none"])
@@ -469,3 +472,102 @@ def test_decode_on_card_matches_cpu(cuda, arch):
     scale = float(out["cpu"].abs().max())
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4 * scale,
                                rtol=0)
+
+
+@pytest.mark.parametrize("fname", ["rect", "tent", "smooth"])
+def test_featurize_kernel_on_edge_operands(cuda, fname):
+    """B1's fast divide and rounding where they hand over to the exact path
+    (NaN, +-inf, |t| at and past 2^22, w past 2^-60 and 2^60) and at ties:
+    keys, slot and sign bitwise, weight and coeff to 2e-6, at full width."""
+    from repro_torch.testing.operands import featurize_edge_case
+    x, w, z, r1, r2 = featurize_edge_case(3, 4099, 64, 64)
+    p = lsh_params_from_numpy(w, z, r1, r2, cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    f = T.get_bucket_fn(fname)
+    got = featurize_cuda(xt, *p, f=f, table_size=1 << 23)
+    want = featurize_ref(xt, *p, f=f, table_size=1 << 23)
+    torch.cuda.synchronize()
+    for i, name in enumerate(("key1", "key2", "weight", "sign", "slot",
+                              "coeff")):
+        if name in ("weight", "coeff"):
+            torch.testing.assert_close(got[i], want[i], atol=2e-6, rtol=0)
+        else:
+            assert torch.equal(got[i], want[i]), name
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0 ** 20, -(2.0 ** -30)])
+def test_featurize_quotient_every_significand(cuda, scale):
+    """B1's fast-path quotient (its device function, run alone) bitwise
+    against IEEE division at quotients next to a midpoint of two float32s,
+    for every one of the 2^23 significands of w."""
+    from repro_torch.kernels.featurize.kernel import fast_quotient_cuda
+    from repro_torch.testing.operands import tie_adjacent_quotients
+    a, w = tie_adjacent_quotients(torch.arange(1 << 23, 1 << 24,
+                                               device=cuda))
+    a = a * scale
+    got = fast_quotient_cuda(a, w)
+    assert a.numel() > 5 * 2 ** 23
+    assert torch.equal(got.view(torch.int32), (a / w).view(torch.int32))
+
+
+@pytest.mark.parametrize("b,t", [(8, 512), (8, 2112), (1, 8191)])
+def test_flash_decode_twice_and_on_two_streams(cuda, b, t):
+    """gemma3-1b's decode shapes (B 8, KV 1, G 4, D 256, f32; the splits of
+    a cache combined within a cluster) and one long cache (more splits:
+    combined by the last block to arrive, through device memory), called
+    twice in a row and then on two streams, each within 1e-5 of max|out|;
+    the arrival counters are back at 0 after every call."""
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_ref)
+    from repro_torch.kernels.flash_decode import kernel as K
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q = torch.randn((b, 1, 4, 256), generator=gen, device=cuda)
+    k = torch.randn((b, t, 1, 256), generator=gen, device=cuda)
+    v = torch.randn((b, t, 1, 256), generator=gen, device=cuda)
+    lens = torch.randint(1, t + 1, (b, 1), generator=gen, device=cuda)
+    valid = (torch.arange(t, device=cuda)[None] < lens).to(torch.int32)
+    tile_rows, slots = K.kernel_geometry(cuda, 4, 256, False)
+    n_split = K.split_plan(b, 1, t, slots, tile_rows)[0]
+    assert n_split > 1 and (n_split > K.MAX_CLUSTER) == (b == 1)
+    want = flash_decode_ref(q, k, v, valid)
+    lim = 1e-5 * float(want.abs().max())
+    outs = [flash_decode_cuda(q, k, v, valid) for _ in range(2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(flash_decode_cuda(q, k, v, valid))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert float((out - want).abs().max()) <= lim
+    counters = [c for (dev, _), c in K._counters.items()
+                if dev == want.device.index]
+    assert all(int(c.abs().sum()) == 0 for c in counters)
+    if b == 1:
+        assert len(counters) >= 3
+
+
+@pytest.mark.parametrize("t", [1001, 4096])
+def test_flash_decode_bf16_tensor_core_path(cuda, t):
+    """qwen3-14b's kv-head shape (KV 8, G 5, D 128) with a bf16 cache runs
+    the warp-MMA kernel (64-row tiles); within 1e-4 of max|out| for random
+    lengths and a cache with one valid row."""
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_ref)
+    from repro_torch.kernels.flash_decode import kernel as K
+    assert K.kernel_geometry(cuda, 5, 128, True)[0] == 64
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q = torch.randn((4, 8, 5, 128), generator=gen, device=cuda)
+    k = torch.randn((4, t, 8, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((4, t, 8, 128), generator=gen, device=cuda).bfloat16()
+    lens = torch.randint(1, t + 1, (4, 1), generator=gen, device=cuda)
+    for valid in ((torch.arange(t, device=cuda)[None] < lens),
+                  torch.arange(t, device=cuda)[None].expand(4, -1) == t // 3):
+        valid = valid.to(torch.int32).contiguous()
+        for softcap in (0.0, 5.0):
+            got = flash_decode_cuda(q, k, v, valid, softcap=softcap)
+            want = flash_decode_ref(q, k, v, valid, softcap=softcap)
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= 1e-4 * float(
+                want.abs().max())
