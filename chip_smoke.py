@@ -7,16 +7,19 @@ predict and the distributed step, and LM serving.
 Run from the root of a checkout.  Phases, in order; any failure exits
 non-zero:
 
-1. Card and build: the card's name and power limit, then the nine kernels
+1. Card and build: the card's name and power limit, then the kernels
    built by nvcc for sm_90a from ``src/repro_torch/csrc`` (four sources,
    and a fifth of yardsticks timed in phase 5; one nvcc each, all started
    together).
 2. Per-kernel parity at full width (d = m = 64), at n = 2^16 and at the main
    phase's n = 2^22, each kernel against its plain PyTorch version on the
    same inputs: featurize keys, slot and sign bitwise, weight and coeff to
-   atol 2e-6; matvec and scatter to 1e-5 of the output's max (shared-memory
-   atomics sum in another order), at k = 1 and, where the plain version
-   fits, k = 4; gather bitwise.  Then the distributed step's kernels on a
+   atol 2e-6; matvec and blocked scatter to 1e-5 of the output's max (both
+   sum in another order than index_add_; the scatter also bitwise across
+   two launches), at k = 1 and, where the plain version fits, k = 4;
+   gather (B4's contract form) bitwise; the readout (B4 with its combine:
+   mean and sum) to 1e-5 of max|out|, bitwise at one instance a launch
+   and all in one.  Then the distributed step's kernels on a
    layout at the split geometry (block_n = 64): the blocked scatter again,
    the point scatter B5 to 1e-5 of max|out| (global atomics), the layout
    gather B6, and the route pack B7 (f32, and bf16 out against the plain
@@ -43,17 +46,20 @@ non-zero:
    ``wlsh_krr`` config (n = 2^22, d = 64, m = 64, B = 2^23, rect,
    Gamma(2, 1), lam = 1, no preconditioner, 32 PCG iterations as the
    config's fixed-iteration step), then 2^20 queries in batches of 2^18.
-   Launch counts are reset just before and read just after; a kernel not
-   launched fails the run.  Predictions must be finite and match the plain
-   path on the first 4096 queries.
+   Launch counts are reset just before and read just after; a kernel of
+   the path (B1, B2, B3, the readout) not launched fails the run.
+   Predictions must be finite and match the plain path on the first 4096
+   queries.  Predict then runs three times more, warm, outside the
+   counts: its first call and the median of the three are printed.
 4. Small phase (n = 2^12, k = 4 right-hand sides, jacobi and nystrom at
    rank 128): the fit on the card against the same port on the CPU.
 6. Distributed step at the same config on a one-rank NCCL group, through
    ``repro_torch.core.distributed``: (a) the psum step with the split
-   matvec off the layout (fused=False) and ``make_krr_predict`` on the
-   2^20 queries, (b) the psum step with the point kernels
-   (blocked_split=False), (c) ``run_krr_step_resilient`` on the bf16 wire
-   and ``make_krr_predict_hashjoin`` with and without dedup.  Counts are
+   matvec off the layout (fused=False: B3 and B6) and ``make_krr_predict``
+   on the 2^20 queries, (b) the psum step with the point kernels
+   (blocked_split=False: B5 and the readout), (c)
+   ``run_krr_step_resilient`` on the bf16 wire and
+   ``make_krr_predict_hashjoin`` with and without dedup.  Counts are
    reset before and read after each; a kernel of that path not launched
    fails the run.  Then, outside the counts: the bf16-wire hash-join step
    alone for (c)'s split, and (a)'s beta against the f32-wire
@@ -71,26 +77,28 @@ non-zero:
    against the last logits of prefill(x[:2049]) within 2e-3 of max|logit|,
    B9's share of a step from its times at the step's two cache shapes, and
    a profiled step, in which B9 must run one device kernel per call.
-5. Times, run last: B1-B4 at the main phase's shapes, B5-B8 at phase 6's
-   and B9 at the decode_32k shape (T = 32768; the gemma3-1b global layer in
-   f32 and bf16, qwen3-14b in bf16), each kernel (CUDA events), its plain
-   version, its bound from bytes and operations, and one PyTorch library
-   call computing the same function where there is one
-   (scaled_dot_product_attention for B9).  B5 and B7 also against their
-   first designs (kept for that), B5 split into its kernels by
-   torch.profiler, and the zero fill of B7's send buffer alone (the
-   index_add_ yardstick leaves it out).  B1 and B9 against their first
-   designs where ``--old-src`` finds those sources (a parent checkout;
-   not part of the program), B1 beside its SASS instruction floor, B9 at
-   phase 7's shapes in alternating turns (new, old, old, new, three
-   times), and B9 on one long cache (B 1, T 32768, f32 and bf16) at its
-   plan (splits combined by the last block) against the same kernel with
-   its splits capped at a cluster's and against its first design.  Each
-   wrapper also counts its
-   launches by input shape; B1 (phase 3), B7 (phase 6 (c), f32 and bf16
-   out) and B9 (phase 7; device time from torch.profiler) are timed at
-   every shape their counted run launched them at, and listed with those
-   launches as ``by_shape``.
+5. Times, run last: B1-B3 and the readout at the main phase's shapes,
+   B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
+   gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
+   (CUDA events), its plain version, its bound from bytes and operations,
+   and one PyTorch library call computing the same function where there
+   is one (scaled_dot_product_attention for B9).  B3's bound counts the
+   tiles' ranges it reads, not the layout's slack.  B5 and B7 also
+   against their first designs (kept for that), B5 split into its kernels
+   by torch.profiler, the zero fill of B7's send buffer alone (the
+   index_add_ yardstick leaves it out), and B8 against torch.gather
+   times coeff (its function in two calls).  The
+   readout against its first design (B4's gather kernel, then the PyTorch
+   combine; in turns), at one instance a launch and all in one, beside its
+   32-byte-sector floor.  B1 beside its SASS instruction floor, B9 at
+   phase 7's shapes over six turns, and B9 on one long cache (B 1, T
+   32768, f32 and bf16) at its plan (splits combined by the last block)
+   against the same kernel with its splits capped at a cluster's.  Each
+   wrapper also counts its launches by input shape; a kernel's
+   ``launches`` are summed over the counted runs (phase 3, phase 6 (a),
+   (b) and (c), phase 7), and B1, B3, the readout, B7 and B9 are timed at
+   every shape those runs launched them at, listed with those launches as
+   ``by_shape`` (B9's device time from torch.profiler).
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -127,8 +135,8 @@ KERNELS = {
                          "src/repro/kernels/binning/kernel.py:187"),
     "bin_scatter_blocked": ("src/repro_torch/csrc/binning.cu",
                             "src/repro/kernels/binning/kernel.py:282"),
-    "bin_gather": ("src/repro_torch/csrc/binning.cu",
-                   "src/repro/kernels/binning/kernel.py:521"),
+    "bin_readout": ("src/repro_torch/csrc/binning.cu",
+                    "src/repro/kernels/binning/kernel.py:521"),
     "bin_scatter": ("src/repro_torch/csrc/binning.cu",
                     "src/repro/kernels/binning/kernel.py:92"),
     "bin_gather_blocked": ("src/repro_torch/csrc/binning.cu",
@@ -140,11 +148,11 @@ KERNELS = {
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode/kernel.py:64"),
 }
-# the kernels of the distributed step, with the phase-6 path that runs them
-DIST_PATHS = {"bin_scatter": "b", "bin_gather_blocked": "a",
-              "route_pack": "c", "route_unpack": "c"}
-# the kernels of the LM serving path (phase 7)
-LM_KERNELS = ("flash_decode",)
+# the kernels of the main phase (phase 3), each launched there or the run
+# fails; bin_gather (B4's contract form, checked in phase 2) runs on no
+# path: the readout replaces it there
+MAIN_KERNELS = ("featurize", "bin_fused_matvec", "bin_scatter_blocked",
+                "bin_readout")
 # B9's device kernels (csrc/flash_decode.cu), by name in a profiler trace
 B9_KERNELS = ("fma_kernel<", "mma_kernel<")
 # phase 7: gemma3-1b at its full config, f32, seeded random weights
@@ -178,9 +186,6 @@ DECODE_TIMED = (("gemma3-1b global", 1, 4, 256, "float32"),
                 ("gemma3-1b global", 1, 4, 256, "bfloat16"),
                 ("qwen3-14b", 8, 5, 128, "bfloat16"))
 DECODE_GIB = 60
-# where phase 5 finds the first designs of B1 and B9 (a parent checkout
-# unpacked into a git-ignored directory; not part of the program)
-OLD_SRC = REPO / "scratch_checkout" / "parent" / "src" / "repro_torch" / "csrc"
 
 
 def fail(msg: str):
@@ -333,79 +338,6 @@ def sass_fast_path(lib_path, kernel_key):
 
 
 # ---------------------------------------------------------------------------
-# the first designs of B1 and B9, for the side-by-side times of phase 5
-# ---------------------------------------------------------------------------
-
-def load_old_designs(torch, src_dir):
-    """The first designs of B1 and B9, built by nvcc from the
-    ``featurize.cu`` and ``flash_decode.cu`` in ``src_dir`` (a parent
-    checkout's sources, kept out of the program) into ``_build/old``;
-    callables on the first designs' C interfaces.  None without the
-    sources."""
-    import ctypes
-    from repro_torch.kernels import _build
-    if src_dir is None or not (src_dir / "featurize.cu").exists() or \
-            not (src_dir / "flash_decode.cu").exists():
-        return None
-    out_dir = _build.BUILD_DIR / "old"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-         str(out_dir / f"lib{name}_old.so"), str(src_dir / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name in ("featurize", "flash_decode")}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            fail(f"the first design of {name}.cu did not build:\n{log}")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fz = ctypes.CDLL(str(out_dir / "libfeaturize_old.so"))
-    fz.featurize_launch.argtypes = [P] * 11 + [I] * 4 + [
-        ctypes.c_float, ctypes.c_uint32, P]
-    fd = ctypes.CDLL(str(out_dir / "libflash_decode_old.so"))
-    fd.flash_decode_launch.argtypes = [P] * 8 + [I] * 8 + [ctypes.c_float, P]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def featurize(x, w, z, r1, r2, f, table_size):
-        n, d = x.shape
-        m = w.shape[0]
-        outs = [torch.empty((m, n), dtype=dt, device=x.device) for dt in (
-            torch.uint32, torch.uint32, torch.float32, torch.float32,
-            torch.int32, torch.float32)]
-        rc = fz.featurize_launch(
-            x.data_ptr(), w.data_ptr(), z.data_ptr(), r1.data_ptr(),
-            r2.data_ptr(), *(o.data_ptr() for o in outs), n, d, m,
-            f.kernel_id, f.kernel_const, table_size - 1,
-            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            fail(f"first featurize design: launch error {rc}")
-        return outs
-
-    def flash_decode(q, k, v, valid):
-        b, kv, g, d = q.shape
-        t = k.shape[1]
-        n_tiles = -(-t // 32)               # the first design's split: ~8 blocks an SM
-        per = -(-n_tiles // min(max(1, -(-8 * sms // (b * kv))), n_tiles))
-        rows = per * 32
-        ns = -(-t // rows)
-        out = torch.empty((b, kv, g, d), device=q.device)
-        m_part = torch.empty((b * kv, ns, g), device=q.device)
-        l_part = torch.empty_like(m_part)
-        acc = torch.empty((b * kv, ns, g, d), device=q.device)
-        rc = fd.flash_decode_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), b, t, kv, g, d, ns, rows,
-            int(k.dtype == torch.bfloat16), 0.0,
-            torch.cuda.current_stream().cuda_stream)
-        if rc:
-            fail(f"first flash decode design: launch error {rc}")
-        return out
-
-    return dict(featurize=featurize, flash_decode=flash_decode)
-
-
-# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -449,7 +381,8 @@ def check_featurize(torch, x, lsh, f, table_size):
 
 def check_binning(torch, lay, beta, k):
     """Fused matvec and blocked scatter on ``lay`` against their plain
-    versions; beta (n,) or (n, k).  Returns (matvec err, scatter err)."""
+    versions, the scatter also bitwise across two launches; beta (n,) or
+    (n, k).  Returns (matvec err, scatter err, scatter's tables)."""
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                              bin_scatter_blocked_cuda,
                                              fused_matvec_ref,
@@ -469,8 +402,12 @@ def check_binning(torch, lay, beta, k):
         fail(f"fused matvec k={k}: err {e_mv} > {lim}")
     coeff = lay.coeff_lay if beta.ndim == 1 else lay.coeff_lay[:, None, :]
     contrib = coeff * beta_lay
-    got = bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay, contrib,
-                                   block_n=lay.block_n, block_t=lay.block_t)
+    run = lambda: bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay,
+                                           contrib, block_n=lay.block_n,
+                                           block_t=lay.block_t)
+    got = run()
+    if not torch.equal(got, run()):
+        fail(f"blocked scatter k={k}: two launches differ")
     want = scatter_blocked_ref(lay.slot_lay, contrib, width=width)
     e_sc = max_err(got, want)
     lim = 1e-5 * float(want.abs().max())
@@ -484,6 +421,30 @@ def check_gather(torch, slot, tables):
     got = bin_gather_cuda(slot, tables)
     if not torch.equal(got, gather_ref(slot, tables)):
         fail(f"gather {tuple(tables.shape)}: not bitwise equal")
+
+
+def check_readout(torch, slot, coeff, tables):
+    """The readout (mean and sum) against its plain version, to 1e-5 of
+    max|out|, and bitwise at one instance a launch and all in one.
+    Returns the larger error."""
+    from repro_torch.kernels.binning import bin_readout_cuda, readout_ref
+    from repro_torch.kernels.binning.kernel import _readout_launch
+    worst = 0.0
+    for average in (True, False):
+        got = bin_readout_cuda(slot, coeff, tables, average=average)
+        want = readout_ref(slot, coeff, tables, average)
+        err = max_err(got, want)
+        lim = 1e-5 * float(want.abs().max())
+        if not err <= lim:
+            fail(f"readout {tuple(tables.shape)} average={average}: err "
+                 f"{err} > {lim}")
+        for group in (1, slot.shape[0]):
+            if not torch.equal(got, _readout_launch(slot, coeff, tables,
+                                                    average, group)):
+                fail(f"readout {tuple(tables.shape)}: {group} instance(s) "
+                     f"a launch differs from the default")
+        worst = max(worst, err)
+    return worst
 
 
 def split_setup(torch, slot, coeff, table_size, routings=((1, 2.0),)):
@@ -640,14 +601,21 @@ def phase_parity(torch, x, xq, seed):
         e_mv, e_sc, tables = check_binning(torch, lay, beta, 1)
         say(f"  n={n} k=1 fused matvec err {e_mv:.3g}, blocked scatter "
             f"err {e_sc:.3g} (limit 1e-5 of max|out|)")
-        q_slot = featurize_cuda(xq[:MAIN["batch"]], *lsh, f=T.RECT,
-                                table_size=table_size)[4]
+        qf = featurize_cuda(xq[:MAIN["batch"]], *lsh, f=T.RECT,
+                            table_size=table_size)
+        q_slot, q_coeff = qf[4], qf[5]
+        del qf
+        t1 = tables[:, :table_size].contiguous()
+        del tables
+        check_gather(torch, q_slot, t1)
+        e_ro = check_readout(torch, q_slot, q_coeff, t1)
+        say(f"  n={n} gather (m, B) bitwise over {q_slot.shape[1]} queries; "
+            f"readout err {e_ro:.3g} (mean and sum; limit 1e-5 of max|out|),"
+            f" bitwise at 1 and {MAIN['m']} instances a launch")
         if n == MAIN["n"]:
             errs.update(featurize=e_f, bin_fused_matvec=e_mv,
-                        bin_scatter_blocked=e_sc, bin_gather=0.0)
-        check_gather(torch, q_slot, tables[:, :table_size].contiguous())
-        say(f"  n={n} gather (m, B) bitwise over {q_slot.shape[1]} queries")
-        del tables
+                        bin_scatter_blocked=e_sc, bin_readout=e_ro)
+        del t1
         if n != MAIN["n"]:
             beta4 = torch.randn(n, 4, device=x.device)
             e_mv, e_sc, tables4 = check_binning(torch, lay, beta4, 4)
@@ -655,7 +623,8 @@ def phase_parity(torch, x, xq, seed):
                 f"scatter err {e_sc:.3g}")
             t4 = tables4[..., :table_size].transpose(1, 2).contiguous()
             check_gather(torch, q_slot, t4)
-            say(f"  n={n} gather (m, B, 4) bitwise")
+            e_ro = check_readout(torch, q_slot, q_coeff, t4)
+            say(f"  n={n} gather (m, B, 4) bitwise; readout err {e_ro:.3g}")
             del tables4, t4
         else:
             say(f"  n={n} k=4: not compared (the plain version's int64 "
@@ -726,11 +695,23 @@ def phase_main(torch, data, seed):
     counts = launch_counts()
     shapes = launch_counts_by_shape()
     peak = torch.cuda.max_memory_allocated()
+    # predict again, warm, outside the counts: the median of three calls
+    warm = []
+    for _ in range(3):
+        t3 = sync_clock(torch)
+        again = T.wlsh_krr_predict(model, xq, batch_size=MAIN["batch"])
+        warm.append(sync_clock(torch) - t3)
+        if not torch.equal(again, pred):
+            fail("predict: a warm call differs from the first")
+    del again
     tel = model.telemetry
-    phases = dict(tel["phase_seconds"], predict=t2 - t1)
+    phases = dict(tel["phase_seconds"], predict=t2 - t1,
+                  predict_warm=sorted(warm)[1])
     say("  wall s (synchronized): " + ", ".join(
         f"{k} {v:.4f}" for k, v in phases.items())
-        + f"; fit total {t1 - t0:.4f}")
+        + f"; fit total {t1 - t0:.4f}; predict's first call, then the "
+        f"median of three warm calls ("
+        + ", ".join(f"{w:.4f}" for w in warm) + ")")
     hist = tel["resnorm_history"][:, 0]
     bnorm = float(torch.linalg.vector_norm(y))
     say(f"  PCG iterations {tel['iters']}, resnorm {hist[0]:.4g} -> "
@@ -738,8 +719,7 @@ def phase_main(torch, data, seed):
     say(f"  peak device memory {peak / 2**30:.2f} GiB")
     say(f"  launches {counts}; featurize by (n, d, m): "
         f"{shapes['featurize']}")
-    missing = [k for k, v in counts.items()
-               if v <= 0 and k not in DIST_PATHS and k not in LM_KERNELS]
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels not launched on the main path: {missing}")
     if tel["iters"] != MAIN["maxiter"] or not hist[-1] < hist[0]:
@@ -849,12 +829,12 @@ def phase_distributed(torch, data, seed, main_pred):
         path_a, ("featurize", "bin_scatter_blocked", "bin_gather_blocked"))
     say(f"      step split ms: {ph}; resnorm {float(res_a):.4g}")
 
-    # (b) psum with the point kernels: B5, B4
+    # (b) psum with the point kernels: B5, B4 (the readout)
     step_b = D.make_krr_step(mesh, D.KRRStepConfig(
         **base, fused=False, blocked_split=False), T.RECT)
     beta_b, res_b, _ = run("b", "psum step blocked_split=False",
                            lambda: step_b(x, y, lsh),
-                           ("featurize", "bin_scatter", "bin_gather"))
+                           ("featurize", "bin_scatter", "bin_readout"))
     say(f"      step split ms: {split(step_b)}; resnorm {float(res_b):.4g}")
 
     # (c) hash join on the bf16 wire with the recovery ladder, then its
@@ -928,9 +908,11 @@ def phase_distributed(torch, data, seed, main_pred):
 def dist_times(torch, x, lsh, beta, ts):
     """B5-B8 at phase 6's shapes (n = 2^22, one rank's routing), with
     their plain versions and library calls; B5 and B7 also against their
-    first designs, B5 split by the profiler into its kernels, and B7's zero
-    fill of the send buffer alone.  Returns the rows and B7's times by its
-    wrapper's shape key, f32 and bf16 out."""
+    first designs, B5 split by the profiler into its kernels, B7's zero
+    fill of the send buffer alone, B8 against torch.gather times coeff (two
+    calls: B8's function), and B3 at path (a)'s split layout.  Returns the
+    rows, B7's times by its wrapper's shape key (f32 and bf16 out), B3's
+    at the split layout and the extra keys of B8's entry."""
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_gather_blocked_cuda,
                                              bin_scatter_cuda,
@@ -1043,12 +1025,26 @@ def dist_times(torch, x, lsh, beta, ts):
     idx = cell_lay.long()
     back = torch.cat([send, send.new_zeros(int(idx.max()) + 1 - nb)])
     lib = time_ms(torch, lambda: torch.gather(back.expand(m, -1), 1, idx))
+    # B8's function in PyTorch: the gather (the sentinel reads the zero
+    # past the cells) times coeff, two calls
+    with_coeff = time_ms(torch, lambda: torch.gather(
+        back.expand(m, -1), 1, idx) * lay.coeff_lay)
     rows["route_unpack"] = (ms, plain, bound(
         nbytes(cell_lay, lay.coeff_lay, out) + 4 * distinct,
         out.numel()), lib)
+    say(f"  B8 route unpack {ms:.4f} ms; torch.gather alone {lib:.4f} ms, "
+        f"torch.gather times coeff (B8's function, two calls) "
+        f"{with_coeff:.4f} ms")
     say("  (library calls: index_add_ for B5 and B7, torch.gather for B6 "
         "and B8 -- B8's without the coeff product)")
-    return rows, pack_timed
+    del out, idx, back, send, cell_lay
+    torch.cuda.empty_cache()
+    # B3 last, so B5-B8 are timed as before it was added here
+    _, b3 = b3_times(torch, lay, lay.coeff_lay * layout_rows(lay, beta),
+                     "at path (a)'s split layout")
+    b3_split = {tuple(lay.slot_lay.shape) + (1,): b3}
+    return rows, pack_timed, b3_split, {
+        "route_unpack": dict(gather_coeff_ms=with_coeff)}
 
 
 def decode_inputs(torch, dev, b, kv, g, d, t, dtype, seed, lens="random"):
@@ -1293,11 +1289,10 @@ def decode_batch(torch, kv, g, d, dtype):
     return b
 
 
-def decode_times(torch, dev, seed, old=None):
+def decode_times(torch, dev, seed):
     """B9 at the decode_32k shape, against its plain version, its byte
-    bound, scaled_dot_product_attention (enable_gqa, boolean mask) on the
-    same cache laid out (B, KV, T, D) and, given ``old``, its first
-    design (turns: new, old, old, new)."""
+    bound and scaled_dot_product_attention (enable_gqa, boolean mask) on
+    the same cache laid out (B, KV, T, D)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode_cuda,
                                                   flash_decode_ref)
@@ -1311,12 +1306,6 @@ def decode_times(torch, dev, seed, old=None):
         run = lambda: flash_decode_cuda(q, k, v, valid)
         out = run()
         ms = time_ms(torch, run, reps=10)
-        t_old = None
-        if old is not None:
-            prev = lambda: old["flash_decode"](q, k, v, valid)
-            t_old = (time_ms(torch, prev, reps=10)
-                     + time_ms(torch, prev, reps=10)) / 2
-            ms = (ms + time_ms(torch, run, reps=10)) / 2
         plain = time_ms(torch, lambda: flash_decode_ref(q, k, v, valid),
                         reps=3)
         b_ms, b_by = bound(nbytes(q, k, v, valid, out),
@@ -1331,9 +1320,8 @@ def decode_times(torch, dev, seed, old=None):
         say(f"  B9 decode_32k {label} {dt}: B={b} KV={kv} G={g} D={d} "
             f"T={t}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, "
-            f"scaled_dot_product_attention {lib:.4f} ms, first design "
-            + ("not timed" if t_old is None else f"{t_old:.4f} ms"))
-        rows.append((ms, plain, (b_ms, b_by), lib, t_old))
+            f"scaled_dot_product_attention {lib:.4f} ms")
+        rows.append((ms, plain, (b_ms, b_by), lib))
         del q, kt, vt, valid, out, qs, mask
         torch.cuda.empty_cache()
     return rows
@@ -1365,12 +1353,12 @@ def spread(ts) -> str:
             f"{max(ts):.4f}, {len(ts)} turns)" if ts else "not measured")
 
 
-def decode_serve_times(torch, dev, seed, tally, old=None):
+def decode_serve_times(torch, dev, seed, tally):
     """B9 at every shape phase 7 launched it at (``tally``: its launches by
     (B, T, KV, G, D, cache dtype); gemma3-1b: the global layers' caches
-    and the local layers' rings): device time from the profiler against
-    the bound, on a wrapped ring (every row valid), in alternating turns
-    with the first design (its split and combine kernels) given ``old``."""
+    and the local layers' rings): device time from the profiler over
+    several turns against the bound, on a wrapped ring (every row
+    valid)."""
     from repro_torch.kernels.flash_decode import flash_decode_cuda
     timed = {}
     for key in tally:
@@ -1381,35 +1369,25 @@ def decode_serve_times(torch, dev, seed, tally, old=None):
         out = flash_decode_cuda(q, k, v, valid)
         run = lambda: flash_decode_cuda(q, k, v, valid)
         names = [kernel_name(n) for n in device_split(torch, run)]
-        fns = {"new": run}
-        if old is not None:
-            fns["old"] = lambda: old["flash_decode"](q, k, v, valid)
-        got = turns(torch, fns)
+        got = turns(torch, {"new": run})
         b_ms, _ = bound(nbytes(q, k, v, valid, out), 4.0 * q.numel() * t)
         mean = lambda ts: sum(ts) / len(ts) if ts else None
         timed[key] = dict(device_ms=mean(got["new"]), bound_ms=b_ms)
-        text = ""
-        if old is not None:
-            timed[key]["old_device_ms"] = mean(got["old"])
-            text = "; first design " + spread(got["old"]) + " (" + ", ".join(
-                kernel_name(n) for n in device_split(torch, fns["old"])) + ")"
         say(f"  B9 at phase 7's B={b} KV={kv} G={g} D={d} T={t} {dt}: "
             f"device {spread(got['new'])} (torch.profiler: "
             + ", ".join(names) + f"), bound {b_ms:.4f} ms, {tally[key]} "
-            f"launches in phase 7{text}; turns new "
-            + " ".join(f"{x:.4f}" for x in got["new"])
-            + ("" if old is None else
-               "; old " + " ".join(f"{x:.4f}" for x in got["old"])))
+            f"launches in phase 7; turns "
+            + " ".join(f"{x:.4f}" for x in got["new"]))
         del q, k, v, valid, out
     return timed
 
 
-def decode_long_times(torch, dev, seed, old=None):
+def decode_long_times(torch, dev, seed):
     """B9 on one long cache (gemma3-1b global, B 1, T 32768, every row
     valid; f32 and bf16), where its plan has more splits than a cluster and
-    the last block combines them: device time at that plan, at the same
-    kernel's splits capped at a cluster's (combined in the cluster), and
-    given ``old`` the first design's, in alternating turns."""
+    the last block combines them: device time at that plan and at the same
+    kernel's splits capped at a cluster's (combined in the cluster), in
+    alternating turns."""
     from repro_torch.kernels.flash_decode import kernel
     b, kv, g, d, t = 1, 1, 4, 256, 32768
     for i, dt in enumerate(("float32", "bfloat16")):
@@ -1428,8 +1406,6 @@ def decode_long_times(torch, dev, seed, old=None):
         if err > (1e-5 if dt == "float32" else 1e-4):
             fail(f"B9 long cache {dt}: plan and capped plan differ by "
                  f"{err:.3g} of max|out|")
-        if old is not None:
-            fns["old"] = lambda: old["flash_decode"](q, k, v, valid)
         got = turns(torch, fns)
         b_ms, _ = bound(nbytes(q, k, v, valid, want), 4.0 * q.numel() * t)
         say(f"  B9 long cache B={b} KV={kv} G={g} D={d} T={t} {dt}: plan "
@@ -1437,9 +1413,8 @@ def decode_long_times(torch, dev, seed, old=None):
             + ("last-block" if plan[0] > kernel.MAX_CLUSTER else "cluster")
             + f" combine) {spread(got['plan'])}; capped at {capped[0]} "
             f"splits of {capped[1]} rows (cluster combine) "
-            f"{spread(got['capped'])}; "
-            f"first design " + (spread(got["old"]) if old else "not timed")
-            + f"; bound {b_ms:.4f} ms; plans agree to {err:.2g} of max|out|")
+            f"{spread(got['capped'])}; bound {b_ms:.4f} ms; plans agree to "
+            f"{err:.2g} of max|out|")
         del q, k, v, valid, want
         torch.cuda.empty_cache()
 
@@ -1470,23 +1445,121 @@ def b1_floor(torch, m, n, d):
     return m * n * d * per_elem / rate * 1e3, per_elem, ops
 
 
+def merged_tallies(runs):
+    """Launches of every kernel summed over the counted runs (phase 3, each
+    counted phase-6 path, phase 7), in total and by input shape; ``runs``
+    holds each run's (counts, counts by shape)."""
+    total = {name: sum(c.get(name, 0) for c, _ in runs) for name in KERNELS}
+    tally = {}
+    for _, shapes in runs:
+        for name, per in shapes.items():
+            into = tally.setdefault(name, {})
+            for key, k in per.items():
+                into[key] = into.get(key, 0) + k
+    return total, tally
+
+
+def b3_times(torch, lay, contrib, label):
+    """B3 on ``lay`` (contributions (m, L)): CUDA events, its plain version,
+    index_add_ and its bound, which counts the bytes the kernel must move:
+    slot and contrib over the tiles' ranges alone (not the layout's slack
+    past each instance's last tile), blk_start, and the tables written.
+    Returns the kernel table row and the ``by_shape`` times."""
+    from repro_torch.kernels.binning import (bin_scatter_blocked_cuda,
+                                             scatter_blocked_ref)
+    m = lay.slot_lay.shape[0]
+    width = lay.num_tiles * lay.block_t
+    run = lambda: bin_scatter_blocked_cuda(
+        lay.blk_start, lay.slot_lay, contrib, block_n=lay.block_n,
+        block_t=lay.block_t)
+    tables = run()
+    ms = time_ms(torch, run)
+    plain = time_ms(torch, lambda: scatter_blocked_ref(
+        lay.slot_lay, contrib, width=width), reps=1, warmup=False)
+    flat = (lay.slot_lay.long() + width * torch.arange(
+        m, device=contrib.device)[:, None]).view(-1)
+    acc = torch.zeros(m * width, device=contrib.device)
+    lib = time_ms(torch, lambda: acc.index_add_(0, flat, contrib.view(-1)))
+    used = int(lay.blk_start[:, -1].sum()) * lay.block_n
+    b = bound(8 * used + nbytes(lay.blk_start, tables), used)
+    b_all, _ = bound(nbytes(lay.blk_start, lay.slot_lay, contrib, tables))
+    say(f"  B3 {label} (m={m}, L={lay.slot_lay.shape[1]}, block_n="
+        f"{lay.block_n}): {ms:.4f} ms; bound over the tiles' ranges "
+        f"{b[0]:.4f} ms ({b[0] / ms:.1%} of it; the ranges are "
+        f"{used / lay.slot_lay.numel():.1%} of the layout, whose whole "
+        f"bytes would take {b_all:.4f} ms); plain {plain:.4f} ms, "
+        f"index_add_ {lib:.4f} ms")
+    del flat, acc, tables
+    return (ms, plain, b, lib), dict(ms=ms, bound_ms=b[0])
+
+
+def readout_times(torch, slot, coeff, tables, average):
+    """The readout at (m, n, B, k = 1): its default grouping of the
+    instances in turns against its first design (B4's gather kernel, then
+    the PyTorch combine: new, first, first, new), and 1, 4, 16 and all m
+    instances a launch; B4's gather alone, torch.gather alone, the plain
+    readout, the byte bound and the 32-byte-sector floor.  Returns the
+    kernel table row and the ``by_shape`` times."""
+    from repro_torch.kernels.binning import (bin_gather_cuda,
+                                             bin_readout_cuda, readout_ref)
+    from repro_torch.kernels.binning.kernel import (_readout_launch,
+                                                    readout_group)
+    m, n = slot.shape
+    group = readout_group(m, n, tables.shape[1], 1, torch.cuda.
+                          get_device_properties(0).L2_cache_size)
+    run = lambda: bin_readout_cuda(slot, coeff, tables, average=average)
+
+    def first():
+        signed = coeff * bin_gather_cuda(slot, tables)
+        return signed.mean(0) if average else signed.sum(0)
+    out = run()
+    ts = [time_ms(torch, f) for f in (run, first, first, run)]
+    ms, v1 = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+    by_group = {g: time_ms(torch, lambda: _readout_launch(
+        slot, coeff, tables, average, g))
+        for g in sorted({1, 4, 16, m, group})}
+    gather = time_ms(torch, lambda: bin_gather_cuda(slot, tables))
+    idx = slot.long()
+    lib = time_ms(torch, lambda: torch.gather(tables, 1, idx))
+    del idx
+    plain = time_ms(torch, lambda: readout_ref(slot, coeff, tables, average),
+                    reps=1, warmup=False)
+    b = bound(nbytes(slot, coeff, out) + 4 * slot.numel(), 2.0 * slot.numel())
+    floor, _ = bound(nbytes(slot, coeff, out) + 32 * slot.numel())
+    say(f"  readout (m={m}, n={n}, B={tables.shape[1]}, "
+        f"{'mean' if average else 'sum'}): {ms:.4f} ms at {group} "
+        f"instance(s) a launch (turns {ts[0]:.4f}, {ts[3]:.4f}); by "
+        f"instances a launch " + ", ".join(
+            f"{g}: {t:.4f} ms" for g, t in by_group.items())
+        + f"; first design (B4 gather + PyTorch combine) {v1:.4f} ms "
+        f"({ts[1]:.4f}, {ts[2]:.4f}); B4 gather alone {gather:.4f} ms, "
+        f"torch.gather alone {lib:.4f} ms; plain {plain:.4f} ms; bound "
+        f"{b[0]:.4f} ms ({b[0] / ms:.1%} of it), sector floor {floor:.4f} "
+        f"ms ({floor / ms:.1%})")
+    return (ms, plain, b, None), dict(
+        ms=ms, bound_ms=b[0], first_design_ms=v1, gather_ms=gather,
+        ms_by_group={str(g): t for g, t in by_group.items()})
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
-                lm_counts, seed, old=None):
+                lm_counts, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
-                                             bin_gather_cuda,
-                                             bin_scatter_blocked_cuda,
-                                             fused_matvec_ref, gather_ref,
-                                             scatter_blocked_ref)
+                                             fused_matvec_ref)
     from repro_torch.kernels.binning.ops import (_beta_to_layout,
                                                  bin_fused_matvec_op)
     from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
     from repro_torch.core.wlsh import TableIndex, build_blocked_layout
-    say("== phase 5: times at the main phase's shapes")
+    say("== phase 5: times at the counted runs' shapes")
     x, _, xq = data
     lsh, ts = model.lsh, model.table_size
     n, d, m = x.shape[0], x.shape[1], lsh.m
-    counts, main_shapes = main_counts
+    lsh_d, beta_d, dist_counts, dist_shapes = dist_state
+    launches, tally = merged_tallies(
+        [main_counts] + [(dist_counts[p], dist_shapes[p])
+                         for p in sorted(dist_counts)] + [lm_counts])
+    say(f"  launches over the counted runs (phase 3, phase 6 (a), (b), (c), "
+        f"phase 7): {launches}")
     rows = {}
 
     run = lambda: featurize_cuda(x, *lsh, f=T.RECT, table_size=ts)
@@ -1497,46 +1570,34 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
                     reps=1, warmup=False)
     rows["featurize"] = (ms, plain, bound(nbytes(x, *lsh, *feats),
                                           5.0 * m * n * d), None)
-    # B1 at every shape phase 3 launched it at: the fit's points and
-    # predict's query batches
+    # B1 at every shape the counted runs launched it at: the points and
+    # the query batches
     feat_timed = {}
-    for key in main_shapes["featurize"]:
+    for key in tally["featurize"]:
         src = x if key[0] == n else xq[:key[0]]
         if tuple(src.shape) + (m,) != key:
             fail(f"featurize launched at (n, d, m) = {key}, not a shape "
                  f"of phase 3's data")
         fb = featurize_cuda(src, *lsh, f=T.RECT, table_size=ts)
-        new = lambda: featurize_cuda(src, *lsh, f=T.RECT, table_size=ts)
         b_b, _ = bound(nbytes(src, *lsh, *fb), 5.0 * m * key[0] * d)
         floor = b1_floor(torch, m, key[0], d)
-        entry = dict(ms=time_ms(torch, new), bound_ms=b_b)
-        text = f"{entry['ms']:.4f} ms"
-        if old is not None:     # turns: new, old, old, new
-            prev = lambda: old["featurize"](src, *lsh, T.RECT, ts)
-            if not all(torch.equal(a, b) for a, b in zip(fb, prev())):
-                fail(f"featurize n={key[0]}: the new design differs from "
-                     f"the first one")
-            t_old = (time_ms(torch, prev) + time_ms(torch, prev)) / 2
-            entry["ms"] = (entry["ms"] + time_ms(torch, new)) / 2
-            entry["old_ms"] = t_old
-            text = (f"{entry['ms']:.4f} ms, first design {t_old:.4f} ms "
-                    f"(outputs bitwise equal)")
+        entry = dict(ms=time_ms(torch, lambda: featurize_cuda(
+            src, *lsh, f=T.RECT, table_size=ts)), bound_ms=b_b)
         feat_timed[key] = entry
-        say(f"  featurize at n={key[0]}: {text}; byte bound {b_b:.4f} ms, "
-            f"instruction floor " + ("not measured" if floor is None else
-                                     f"{floor[0]:.4f} ms ({floor[1]:.2f} "
-                                     f"per element)")
-            + f"; {main_shapes['featurize'][key]} of phase 3's "
-            f"{counts['featurize']} launches")
+        say(f"  featurize at n={key[0]}: {entry['ms']:.4f} ms; byte bound "
+            f"{b_b:.4f} ms, instruction floor " + (
+                "not measured" if floor is None else
+                f"{floor[0]:.4f} ms ({floor[1]:.2f} per element)")
+            + f"; {tally['featurize'][key]} of its {launches['featurize']} "
+            f"launches")
         del fb
     floor = b1_floor(torch, m, n, d)
     if floor is not None:
         say(f"  B1 fast path per element (rect, SASS): {floor[1]:.2f} "
             f"instructions; by opcode per loop turn: "
             + ", ".join(f"{k} {v}" for k, v in floor[2].most_common()))
-    old_ms = {"featurize": feat_timed.get((n, d, m), {}).get("old_ms")}
     by_shape = {"featurize": by_shape_entries(
-        main_shapes["featurize"], feat_timed,
+        tally["featurize"], feat_timed,
         lambda k: f"n={k[0]} d={k[1]} m={k[2]}")}
     slot, coeff = feats[4], feats[5]
     del feats
@@ -1563,79 +1624,79 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     say(f"  whole matvec op: {op_ms:.4f} ms against {op_bound:.4f} ms for "
         f"its point-order inputs (slot, coeff, beta) and output")
     del idx
-    contrib = lay.coeff_lay * beta_lay
-    run = lambda: bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay,
-                                           contrib, block_n=lay.block_n,
-                                           block_t=lay.block_t)
-    tables = run()
-    ms = time_ms(torch, run)
-    plain = time_ms(torch, lambda: scatter_blocked_ref(
-        lay.slot_lay, contrib, width=width), reps=1, warmup=False)
-    flat = (lay.slot_lay.long() + width * torch.arange(
-        m, device=x.device)[:, None]).view(-1)
-    acc = torch.zeros(m * width, device=x.device)
-    lib = time_ms(torch, lambda: acc.index_add_(0, flat, contrib.view(-1)))
-    rows["bin_scatter_blocked"] = (
-        ms, plain, bound(nbytes(lay.blk_start, lay.slot_lay, contrib,
-                                tables), contrib.numel()), lib)
-    del flat, acc, tables, contrib, beta_lay, lay, slot, coeff
+    b3_timed = {}
+    row, b3 = b3_times(torch, lay, lay.coeff_lay * beta_lay,
+                       "at phase 3's shape")
+    rows["bin_scatter_blocked"] = row
+    b3_timed[tuple(lay.slot_lay.shape) + (1,)] = b3
+    del beta_lay, lay
     torch.cuda.empty_cache()
 
-    q_slot = featurize_cuda(xq[:MAIN["batch"]], *lsh, f=T.RECT,
-                            table_size=ts)[4]
-    run = lambda: bin_gather_cuda(q_slot, model.tables)
-    out = run()
-    ms = time_ms(torch, run)
-    plain = time_ms(torch, lambda: gather_ref(q_slot, model.tables))
-    idx = q_slot.long()
-    lib = time_ms(torch, lambda: torch.gather(model.tables, 1, idx))
-    rows["bin_gather"] = (ms, plain, bound(nbytes(q_slot, out, out)), lib)
+    # the readout at every shape the counted runs launched it at: predict's
+    # query batches (mean) and the distributed step's points (sum)
+    ro_timed = {}
+    for key in sorted(tally["bin_readout"]):
+        km, kn, kb, kk = key
+        if (km, kb, kk) != (m, ts, 1) or (
+                kn != n and not 1 <= kn <= xq.shape[0]):
+            fail(f"readout launched at (m, n, B, k) = {key}, not a shape "
+                 f"of phase 3's data")
+        if kn == n:
+            row, ro_timed[key] = readout_times(torch, slot, coeff,
+                                               model.tables, False)
+        else:
+            qf = featurize_cuda(xq[:kn], *lsh, f=T.RECT, table_size=ts)
+            row, ro_timed[key] = readout_times(torch, qf[4], qf[5],
+                                               model.tables, True)
+            del qf
+            if kn == MAIN["batch"]:
+                rows["bin_readout"] = row
+        torch.cuda.empty_cache()
+    if "bin_readout" not in rows:
+        fail("the readout was not launched at predict's batch shape")
+    by_shape["bin_readout"] = by_shape_entries(
+        tally["bin_readout"], ro_timed,
+        lambda k: f"m={k[0]} n={k[1]} B={k[2]} k={k[3]}")
+    del slot, coeff
+    torch.cuda.empty_cache()
 
-    del q_slot, idx, out
-    lsh_d, beta_d, dist_counts, dist_shapes = dist_state
-    dist_rows, pack_timed = dist_times(torch, x, lsh_d, beta_d, ts)
+    dist_rows, pack_timed, b3_split, extra = dist_times(torch, x, lsh_d,
+                                                        beta_d, ts)
     rows.update(dist_rows)
+    b3_timed.update(b3_split)
+    by_shape["bin_scatter_blocked"] = by_shape_entries(
+        tally["bin_scatter_blocked"], b3_timed,
+        lambda k: f"m={k[0]} L={k[1]} k={k[2]}")
     by_shape["route_pack"] = by_shape_entries(
-        dist_shapes["c"]["route_pack"], pack_timed,
+        tally["route_pack"], pack_timed,
         lambda k: f"m={k[0]} L={k[1]} k={k[2]} cells={k[3]} {k[4]} out")
     torch.cuda.empty_cache()
-    b9 = decode_times(torch, data[0].device, seed, old)[0]
-    rows["flash_decode"], old_ms["flash_decode"] = b9[:4], b9[4]
-    lm_counts, lm_shapes = lm_counts
+    rows["flash_decode"] = decode_times(torch, data[0].device, seed)[0]
     by_shape["flash_decode"] = by_shape_entries(
-        lm_shapes["flash_decode"], decode_serve_times(
-            torch, data[0].device, seed, lm_shapes["flash_decode"], old),
+        tally["flash_decode"], decode_serve_times(
+            torch, data[0].device, seed, tally["flash_decode"]),
         lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
-    decode_long_times(torch, data[0].device, seed, old)
+    decode_long_times(torch, data[0].device, seed)
     entries = []
     for name, (ms, plain, (b_ms, b_by), lib) in rows.items():
         src, replaces = KERNELS[name]
-        path = DIST_PATHS.get(name)
-        launches = (lm_counts[name] if name in LM_KERNELS
-                    else counts[name] if path is None
-                    else dist_counts[path][name])
         entries.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches,
+                            replaces=replaces, launches=launches[name],
                             max_abs_err=errs[name], ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=lib))
         if name in by_shape:
             entries[-1]["by_shape"] = by_shape[name]
-        if old_ms.get(name) is not None:
-            entries[-1]["old_ms"] = old_ms[name]
+        entries[-1].update(extra.get(name, {}))
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
-            f"{'-' if lib is None else f'{lib:.4f} ms'}")
+            f"{'-' if lib is None else f'{lib:.4f} ms'}; {launches[name]} "
+            f"launches")
     return entries
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--old-src", type=Path, default=OLD_SRC,
-                    help="csrc directory of a parent checkout whose "
-                    "featurize.cu and flash_decode.cu phase 5 times beside "
-                    "the current designs (default: %(default)s, when "
-                    "present)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1668,12 +1729,8 @@ def main(argv=None) -> int:
     dist_state = phase_distributed(torch, data, args.seed, main_pred)
     del main_pred
     lm_counts = phase_lm(torch, dev, args.seed)
-    old = load_old_designs(torch, args.old_src)
-    say("first designs of B1 and B9: " + (
-        f"built from {args.old_src}" if old else
-        f"not timed (no sources at {args.old_src})"))
     entries = phase_times(torch, data, model, counts, errs, dist_state,
-                          lm_counts, args.seed, old)
+                          lm_counts, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

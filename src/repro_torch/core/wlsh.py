@@ -338,13 +338,27 @@ def table_loads(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
     return tables.reshape((m, b) + tail)
 
 
+def combine_instances(coeff: torch.Tensor, vals: torch.Tensor,
+                      average: bool = True) -> torch.Tensor:
+    """The readout's combine: (1/m) sum_s coeff * vals (plain), or the plain
+    instance sum when not ``average``; vals (m, n) or (m, n, k)."""
+    vals = _rowwise(coeff, vals)
+    return vals.mean(0) if average else vals.sum(0)
+
+
+def point_readout(slot: torch.Tensor, coeff: torch.Tensor,
+                  tables: torch.Tensor, average: bool = True) -> torch.Tensor:
+    """Per-point readout of tables (m, B) or (m, B, k) at slot and coeff
+    (m, n): (1/m) sum_s coeff * tables[s, slot] (plain), or the sum."""
+    rows = torch.arange(slot.shape[0], device=tables.device)[:, None]
+    return combine_instances(coeff, tables[rows, slot.long()], average)
+
+
 def table_readout(index: TableIndex, tables: torch.Tensor, *,
                   average: bool = True) -> torch.Tensor:
     """Per-point readout: (1/m) sum_s coeff * tables[s, slot] (plain), or
     the plain instance sum when not ``average``."""
-    rows = torch.arange(index.slot.shape[0], device=tables.device)[:, None]
-    vals = _rowwise(index.coeff, tables[rows, index.slot.long()])
-    return vals.mean(0) if average else vals.sum(0)
+    return point_readout(index.slot, index.coeff, tables, average)
 
 
 def table_matvec_fused(index: TableIndex, beta: torch.Tensor, *,

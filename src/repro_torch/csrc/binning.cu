@@ -1,6 +1,7 @@
 // CountSketch binning: over the slot-blocked layout the fused matvec, the
 // blocked scatter and the layout gather; over an index without a layout the
-// point scatter and the point gather.
+// point scatter, the point gather and the readout (the point gather with
+// the combine over the instances fused in).
 //
 // Layout (core/wlsh.py, build_blocked_layout): per instance s, points are
 // stably sorted by slot and packed so that table tile t (slots
@@ -8,17 +9,20 @@
 // [blk_start[s,t]*bn, blk_start[s,t+1]*bn); its points come first, then
 // padding positions (slot 0, coeff 0).  Positions from blk_start[s,T]*bn to
 // L are padding.  The Pallas kernels walk this layout through visit lists
-// because a TPU grid runs in order on one core; here every tile is its own
-// CTA, found through blk_start, and the CTAs run in parallel.
+// because a TPU grid runs in order on one core; here a tile is found
+// through blk_start and the tiles run in parallel: each its own CTA in the
+// fused matvec, each a warp's turn in the blocked scatter.
 //
-// Multi-RHS: a (m, k, L) block shares the CTA's slot/coeff loads; columns
-// run in chunks of kc, so the shared tile (kc * bt floats) stays within the
-// 48 KB a block gets without opting in.
+// Multi-RHS in the fused matvec: a (m, k, L) block shares the CTA's
+// slot/coeff loads; columns run in chunks of kc, so the shared tile
+// (kc * bt floats) stays within the 48 KB a block gets without opting in.
 //
-// Sums use shared-memory float atomics, so their order changes from run to
-// run: results agree with the plain versions to rounding, stated relative
-// to the output norm.  A segmented reduction over the slot-sorted range
-// would pin the order; that is later work.
+// B2 and B5 sum with shared-memory float atomics (compare-and-swap loops on
+// sm_90a), so their order changes from run to run: results agree with the
+// plain versions to rounding, stated relative to the output norm.  B3 sums
+// each run of equal slots in registers in a fixed order, and the readout
+// sums the instances in a fixed order: both are the same bits from launch
+// to launch.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,46 +92,189 @@ __global__ void fused_matvec_kernel(
 // (src/repro/kernels/binning/kernel.py, `_scatter_blocked_body`).
 //   tables[s,j,b] = sum_{p: slot[s,p] = b} contrib[s,j,p], every tile
 //   written, empty ones as zeros.
-// Bound: device-memory bytes (slot and contrib read once, the (m, k, T*bt)
-// tables written once).
-// Design: the fused kernel's CTA per (instance, tile), with the shared tile
-// written to device memory instead of read back.
+// Bound: device-memory bytes: slot and contrib over the tiles' ranges read
+// once (not the layout's slack past an instance's last tile), blk_start,
+// and the (m, k, T*bt) tables written once; at the main phase's shape
+// about 2.7 GB read and 2.15 GB written.
+// Design: a tile's range is sorted by slot, so each slot's points form one
+// contiguous run and no two positions of a run need an atomic.  A warp owns
+// one (instance, tile) at a time and walks its range in chunks of 128
+// positions, 4 a lane (16-byte loads): each lane sums the runs among its 4
+// positions, a segmented scan by shuffles carries the sums across lanes,
+// and the lane holding a run's last position stores the run's sum into the
+// warp's shared tile (a plain store: one run per slot).  A run that goes on
+// past the chunk is carried into the next chunk and stored where it ends.
+// The tile then leaves shared memory as 16-byte stores and is zeroed for
+// the warp's next tile.  Blocks are persistent: their warps walk the
+// (instance, tile) items in order, so neighbouring warps write
+// neighbouring tiles.  Columns run one at a time, each re-reading the
+// tile's slots from cache.  The sum order is fixed by the layout: the
+// result is the same bits from launch to launch.  It runs at about 81 % of
+// its bound at the main phase's shape (PERF.md).
+// Padding positions (slot 0, contrib 0) follow a tile's points; in tile 0
+// slot 0 lies inside the tile, and a store of the padding's run would
+// overwrite slot 0's sum.  So the first position whose slot falls below
+// its predecessor's ends the tile's points, and nothing from it on is
+// stored.
 // ---------------------------------------------------------------------------
-__global__ void scatter_blocked_kernel(
-    const int32_t* __restrict__ blk_start, const int32_t* __restrict__ slot,
-    const float* __restrict__ contrib, float* __restrict__ tables,
-    int num_tiles, int bn, int bt, long long L, int k, int kc) {
-  extern __shared__ float tab[];
-  const int t = blockIdx.x, s = blockIdx.y;
-  const int32_t* bs = blk_start + (long long)s * (num_tiles + 1);
-  const long long p0 = (long long)bs[t] * bn, p1 = (long long)bs[t + 1] * bn;
+constexpr int SCAT_WARPS = 8;  // most warps a block of the blocked scatter
+constexpr unsigned FULL = 0xffffffffu;
+
+// The tile's run sums of one column into `tab` (bt floats, zeroed): the
+// warp's share of scatter_blocked_kernel.  p0, p1: the tile's layout range;
+// lo = t * bt.
+__device__ __forceinline__ void scatter_runs(
+    const int32_t* __restrict__ srow, const float* __restrict__ crow,
+    float* tab, long long p0, long long p1, int lo, int bt, bool vec) {
+  const int lane = threadIdx.x & 31;
+  int carry_key = -1;     // slot of the run open at the chunk's end
+  float carry = 0.0f;     // its sum so far
+  int last = -1;          // the slot at the end of the previous chunk
+  bool ended = false;     // a descent was seen: the rest is padding
+  for (long long c = p0; c < p1; c += 128) {
+    const long long q = c + 4 * lane;
+    int sl[4];
+    float v[4];
+    if (vec) {             // p0, p1 and the rows 16-byte aligned
+      if (q < p1) {
+        const int4 a = *reinterpret_cast<const int4*>(srow + q);
+        const float4 b = *reinterpret_cast<const float4*>(crow + q);
+        sl[0] = a.x; sl[1] = a.y; sl[2] = a.z; sl[3] = a.w;
+        v[0] = b.x; v[1] = b.y; v[2] = b.z; v[3] = b.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) { sl[i] = 0; v[i] = 0.0f; }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sl[i] = q + i < p1 ? srow[q + i] : 0;
+        v[i] = q + i < p1 ? crow[q + i] : 0.0f;
+      }
+    }
+    // the first descent of the chunk: from it on, padding
+    int up = __shfl_up_sync(FULL, sl[3], 1);
+    if (lane == 0) up = last;
+    int first = 4;
+#pragma unroll
+    for (int i = 3; i >= 0; --i) {
+      const int prev = i ? sl[i - 1] : up;
+      if (q + i < p1 && sl[i] < prev) first = i;
+    }
+    const unsigned ball = __ballot_sync(FULL, first < 4);
+    int cut = ended ? 0 : 128;
+    if (ball && !ended) {
+      const int fl = __ffs(ball) - 1;
+      cut = 4 * fl + __shfl_sync(FULL, first, fl);
+      ended = true;
+    }
+    last = __shfl_sync(FULL, sl[3], 31);
+    // keys: the slot of a live position, -1 past the points
+    int key[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      key[i] = (4 * lane + i < cut && q + i < p1 &&
+                (unsigned)(sl[i] - lo) < (unsigned)bt) ? sl[i] : -1;
+    int kup = __shfl_up_sync(FULL, key[3], 1);
+    if (lane == 0) {
+      kup = carry_key;
+      if (carry_key >= 0 && key[0] != carry_key)
+        tab[carry_key - lo] = carry;     // the carried run ended before
+    }
+    int kdown = __shfl_down_sync(FULL, key[0], 1);
+    bool head[4];
+    bool any_head = false;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      head[i] = key[i] != (i ? key[i - 1] : kup);
+      any_head |= head[i];
+    }
+    if (lane == 0 && !head[0]) v[0] = carry + v[0];   // the run goes on
+    float a[4];
+    a[0] = v[0];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) a[i] = head[i] ? v[i] : a[i - 1] + v[i];
+    // segmented inclusive scan of the lanes' last partial sums
+    float x = a[3];
+    bool f = any_head;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(FULL, x, o);
+      const bool g = __shfl_up_sync(FULL, (int)f, o);
+      if (lane >= o) {
+        if (!f) x = y + x;
+        f = f || g;
+      }
+    }
+    float ex = __shfl_up_sync(FULL, x, 1);
+    if (lane == 0) ex = 0.0f;
+    bool open = true;     // before the lane's first head
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      open = open && !head[i];
+      if (open) a[i] = ex + a[i];
+    }
+    // a run ends where the next key differs; the chunk's last run is
+    // carried
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int next = i < 3 ? key[i + 1] : (lane < 31 ? kdown : key[i]);
+      if (key[i] >= 0 && key[i] != next) tab[key[i] - lo] = a[i];
+    }
+    carry_key = __shfl_sync(FULL, key[3], 31);
+    carry = __shfl_sync(FULL, a[3], 31);
+  }
+  if (lane == 0 && carry_key >= 0) tab[carry_key - lo] = carry;
+}
+
+__global__ void __launch_bounds__(SCAT_WARPS * 32)
+scatter_blocked_kernel(const int32_t* __restrict__ blk_start,
+                       const int32_t* __restrict__ slot,
+                       const float* __restrict__ contrib,
+                       float* __restrict__ tables, int m, int num_tiles,
+                       int bn, int bt, long long L, int k, bool vec) {
+  extern __shared__ float warp_tiles[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* tab = warp_tiles + warp * bt;
   const long long width = (long long)num_tiles * bt;
-  const int32_t* srow = slot + (long long)s * L;
-  const float* csrc = contrib + (long long)s * k * L;
-  float* tsrc = tables + (long long)s * k * width + (long long)t * bt;
-  const int lo = t * bt;
-  for (int j0 = 0; j0 < k; j0 += kc) {
-    const int jn = min(kc, k - j0);
-    for (int e = threadIdx.x; e < jn * bt; e += blockDim.x) tab[e] = 0.0f;
-    __syncthreads();
-    for (long long p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-      const unsigned b = (unsigned)(srow[p] - lo);
-      if (b >= (unsigned)bt) continue;
-      for (int j = 0; j < jn; ++j)
-        atomicAdd(&tab[j * bt + b], csrc[(j0 + j) * L + p]);
+  const long long items = (long long)m * num_tiles;
+  const bool vec_out = (bt & 3) == 0;
+  for (int e = lane; e < bt; e += 32) tab[e] = 0.0f;
+  __syncwarp();
+  for (long long w = (long long)blockIdx.x * warps + warp; w < items;
+       w += (long long)gridDim.x * warps) {
+    const int s = (int)(w / num_tiles), t = (int)(w - (long long)s * num_tiles);
+    const int32_t* bs = blk_start + (long long)s * (num_tiles + 1) + t;
+    const long long p0 = (long long)bs[0] * bn, p1 = (long long)bs[1] * bn;
+    const int32_t* srow = slot + (long long)s * L;
+    for (int j = 0; j < k; ++j) {
+      if (p0 < p1)
+        scatter_runs(srow, contrib + ((long long)s * k + j) * L, tab, p0, p1,
+                     t * bt, bt, vec);
+      __syncwarp();
+      float* dst = tables + ((long long)s * k + j) * width + (long long)t * bt;
+      if (vec_out) {
+        for (int e = 4 * lane; e < bt; e += 128) {
+          float4* src = reinterpret_cast<float4*>(tab + e);
+          *reinterpret_cast<float4*>(dst + e) = *src;
+          *src = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      } else {
+        for (int e = lane; e < bt; e += 32) {
+          dst[e] = tab[e];
+          tab[e] = 0.0f;
+        }
+      }
+      __syncwarp();
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < jn * bt; e += blockDim.x) {
-      const int j = e / bt, b = e - j * bt;
-      tsrc[(j0 + j) * width + b] = tab[e];
-    }
-    __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
 // bin_gather: replaces `bin_gather_pallas`
-// (src/repro/kernels/binning/kernel.py, `_gather_body`).
+// (src/repro/kernels/binning/kernel.py, `_gather_body`), in its contract
+// form (the main path reads out through bin_readout below).
 //   out[s,i,j] = tables[s, slot[s,i], j]   for tables (m, B, k)
 // The TPU kernel is a one-hot product over the (point block x table tile)
 // cross product; here it is one indexed load per output.
@@ -135,7 +282,8 @@ __global__ void scatter_blocked_kernel(
 // row of the table read per point).
 // Design: one thread per output element (grid rows = instances),
 // consecutive threads on consecutive points (or columns), so slot loads and
-// out stores are coalesced; the table reads are scattered 4*k-byte loads.
+// out stores are coalesced; the table reads are scattered 4*k-byte loads,
+// one in flight a thread.
 //
 // bin_gather_blocked: replaces `bin_gather_blocked_pallas`
 // (src/repro/kernels/binning/kernel.py, `_gather_blocked_body`).
@@ -160,6 +308,114 @@ __global__ void gather_kernel(const int32_t* __restrict__ slot,
        e += gridDim.x * blockDim.x) {
     const int i = k == 1 ? e : e / k;
     orow[e] = trow[(long long)srow[i] * k + (e - i * k)];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bin_readout: replaces `bin_gather_pallas` on the main path, with the
+// readout's combine (`table_readout`: coeff times the gathered value,
+// mean or sum over the instances) fused in.
+//   out[i,j] = (sum_s coeff[s,i] * tables[s, slot[s,i], j]) / div
+// with div = m (mean) or 1 (sum).
+// Bound: device-memory bytes (slot and coeff read once, one table entry a
+// point and instance, out written once).  What holds it is the rate of
+// random table reads: each moves a whole 32-byte sector, and where an
+// instance's points are fewer than its table's sectors (predict: about a
+// quarter of a read per sector) nearly every read goes to device memory;
+// the gather alone runs at that rate (PERF.md).
+// Design: a thread takes 4 consecutive points (16-byte slot and coeff
+// loads, a float4 out) when k = 1 and the rows allow it, else one output
+// element; it issues the slot and coeff loads of RU instances, then their
+// table loads, so RU x 4 random reads are in flight a thread, and adds
+// coeff * value into its sum in instance order with one fma each: the
+// result is the same bits from launch to launch.  The instances run in
+// groups of `group` a launch, each launch adding its group into out (the
+// first writes it, the last divides).  Where the points read each sector
+// of a table several times and one instance's table fits the 50 MB L2
+// (the distributed step: 2^22 points, a 32 MiB table), a launch takes one
+// instance, so its table stays in L2 while all the points read it; slot,
+// coeff and out then stream past with evict-first loads and stores, so
+// they do not push the table out.  Otherwise a launch takes a fixed group
+// of instances (16: the fastest of 1, 4, 16 and 64 at predict's shape on
+// an H100, chip_smoke.py phase 5).  The wrapper picks the group from the
+// shape.
+// ---------------------------------------------------------------------------
+constexpr int RU = 4;        // instances whose loads a thread has in flight
+constexpr int RO_THREADS = 256;
+
+template <bool VEC>
+__global__ void __launch_bounds__(RO_THREADS)
+readout_kernel(const int32_t* __restrict__ slot,
+               const float* __restrict__ coeff,
+               const float* __restrict__ tables, float* __restrict__ out,
+               long long n, long long B, int k, int s0, int s1, bool first,
+               float div) {
+  const long long total = VEC ? n / 4 : n * k;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    if (VEC) {
+      const long long i = 4 * e;
+      float4 acc = first ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                         : __ldcs(reinterpret_cast<const float4*>(out + i));
+      for (int s = s0; s < s1; s += RU) {
+        int4 sl[RU];
+        float4 c[RU];
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          if (s + u < s1) {
+            const long long at = (s + u) * n + i;
+            sl[u] = __ldcs(reinterpret_cast<const int4*>(slot + at));
+            c[u] = __ldcs(reinterpret_cast<const float4*>(coeff + at));
+          }
+        }
+        float4 t[RU];
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          if (s + u < s1) {
+            const float* tr = tables + (long long)(s + u) * B;
+            t[u] = make_float4(__ldg(tr + sl[u].x), __ldg(tr + sl[u].y),
+                               __ldg(tr + sl[u].z), __ldg(tr + sl[u].w));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          if (s + u < s1) {
+            acc.x = fmaf(c[u].x, t[u].x, acc.x);
+            acc.y = fmaf(c[u].y, t[u].y, acc.y);
+            acc.z = fmaf(c[u].z, t[u].z, acc.z);
+            acc.w = fmaf(c[u].w, t[u].w, acc.w);
+          }
+        }
+      }
+      if (div != 1.0f) {
+        acc.x /= div; acc.y /= div; acc.z /= div; acc.w /= div;
+      }
+      __stcs(reinterpret_cast<float4*>(out + i), acc);
+    } else {
+      const long long i = k == 1 ? e : e / k;
+      const int j = (int)(e - i * k);
+      float acc = first ? 0.0f : __ldcs(out + e);
+      for (int s = s0; s < s1; s += RU) {
+        int sl[RU];
+        float c[RU], t[RU];
+#pragma unroll
+        for (int u = 0; u < RU; ++u) {
+          if (s + u < s1) {
+            sl[u] = __ldcs(slot + (s + u) * n + i);
+            c[u] = __ldcs(coeff + (s + u) * n + i);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RU; ++u)
+          if (s + u < s1)
+            t[u] = __ldg(tables + ((long long)(s + u) * B + sl[u]) * k + j);
+#pragma unroll
+        for (int u = 0; u < RU; ++u)
+          if (s + u < s1) acc = fmaf(c[u], t[u], acc);
+      }
+      if (div != 1.0f) acc /= div;
+      __stcs(out + e, acc);
+    }
   }
 }
 
@@ -465,11 +721,31 @@ extern "C" int bin_fused_matvec_launch(
 extern "C" int bin_scatter_blocked_launch(
     const int32_t* blk_start, const int32_t* slot, const float* contrib,
     float* tables, int m, int num_tiles, int bn, int bt, long long L, int k,
-    int kc, void* stream) {
-  dim3 grid(num_tiles, m);
-  scatter_blocked_kernel<<<grid, THREADS, shared_bytes(kc, bt),
-                           (cudaStream_t)stream>>>(
-      blk_start, slot, contrib, tables, num_tiles, bn, bt, L, k, kc);
+    void* stream) {
+  const long long items = (long long)m * num_tiles;
+  if (items == 0 || k == 0) return (int)cudaGetLastError();
+  // a shared tile of bt floats a warp, within the 48 KB of a block
+  const int tile = bt * (int)sizeof(float);
+  if (bt < 1 || tile > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int warps = 48 * 1024 / tile < SCAT_WARPS ? 48 * 1024 / tile
+                                                  : SCAT_WARPS;
+  const int smem = warps * tile;
+  const bool vec = (bn & 3) == 0 && (L & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(slot) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(contrib) & 15) == 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, scatter_blocked_kernel, warps * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long want = (items + warps - 1) / warps;
+  const long long room = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  scatter_blocked_kernel<<<(unsigned)(want < room ? want : room),
+                           warps * 32, smem, (cudaStream_t)stream>>>(
+      blk_start, slot, contrib, tables, m, num_tiles, bn, bt, L, k, vec);
   return (int)cudaGetLastError();
 }
 
@@ -481,6 +757,37 @@ extern "C" int bin_gather_launch(const int32_t* slot, const float* tables,
   gather_kernel<<<row_grid(nk, m), THREADS, 0, (cudaStream_t)stream>>>(
       slot, tables, out, n, B, k);
   return (int)cudaGetLastError();
+}
+
+// out (n[, k]) f32; the instances in launches of `group`, the last
+// dividing by `div`.
+extern "C" int bin_readout_launch(const int32_t* slot, const float* coeff,
+                                  const float* tables, float* out, int m,
+                                  long long n, long long B, int k, int group,
+                                  float div, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n == 0 || k == 0) return (int)cudaGetLastError();
+  if (m < 1 || group < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = k == 1 && (n & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(slot) |
+                     reinterpret_cast<uintptr_t>(coeff) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long work = vec ? n / 4 : n * k;
+  const long long blocks = (work + RO_THREADS - 1) / RO_THREADS;
+  const unsigned grid = (unsigned)(blocks < (1 << 30) ? blocks : (1 << 30));
+  for (int s0 = 0; s0 < m; s0 += group) {
+    const int s1 = m - s0 < group ? m : s0 + group;
+    const float d = s1 == m ? div : 1.0f;
+    if (vec)
+      readout_kernel<true><<<grid, RO_THREADS, 0, st>>>(
+          slot, coeff, tables, out, n, B, k, s0, s1, s0 == 0, d);
+    else
+      readout_kernel<false><<<grid, RO_THREADS, 0, st>>>(
+          slot, coeff, tables, out, n, B, k, s0, s1, s0 == 0, d);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" int bin_gather_blocked_launch(const int32_t* slot_lay,

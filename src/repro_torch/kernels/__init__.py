@@ -8,9 +8,9 @@ can show that its main path went through the kernels, and at which shapes.
 from __future__ import annotations
 
 from .binning.kernel import (bin_fused_matvec_cuda, bin_gather_blocked_cuda,
-                             bin_gather_cuda, bin_scatter_blocked_cuda,
-                             bin_scatter_cuda, route_pack_cuda,
-                             route_unpack_cuda)
+                             bin_gather_cuda, bin_readout_cuda,
+                             bin_scatter_blocked_cuda, bin_scatter_cuda,
+                             route_pack_cuda, route_unpack_cuda)
 from .featurize.kernel import featurize_cuda
 from .flash_decode.kernel import flash_decode_cuda
 
@@ -19,6 +19,7 @@ KERNEL_WRAPPERS = {
     "bin_fused_matvec": bin_fused_matvec_cuda,
     "bin_scatter_blocked": bin_scatter_blocked_cuda,
     "bin_gather": bin_gather_cuda,
+    "bin_readout": bin_readout_cuda,
     "bin_scatter": bin_scatter_cuda,
     "bin_gather_blocked": bin_gather_blocked_cuda,
     "route_pack": route_pack_cuda,

@@ -1,6 +1,7 @@
 """Wrappers of the CUDA binning kernels (csrc/binning.cu) and route kernels
 (csrc/route.cu), which replace the TPU kernels ``bin_fused_matvec_pallas``,
-``bin_scatter_blocked_pallas``, ``bin_gather_pallas``, ``bin_scatter_pallas``,
+``bin_scatter_blocked_pallas``, ``bin_gather_pallas`` (in its contract form,
+and fused with the readout's combine), ``bin_scatter_pallas``,
 ``bin_gather_blocked_pallas``, ``route_pack_pallas`` and
 ``route_unpack_pallas``.  Each checks its arguments, allocates its output
 with ``torch.empty``, launches on the current stream, raises on a launch
@@ -9,6 +10,7 @@ shape, in ``<wrapper>.launches_by_shape``."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -27,15 +29,18 @@ def _lib():
         lib.bin_fused_matvec_launch.argtypes = [_P] * 5 + [_I] * 4 + [
             _L, _I, _I, _P]
         lib.bin_scatter_blocked_launch.argtypes = [_P] * 4 + [_I] * 4 + [
-            _L, _I, _I, _P]
+            _L, _I, _P]
         lib.bin_gather_launch.argtypes = [_P] * 3 + [_I, _I, _L, _I, _P]
+        lib.bin_readout_launch.argtypes = [_P] * 4 + [
+            _I, _L, _L, _I, _I, ctypes.c_float, _P]
         lib.bin_gather_blocked_launch.argtypes = [_P] * 3 + [
             _I, _I, _L, _I, _P]
         lib.bin_scatter_launch.argtypes = [_P] * 3 + [
             _I, _L, _L] + [_I] * 7 + [_P] * 6
         for fn in (lib.bin_fused_matvec_launch,
                    lib.bin_scatter_blocked_launch, lib.bin_gather_launch,
-                   lib.bin_gather_blocked_launch, lib.bin_scatter_launch):
+                   lib.bin_readout_launch, lib.bin_gather_blocked_launch,
+                   lib.bin_scatter_launch):
             fn.restype = _I
         lib.binning_error_string.argtypes = [_I]
         lib.binning_error_string.restype = ctypes.c_char_p
@@ -91,10 +96,13 @@ def bin_fused_matvec_cuda(blk_start, slot_lay, coeff_lay, beta_lay, *,
 def bin_scatter_blocked_cuda(blk_start, slot_lay, contrib_lay, *,
                              block_n: int, block_t: int):
     """tables[s, (j,) b] = sum_{p: slot_lay[s, p] = b} contrib_lay[s, (j,) p]
-    -> (m, T*bt) or (m, k, T*bt) f32; every tile written, empty ones 0."""
+    -> (m, T*bt) or (m, k, T*bt) f32; every tile written, empty ones 0.
+    Each run of equal slots is summed in a fixed order (the same bits from
+    launch to launch); a tile's points end at its first slot below its
+    predecessor's (the padding)."""
     k = contrib_lay.shape[1] if contrib_lay.ndim == 3 else 1
-    m, L, num_tiles, kc = _layout_args(blk_start, slot_lay, block_n,
-                                       block_t, k)
+    m, L, num_tiles, _ = _layout_args(blk_start, slot_lay, block_n,
+                                      block_t, k)
     _need(contrib_lay, "contrib_lay", torch.float32,
           (m, k, L) if contrib_lay.ndim == 3 else (m, L))
     width = num_tiles * block_t
@@ -106,7 +114,7 @@ def bin_scatter_blocked_cuda(blk_start, slot_lay, contrib_lay, *,
     count_launch(bin_scatter_blocked_cuda, (m, L, k))
     rc = lib.bin_scatter_blocked_launch(
         blk_start.data_ptr(), slot_lay.data_ptr(), contrib_lay.data_ptr(),
-        tables.data_ptr(), m, num_tiles, block_n, block_t, L, k, kc,
+        tables.data_ptr(), m, num_tiles, block_n, block_t, L, k,
         stream_ptr(tables.device))
     check(rc, "bin_scatter_blocked", lib.binning_error_string)
     return tables
@@ -122,15 +130,19 @@ def _gather_args(slot, tables, what):
     k = tables.shape[2] if tables.ndim == 3 else 1
     if m > 65535 or n * k >= 2 ** 31:
         raise ValueError(f"gather: m={m}, n*k={n * k} out of range")
-    out = torch.empty((m, n) + tuple(tables.shape[2:]), dtype=torch.float32,
-                      device=slot.device)
-    return m, n, tables.shape[1], k, out
+    return m, n, tables.shape[1], k
+
+
+def _gather_out(slot, tables):
+    return torch.empty(tuple(slot.shape) + tuple(tables.shape[2:]),
+                       dtype=torch.float32, device=slot.device)
 
 
 def bin_gather_cuda(slot, tables):
     """out[s, i(, j)] = tables[s, slot[s, i](, j)]; slot (m, n) int32 in
     [0, B), tables (m, B) or (m, B, k) f32."""
-    m, n, B, k, out = _gather_args(slot, tables, "slot")
+    m, n, B, k = _gather_args(slot, tables, "slot")
+    out = _gather_out(slot, tables)
     if out.numel() == 0:
         return out
     lib = _lib()
@@ -146,7 +158,8 @@ def bin_gather_blocked_cuda(slot_lay, tables):
     """out_lay[s, p(, j)] = tables[s, slot_lay[s, p](, j)] over the
     slot-blocked layout; slot_lay (m, L) int32 in [0, B) (padding reads
     slot 0), tables (m, B) or (m, B, k) f32 -> (m, L) or (m, L, k)."""
-    m, L, B, k, out = _gather_args(slot_lay, tables, "slot_lay")
+    m, L, B, k = _gather_args(slot_lay, tables, "slot_lay")
+    out = _gather_out(slot_lay, tables)
     if out.numel() == 0:
         return out
     lib = _lib()
@@ -155,6 +168,71 @@ def bin_gather_blocked_cuda(slot_lay, tables):
                                        out.data_ptr(), m, L, B, k,
                                        stream_ptr(out.device))
     check(rc, "bin_gather_blocked", lib.binning_error_string)
+    return out
+
+
+# the readout keeps one instance's table in L2 for all the points (a launch
+# per group of instances that fits half the L2) when its points read each
+# table sector at least this often and one table fits the L2; else it adds
+# READOUT_GROUP instances a launch (the fastest of 1, 4, 16 and 64 at
+# predict's shape, m 64, n 2^18, B 2^23, on an H100: chip_smoke.py phase 5,
+# PERF.md)
+READOUT_MIN_READS_PER_SECTOR = 2.0
+READOUT_GROUP = 16
+
+
+def readout_group(m: int, n: int, table_size: int, k: int,
+                  l2_bytes: int) -> int:
+    """Instances a launch of the readout adds: one instance's table kept in
+    L2 (as many as fit half of it, at least one) when the n points read
+    each 32-byte sector of a table READOUT_MIN_READS_PER_SECTOR times or
+    more on average and that table fits in ``l2_bytes``; else
+    READOUT_GROUP.  Never more than m."""
+    table_bytes = 4 * max(1, table_size) * max(1, k)
+    reads_per_sector = 8 * n / max(1, table_size)   # a point reads one row
+    if reads_per_sector < READOUT_MIN_READS_PER_SECTOR or \
+            table_bytes > l2_bytes:
+        return max(1, min(m, READOUT_GROUP))
+    return max(1, min(m, l2_bytes // 2 // table_bytes))
+
+
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device) -> int:
+    """The card's L2 size (asked once: the query costs host time a call)."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def bin_readout_cuda(slot, coeff, tables, *, average: bool = True):
+    """out[i(, j)] = mean over s (sum when not ``average``) of coeff[s, i] *
+    tables[s, slot[s, i](, j)]: the gather of ``bin_gather_cuda`` with the
+    readout's combine fused in.  slot (m, n) int32 in [0, B), coeff (m, n)
+    f32, tables (m, B) or (m, B, k) f32 -> (n,) or (n, k).  The instances
+    are added in order, one fma each (the same bits from launch to launch),
+    ``readout_group``'s count of them a launch."""
+    m, n, B, k = _gather_args(slot, tables, "slot")
+    _need(coeff, "coeff", torch.float32, (m, n))
+    if m < 1:
+        raise ValueError("readout: needs at least one instance")
+    return _readout_launch(slot, coeff, tables, average, readout_group(
+        m, n, B, k, _l2_bytes(slot.device)))
+
+
+def _readout_launch(slot, coeff, tables, average: bool, group: int):
+    """One launch of the readout on checked inputs, ``group`` instances
+    added a launch (any grouping gives the same bits)."""
+    m, n = slot.shape
+    B, k = tables.shape[1], tables.shape[2] if tables.ndim == 3 else 1
+    out = torch.empty((n,) + tuple(tables.shape[2:]), dtype=torch.float32,
+                      device=slot.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    count_launch(bin_readout_cuda, (m, n, B, k))
+    rc = lib.bin_readout_launch(slot.data_ptr(), coeff.data_ptr(),
+                                tables.data_ptr(), out.data_ptr(), m, n, B, k,
+                                int(group), float(m if average else 1),
+                                stream_ptr(out.device))
+    check(rc, "bin_readout", lib.binning_error_string)
     return out
 
 
@@ -376,7 +454,7 @@ def route_unpack_cuda(cell_lay, coeff_lay, back):
 
 
 for _fn in (bin_fused_matvec_cuda, bin_scatter_blocked_cuda, bin_gather_cuda,
-            bin_gather_blocked_cuda, bin_scatter_cuda, route_pack_cuda,
-            route_unpack_cuda):
+            bin_readout_cuda, bin_gather_blocked_cuda, bin_scatter_cuda,
+            route_pack_cuda, route_unpack_cuda):
     _fn.launches, _fn.launches_by_shape = 0, {}
 del _fn

@@ -8,9 +8,10 @@ the CPU).
 * ``bin_loads_op``         ~ ``table_loads`` — the (m, B[, k]) psum-able
   tables: off the layout when the index has one (``bin_loads_blocked_op``),
   else the point scatter.
-* ``bin_readout_op``       ~ ``table_readout`` — gather each point's bucket
-  load (over the layout when the index has one: ``bin_readout_blocked_op``)
-  and combine over the instances.
+* ``bin_readout_op``       ~ ``table_readout`` — each point's bucket loads
+  times its coefficients, combined over the instances: one kernel (the
+  gather with the combine fused in), or over the layout when the index
+  has one (``bin_readout_blocked_op``: gather, then combine).
 * ``table_matvec_op`` — the split matvec, loads then readout (the tables
   round-trip through device memory: the psum-able path).
 * ``route_pack_op`` / ``route_unpack_op`` — the hash join's wire pack and
@@ -28,11 +29,11 @@ import torch
 from ...backend import on_card
 from ...core.wlsh import TableIndex
 from .kernel import (bin_fused_matvec_cuda, bin_gather_blocked_cuda,
-                     bin_gather_cuda, bin_scatter_blocked_cuda,
+                     bin_readout_cuda, bin_scatter_blocked_cuda,
                      bin_scatter_cuda, route_pack_cuda, route_unpack_cuda)
-from .ref import (fused_matvec_ref, gather_blocked_ref, gather_ref,
-                  route_pack_ref, route_unpack_ref, scatter_blocked_ref,
-                  scatter_ref)
+from .ref import (combine_ref, fused_matvec_ref, gather_blocked_ref,
+                  readout_ref, route_pack_ref, route_unpack_ref,
+                  scatter_blocked_ref, scatter_ref)
 
 
 def _kernel_layout(index: TableIndex):
@@ -147,12 +148,6 @@ def bin_loads_op(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
     return scatter_ref(index.slot, contrib, table_size=index.table_size)
 
 
-def _combine(index: TableIndex, vals: torch.Tensor, average: bool):
-    signed = index.coeff * vals if vals.ndim == 2 else \
-        index.coeff[..., None] * vals
-    return signed.mean(0) if average else signed.sum(0)
-
-
 def bin_readout_blocked_op(index: TableIndex, tables: torch.Tensor, *,
                            average: bool = True) -> torch.Tensor:
     """Readout over the slot-blocked layout (B6): gather along the layout,
@@ -163,7 +158,7 @@ def bin_readout_blocked_op(index: TableIndex, tables: torch.Tensor, *,
         out_lay = bin_gather_blocked_cuda(lay.slot_lay, tables)
     else:
         out_lay = gather_blocked_ref(lay.slot_lay, tables)
-    return _combine(index, rows_to_points(lay, out_lay), average)
+    return combine_ref(index.coeff, rows_to_points(lay, out_lay), average)
 
 
 def bin_readout_op(index: TableIndex, tables: torch.Tensor, *,
@@ -171,15 +166,14 @@ def bin_readout_op(index: TableIndex, tables: torch.Tensor, *,
     """Per-point readout of tables (m, B) -> (n,), or (m, B, k) -> (n, k):
     mean over the instances of coeff * tables[s, slot] (sum when not
     ``average``).  An index carrying the layout's kernel group reads over
-    the layout (B6), any other gathers per point (B4)."""
+    the layout (B6), any other through the fused per-point readout (B4)."""
     if _kernel_layout(index) is not None:
         return bin_readout_blocked_op(index, tables, average=average)
     tables = tables.to(torch.float32).contiguous()
-    if on_card(index.slot, tables):
-        vals = bin_gather_cuda(index.slot, tables)
-    else:
-        vals = gather_ref(index.slot, tables)
-    return _combine(index, vals, average)
+    if on_card(index.slot, index.coeff, tables):
+        return bin_readout_cuda(index.slot, index.coeff.contiguous(),
+                                tables, average=average)
+    return readout_ref(index.slot, index.coeff, tables, average)
 
 
 def table_matvec_op(index: TableIndex, beta: torch.Tensor, *,

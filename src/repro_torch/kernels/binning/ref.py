@@ -1,9 +1,13 @@
 """Plain PyTorch versions of the binning kernels, on the same arrays and at
 the same boundaries as the CUDA kernels (csrc/binning.cu).  Sums go through
-``index_add_``."""
+``index_add_``.  The readout's (``readout_ref``, and ``combine_ref`` after
+a gather) is the plain one of ``core.wlsh``, so the port keeps one."""
 from __future__ import annotations
 
 import torch
+
+from ...core.wlsh import combine_instances as combine_ref
+from ...core.wlsh import point_readout as readout_ref
 
 
 def _flat_slots(slot_lay: torch.Tensor, k: int, width: int) -> torch.Tensor:

@@ -19,17 +19,21 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.core import distributed as D
 from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                          bin_gather_blocked_cuda,
-                                         bin_gather_cuda,
+                                         bin_gather_cuda, bin_readout_cuda,
                                          bin_scatter_blocked_cuda,
                                          bin_scatter_cuda, fused_matvec_ref,
                                          gather_blocked_ref, gather_ref,
-                                         route_pack_cuda, route_pack_ref,
-                                         route_unpack_cuda, route_unpack_ref,
+                                         readout_ref, route_pack_cuda,
+                                         route_pack_ref, route_unpack_cuda,
+                                         route_unpack_ref,
                                          scatter_blocked_ref, scatter_ref)
 from repro_torch.kernels.binning import variants as V
-from repro_torch.kernels.binning.kernel import _bin_scatter, scatter_plan
+from repro_torch.kernels.binning.kernel import (_bin_scatter, _readout_launch,
+                                               scatter_plan)
 from repro_torch.kernels.binning.ops import layout_rows
 from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
+from repro_torch.testing.scatter_model import (scatter_blocked_model,
+                                               trap_layout_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -124,6 +128,68 @@ def test_gather_is_bitwise(cuda, k):
     assert torch.equal(bin_gather_cuda(slot, tables), gather_ref(slot, tables))
 
 
+@pytest.mark.parametrize("k", [0, 3])
+@pytest.mark.parametrize("block_n", [128, 64])
+def test_scatter_blocked_is_deterministic_and_matches_model(cuda, block_n,
+                                                            k):
+    """B3 on layouts with the run boundaries it must get right (tile 0's
+    padding of slot 0 after higher slots, an empty tile, one slot holding
+    a tile, a run across a chunk's end): the same bits in two launches,
+    bit for bit the numpy model of its sum order, and within 1e-5 of
+    max|out| of the plain version; float contributions."""
+    rng = np.random.default_rng(block_n + k)
+    slot, coeff = trap_layout_case(rng, block_n=block_n, device=cuda)
+    lay = T.build_blocked_layout(slot, coeff, 1 << 12, block_n=block_n,
+                                 block_t=512)
+    shape = (lay.slot_lay.shape[0],) + ((k,) if k else ()) + (
+        lay.slot_lay.shape[1],)
+    beta = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            ).to(cuda)
+    contrib = (lay.coeff_lay if k == 0 else lay.coeff_lay[:, None]) * beta
+    run = lambda: bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay,
+                                           contrib, block_n=block_n,
+                                           block_t=512)
+    got, again = run(), run()
+    assert torch.equal(got, again)
+    model = scatter_blocked_model(lay.blk_start.cpu(), lay.slot_lay.cpu(),
+                                  contrib.cpu(), block_n=block_n,
+                                  block_t=512)
+    assert np.array_equal(got.cpu().numpy(), model)
+    want = scatter_blocked_ref(lay.slot_lay, contrib,
+                               width=lay.num_tiles * 512)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("average", [True, False])
+@pytest.mark.parametrize("m,n", [(5, 4096), (5, 1001), (1, 4096), (3, 1),
+                                 (4, 0)])
+@pytest.mark.parametrize("k", [0, 4])
+def test_readout_matches_plain(cuda, k, m, n, average):
+    """The fused readout against ``readout_ref`` within 1e-5 of max|out|
+    (n a multiple of 4 takes the 4-point path, others the element path),
+    and the same bits at every grouping of the instances and in two
+    launches."""
+    rng = np.random.default_rng(m * 7 + n + k)
+    b = 1 << 12
+    slot = torch.from_numpy(rng.integers(0, b, (m, n), dtype=np.int32)
+                            ).to(cuda)
+    coeff = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)
+                             ).to(cuda)
+    shape = (m, b) if k == 0 else (m, b, k)
+    tables = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                              ).to(cuda)
+    got = bin_readout_cuda(slot, coeff, tables, average=average)
+    want = readout_ref(slot, coeff, tables, average)
+    assert got.shape == want.shape
+    if n:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    for group in (1, 2, m):
+        assert torch.equal(_readout_launch(slot, coeff, tables, average,
+                                           group), got)
+
+
 @pytest.mark.parametrize("precond", ["none", "jacobi", "nystrom"])
 def test_fit_on_card_matches_cpu(cuda, precond):
     x, y, xq, _ = make_regression(2000, 300, 5, rough=0.3, seed=1)
@@ -136,7 +202,7 @@ def test_fit_on_card_matches_cpu(cuda, precond):
     p_gpu = T.wlsh_krr_predict(gpu, xq, batch_size=128).cpu()
     counts = launch_counts()
     fit_path = ("featurize", "bin_fused_matvec", "bin_scatter_blocked",
-                "bin_gather")
+                "bin_readout")
     assert all(counts[k] > 0 for k in fit_path), counts
     cpu = T.wlsh_krr_fit(lsh, x, y, spec, device="cpu", **kw)
     p_cpu = T.wlsh_krr_predict(cpu, xq)
@@ -361,6 +427,12 @@ def test_bad_arguments_raise(cuda):
     slot = torch.zeros((2, 10), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         bin_gather_cuda(slot, torch.zeros((2, 16), device=cuda))
+    with pytest.raises(ValueError):
+        bin_readout_cuda(slot, torch.zeros((2, 10), device=cuda),
+                         torch.zeros((2, 16), device=cuda))
+    with pytest.raises(ValueError):   # coeff of another shape
+        bin_readout_cuda(slot.int(), torch.zeros((2, 9), device=cuda),
+                         torch.zeros((2, 16), device=cuda))
     with pytest.raises(ValueError):
         bin_scatter_cuda(slot.int(), torch.zeros((2, 11), device=cuda), 16)
     with pytest.raises(ValueError):
