@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
-predict and the distributed step, and LM serving.
+predict and the distributed step, LM serving, and KRR serving.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -19,7 +19,8 @@ non-zero:
    two launches), at k = 1 and, where the plain version fits, k = 4;
    gather (B4's contract form) bitwise; the readout (B4 with its combine:
    mean and sum) to 1e-5 of max|out|, bitwise at one instance a launch
-   and all in one.  Then the distributed step's kernels on a
+   and all in one; B1 and the readout the same way on the queries at each
+   of phase 8's padding buckets (n = 1 ... 1024).  Then the distributed step's kernels on a
    layout at the split geometry (block_n = 64): the blocked scatter again,
    the point scatter B5 to 1e-5 of max|out| (global atomics), the layout
    gather B6, and the route pack B7 (f32, and bf16 out against the plain
@@ -77,6 +78,37 @@ non-zero:
    against the last logits of prefill(x[:2049]) within 2e-3 of max|logit|,
    B9's share of a step from its times at the step's two cache shapes, and
    a profiled step, in which B9 must run one device kernel per call.
+8. KRR serving of phase 3's model, through ``repro_torch.serve``: export
+   with ``include_beta=False`` and 16 golden queries into a temporary
+   directory (removed on exit; the disk must have 2.1 GiB free, else the
+   run fails), load it onto the card (export and load seconds, the bytes
+   on disk, and the host's non-finite scan of the tables are printed).
+   Counts reset, then the counted run: a ``Predictor`` (max_batch 1024,
+   cache 65536) whose ``warmup`` must capture 11 CUDA graphs (buckets
+   1...1024), a request at every bucket's size and of 3, 17, 100, 513,
+   1000 and 2500 rows (still 11 graphs after them), the golden block, and
+   8192 single-row requests through ``MicroBatcher`` (half repeats,
+   max_batch 64, max_wait_us 2000: p50, p99, QPS, batch sizes, cache hit
+   rate), submitted as fast as the loop goes, then 2048 more paced at 2000
+   QPS; counts read.  A capture records its launches without counting
+   them, and each replay counts them (``kernels.captured_launches``); B1
+   and the readout must have run from the graphs.  After the run, every
+   answer must be bitwise equal to ``wlsh_krr_predict`` on the same rows
+   (repeats equal to their first answer) and within 1e-5 of max|pred| of
+   the plain path (featurize_ref, readout_ref), the golden block within
+   its tol.  (Phase 2 holds B1 and the readout against their plain
+   versions at each bucket's shape.)  Per bucket, the warm path
+   (pinned copy in, replay, copy out, synchronize), ``predict`` and one
+   eager ``wlsh_krr_predict`` with its copies, on the host clock.  Then
+   ``ServingRuntime`` over a version root fit at n = 2^16 (a reduced
+   scale, so a version writes in seconds): v1 served, v2 poisoned on disk
+   and canary-rejected, v3 torn and invisible, v4 swapped in,
+   ``rollback()`` to v1; device memory in use falls back to v1's level
+   after v2's rejection and after the rollback; v1's answers after it
+   against ``wlsh_krr_predict`` (bitwise) and the plain path.  A counted
+   run of its own (counts reset before, read after; B1, B2, B3 and the
+   readout must launch), listed as ``lifecycle_launches`` in the
+   ``kernels`` line apart from ``launches``, whose shapes phase 5 times.
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -96,9 +128,15 @@ non-zero:
    against the same kernel with its splits capped at a cluster's.  Each
    wrapper also counts its launches by input shape; a kernel's
    ``launches`` are summed over the counted runs (phase 3, phase 6 (a),
-   (b) and (c), phase 7), and B1, B3, the readout, B7 and B9 are timed at
-   every shape those runs launched them at, listed with those launches as
-   ``by_shape`` (B9's device time from torch.profiler).
+   (b) and (c), phase 7, phase 8 with its graphs' replays), and B1, B3,
+   the readout, B7 and B9 are timed at every shape those runs launched
+   them at (for B1 and the readout also phase 8's eleven bucket shapes,
+   where the kernel's own time comes from torch.profiler as
+   ``device_ms``: events over launches back to back time the host there),
+   listed with those launches as ``by_shape`` (B9's device time from
+   torch.profiler).  Last, one replay of each of phase 8's graphs: by
+   CUDA events back to back, and its kernels' device time by
+   torch.profiler over the warm path's wall (the device-busy share).
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -447,6 +485,45 @@ def check_readout(torch, slot, coeff, tables):
     return worst
 
 
+def check_buckets(torch, xq, lsh, tables):
+    """B1 and the readout at every padding bucket of phase 8 (queries
+    n = 1 ... max_batch, the kernels' small-n plans and the readout's tail
+    case), each against its plain version as ``check_featurize`` and
+    ``check_readout`` hold it.  Returns (featurize err, readout err)."""
+    import repro_torch.core as T
+    from repro_torch.serve import bucket_sizes
+    e_f = e_ro = 0.0
+    for b in bucket_sizes(SERVE["max_batch"]):
+        feats, e = check_featurize(torch, xq[:b], lsh, T.RECT,
+                                   tables.shape[1])
+        e_f = max(e_f, e)
+        e_ro = max(e_ro, check_readout(torch, feats[4], feats[5], tables))
+    return e_f, e_ro
+
+
+def plain_predict(torch, model, rows):
+    """The plain path on ``rows`` (numpy): featurize_ref, then the
+    readout's plain mean (readout_ref), on the model's device."""
+    import repro_torch.core as T
+    from repro_torch.kernels.binning import readout_ref
+    from repro_torch.kernels.featurize import featurize_ref
+    x = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(
+        model.tables.device)
+    f = featurize_ref(x, *model.lsh, f=T.get_bucket_fn(model.bucket_name),
+                      table_size=model.table_size)
+    return readout_ref(f[4], f[5], model.tables, True).cpu().numpy()
+
+
+def check_plain(what, got, want):
+    """Served predictions against the plain path's, to 1e-5 of
+    max|plain|; returns the error."""
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    lim = 1e-5 * float(np.abs(want).max())
+    if not err <= lim:
+        fail(f"phase 8: {what} differs from the plain path by {err} > {lim}")
+    return err
+
+
 def split_setup(torch, slot, coeff, table_size, routings=((1, 2.0),)):
     """The distributed step's arrays on the one card: a layout at the split
     geometry (both groups, then the sorted-segment group dropped once the
@@ -612,9 +689,16 @@ def phase_parity(torch, x, xq, seed):
         say(f"  n={n} gather (m, B) bitwise over {q_slot.shape[1]} queries; "
             f"readout err {e_ro:.3g} (mean and sum; limit 1e-5 of max|out|),"
             f" bitwise at 1 and {MAIN['m']} instances a launch")
+        e_fb, e_rb = check_buckets(torch, xq, lsh, t1)
+        say(f"  n={n} at phase 8's padding buckets (1 ... "
+            f"{SERVE['max_batch']} queries): featurize keys/slot/sign "
+            f"bitwise, weight/coeff err {e_fb:.3g}; readout err {e_rb:.3g} "
+            f"(mean and sum), bitwise at 1 and {MAIN['m']} instances a "
+            f"launch")
         if n == MAIN["n"]:
-            errs.update(featurize=e_f, bin_fused_matvec=e_mv,
-                        bin_scatter_blocked=e_sc, bin_readout=e_ro)
+            errs.update(featurize=max(e_f, e_fb), bin_fused_matvec=e_mv,
+                        bin_scatter_blocked=e_sc,
+                        bin_readout=max(e_ro, e_rb))
         del t1
         if n != MAIN["n"]:
             beta4 = torch.randn(n, 4, device=x.device)
@@ -1447,7 +1531,8 @@ def b1_floor(torch, m, n, d):
 
 def merged_tallies(runs):
     """Launches of every kernel summed over the counted runs (phase 3, each
-    counted phase-6 path, phase 7), in total and by input shape; ``runs``
+    counted phase-6 path, phase 7, phase 8's predictor), in total and by
+    input shape; ``runs``
     holds each run's (counts, counts by shape)."""
     total = {name: sum(c.get(name, 0) for c, _ in runs) for name in KERNELS}
     tally = {}
@@ -1541,10 +1626,331 @@ def readout_times(torch, slot, coeff, tables, average):
         ms_by_group={str(g): t for g, t in by_group.items()})
 
 
+# phase 8: KRR serving of phase 3's model (the artifact, the predictor's
+# graphs, the micro-batcher, the version lifecycle)
+SERVE = dict(max_batch=1024, cache_entries=65536, golden=16,
+             ragged=(1, 3, 17, 100, 513, 1000, 2500), stream=8192,
+             dup_frac=0.5, batch=64, wait_us=2000, paced=2048,
+             paced_qps=2000.0, warm_reps=100, life_n=1 << 16,
+             life_queries=256)
+SERVE_DISK_GIB = 2.1      # the flat artifact of phase 3's model, and room
+# B1 and the readout (B4 with its combine), launched from each bucket's graph
+SERVE_KERNELS = ("featurize", "bin_readout")
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def serve_warm_times(torch, pred, model, rows):
+    """For each bucket: the warm path alone (pinned copy in, replay, copy
+    out, synchronize: ``BucketGraph.run``), ``Predictor.predict`` with the
+    cache off, and one eager ``wlsh_krr_predict`` of the same rows with its
+    copies to and from the card, each the mean of ``warm_reps`` calls on
+    the host's clock, in us."""
+    import repro_torch.core as T
+    hosted = pred._hosted(None)
+    out = {}
+    for b in sorted(hosted.graphs):
+        x = rows[:b]
+        g = hosted.graphs[b]
+
+        def warm():
+            with hosted.lock:
+                g.run(x, hosted.stream)
+
+        fns = {"warm_us": warm,
+               "predict_us": lambda: pred.predict(x, use_cache=False),
+               "eager_us": lambda: T.wlsh_krr_predict(model, x).cpu()}
+        t = {}
+        for name, fn in fns.items():
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(SERVE["warm_reps"]):
+                fn()
+            t[name] = (time.perf_counter() - t0) / SERVE["warm_reps"] * 1e6
+        out[b] = t
+    return out
+
+
+def serve_lifecycle(torch, dev, root, seed):
+    """ServingRuntime over a version root of artifacts fit at n = 2^16
+    (d = m = 64): v1 served, v2 published then poisoned (the canary must
+    reject it), v3 torn (invisible), v4 good (swapped in), then rollback()
+    to v1.  Device memory in use must fall back to v1's level once v2 is
+    rejected and once v4 is rolled away (their graphs and tables
+    released).  A counted run of its own: counts reset before the fits and
+    read after the last predict; B1, B2, B3 and the readout must launch.
+    Returns the steps and (counts, counts by shape)."""
+    import repro_torch.core as T
+    from repro_torch.data import make_regression
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
+    from repro_torch.serve import (LifecycleConfig, ServingRuntime,
+                                   bucket_sizes, discover_versions,
+                                   export_artifact, version_dir)
+    from repro_torch.testing.faults import poison_artifact_tables, torn_publish
+    n, d, m = SERVE["life_n"], MAIN["d"], MAIN["m"]
+    x, y, xq, _ = make_regression(n, SERVE["life_queries"], d, rough=0.5,
+                                  seed=seed + 1)
+    spec = T.WLSHKernelSpec(bucket=T.RECT, pdf=T.GammaPDF(2.0, 1.0))
+    reset_launch_counts()
+    models, t0 = [], sync_clock(torch)
+    for s in (seed + 1, seed + 2):
+        lsh = T.sample_lsh_params(np.random.default_rng(s), m, d,
+                                  T.GammaPDF(2.0, 1.0), device=dev)
+        models.append(T.wlsh_krr_fit(lsh, x, y, spec, lam=MAIN["lam"],
+                                     maxiter=MAIN["maxiter"], device=dev))
+    t_fit = sync_clock(torch) - t0
+    cfg = LifecycleConfig(probation_s=0.0, retain=2,
+                          warm_sizes=bucket_sizes(SERVE["batch"]))
+    rt = ServingRuntime(root, device=dev, max_batch=SERVE["max_batch"],
+                        config=cfg)
+
+    def mem():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def publish(v, model):
+        t = time.perf_counter()
+        export_artifact(version_dir(root, v), model)
+        return time.perf_counter() - t
+
+    steps, levels = [], {}
+    t_v1 = publish(1, models[0])
+    steps.append(("v1 published", rt.poll_once()))
+    levels["v1"] = mem()
+    publish(2, models[0])
+    poison_artifact_tables(version_dir(root, 2), scale=3.0)
+    steps.append(("v2 poisoned", rt.poll_once()))
+    levels["v2 rejected"] = mem()
+    torn_publish(version_dir(root, 3), models[1])
+    steps.append(("v3 torn", rt.poll_once()))
+    publish(4, models[1])
+    steps.append(("v4 published", rt.poll_once()))
+    levels["v4 swapped"] = mem()
+    ok_rb = rt.rollback("chip_smoke: rollback to v1")
+    steps.append(("rollback()", {"action": "rollback" if ok_rb else
+                                 "rollback refused"}))
+    levels["rolled back"] = mem()
+    active = [(name, r.get("action"), r.get("version")) for name, r in steps]
+    served = rt.predict(xq, use_cache=False)
+    counts, shapes = launch_counts(), launch_counts_by_shape()
+    want = T.wlsh_krr_predict(models[0], xq).cpu().numpy()
+    e_plain = check_plain("the lifecycle's v1 after rollback", served,
+                          plain_predict(torch, models[0], xq))
+    say(f"  lifecycle (fit at n = 2^{n.bit_length() - 1}, d = m = {m}, 2 fits "
+        f"{t_fit:.2f} s; a version exports in {t_v1:.2f} s): " + "; ".join(
+            f"{name}: {act}" + (f" v{v}" if v else "") for name, act, v in
+            active) + f"; served after rollback v{rt.active_version}; "
+        f"device memory in use (MiB): " + ", ".join(
+            f"{k} {v / 2**20:.1f}" for k, v in levels.items())
+        + f"; v1 after rollback within {e_plain:.3g} of the plain path; "
+        f"launches (counted run) { {k: v for k, v in counts.items() if v} }"
+        f", featurize by (n, d, m) {shapes['featurize']}, readout by (m, n, "
+        f"B, k) {shapes['bin_readout']}")
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"phase 8 lifecycle: kernels not launched: {missing}")
+    expect = (("v1 published", "swap"), ("v2 poisoned", "canary_reject"),
+              ("v3 torn", "none"), ("v4 published", "swap"),
+              ("rollback()", "rollback"))
+    got = tuple((name, act) for name, act, _ in active)
+    if got != expect or rt.active_version != 1:
+        fail(f"phase 8 lifecycle: {got}, active v{rt.active_version}")
+    if 3 in [v for v, _ in discover_versions(root)]:
+        fail("phase 8 lifecycle: the torn v3 is visible")
+    if levels["v2 rejected"] > levels["v1"] or \
+            levels["rolled back"] > levels["v1"] or \
+            not levels["v4 swapped"] > levels["v1"]:
+        fail(f"phase 8 lifecycle: device memory did not fall back: {levels}")
+    if not np.array_equal(served, want):
+        fail("phase 8 lifecycle: v1 after rollback differs from "
+             "wlsh_krr_predict")
+    return active, (counts, shapes)
+
+
+def phase_serving(torch, data, model, seed):
+    """Phase 8: export phase 3's model, serve it through the Predictor's
+    graphs and the MicroBatcher, then the version lifecycle."""
+    import shutil
+    import tempfile
+    import repro_torch.core as T
+    from repro_torch import obs
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
+    from repro_torch.launch.krr_serve import _synthetic_stream, serve_stream
+    from repro_torch.serve import Predictor, bucket_sizes, export_artifact
+    say("== phase 8: KRR serving of phase 3's model (artifact, a CUDA graph "
+        "per padding bucket, micro-batcher, lifecycle)")
+    dev = data[0].device
+    xq = data[2]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < SERVE_DISK_GIB * 2**30:
+            fail(f"phase 8: {free / 2**30:.2f} GiB free under {tmp}, the "
+                 f"artifact needs {SERVE_DISK_GIB} GiB")
+        art = f"{tmp}/artifact"
+        t0 = time.perf_counter()
+        export_artifact(art, model, include_beta=False,
+                        golden_queries=SERVE["golden"])
+        t_export = time.perf_counter() - t0
+        size = dir_bytes(art)
+
+        pred = Predictor(device=dev, max_batch=SERVE["max_batch"],
+                         cache_entries=SERVE["cache_entries"])
+        obs.clear_span_samples("io.validate_artifact")
+        t0 = sync_clock(torch)
+        aid = pred.load(art)
+        t_load = sync_clock(torch) - t0
+        t_valid = sum(obs.span_samples_us("io.validate_artifact")) / 1e6
+        say(f"  export {t_export:.2f} s, {size} bytes on disk; load "
+            f"{t_load:.2f} s onto the card, of it {t_valid:.3f} s the "
+            f"host's scan of the tables for non-finite values")
+        meta = pred._hosted(aid).loaded.meta
+        golden = meta["golden"]
+
+        # the counted run: warmup, a request at every bucket's size and
+        # ragged and over-size ones, the golden block, the streams;
+        # comparisons after it
+        sizes = sorted(set(SERVE["ragged"]) |
+                       set(bucket_sizes(SERVE["max_batch"])))
+        rows = xq[:max(sizes)].cpu().numpy()
+        stream = _synthetic_stream(MAIN["d"], SERVE["stream"],
+                                   SERVE["dup_frac"], seed)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        n_graphs = pred.warmup()
+        t_warmup = time.perf_counter() - t0
+        if n_graphs != len(bucket_sizes(SERVE["max_batch"])):
+            fail(f"phase 8: warmup captured {n_graphs} graphs, not "
+                 f"{len(bucket_sizes(SERVE['max_batch']))}")
+        served = {b: pred.predict(rows[:b], use_cache=False)
+                  for b in sizes}
+        got_golden = pred.predict(np.asarray(golden["x"], np.float32),
+                                  use_cache=False)
+        stats = serve_stream(pred, stream, max_batch=SERVE["batch"],
+                             max_wait_us=SERVE["wait_us"])
+        # the same traffic paced at a rate the card keeps up with: the
+        # latency a request sees without a backlog
+        paced = _synthetic_stream(MAIN["d"], SERVE["paced"],
+                                  SERVE["dup_frac"], seed + 1)
+        pstats = serve_stream(pred, paced, max_batch=SERVE["batch"],
+                              max_wait_us=SERVE["wait_us"],
+                              target_qps=SERVE["paced_qps"])
+        counts, shapes = launch_counts(), launch_counts_by_shape()
+        graphs = pred.graph_stats()
+        if pred.compile_count() != n_graphs:
+            fail(f"phase 8: graphs {n_graphs} -> {pred.compile_count()} "
+                 f"after ragged and over-size requests")
+        missing = [k for k in SERVE_KERNELS if counts[k] <= 0 or not any(
+            k in g["launches"] and g["replays"] > 0 for g in graphs.values())]
+        if missing:
+            fail(f"phase 8: kernels not replayed from the graphs: {missing}")
+        replays = {b: g["replays"] for b, g in graphs.items()}
+        cache = pred.cache_stats()
+        say(f"  {n_graphs} graphs captured in {t_warmup:.2f} s (each "
+            f"records {graphs[1]['launches']} launches); still "
+            f"{pred.compile_count()} after requests of {sizes} rows; "
+            f"replays by bucket {replays}; launches (counted run: eager "
+            f"runs before each capture, then one a recorded launch a "
+            f"replay) { {k: v for k, v in counts.items() if v} }")
+        say(f"  stream: {stats['served']} single-row requests "
+            f"(dup_frac {SERVE['dup_frac']}, max_batch {SERVE['batch']}, "
+            f"max_wait_us {SERVE['wait_us']}): p50 {stats['p50_us']:.1f} "
+            f"us, p99 {stats['p99_us']:.1f} us, {stats['qps']:.0f} QPS, "
+            f"{stats['batches']} batches of mean {stats['mean_batch']:.2f} "
+            f"rows, cache hit rate {cache['hit_rate']:.3f} ({cache['hits']} "
+            f"hits, {cache['misses']} misses)")
+        say(f"  paced stream: {pstats['served']} requests offered at "
+            f"{SERVE['paced_qps']:.0f} QPS: p50 {pstats['p50_us']:.1f} us, "
+            f"p99 {pstats['p99_us']:.1f} us, {pstats['qps']:.0f} QPS, "
+            f"{pstats['batches']} batches of mean "
+            f"{pstats['mean_batch']:.2f} rows")
+
+        # comparisons, outside the counted run: bitwise against the
+        # library path (the same kernels, eager) and within 1e-5 of max|pred|
+        # of the plain path on the same rows
+        e_plain = 0.0
+        for b, out in served.items():
+            want = T.wlsh_krr_predict(model, rows[:b]).cpu().numpy()
+            if not np.array_equal(out, want):
+                fail(f"phase 8: a request of {b} rows differs from "
+                     f"wlsh_krr_predict by {np.abs(out - want).max()}")
+            e_plain = max(e_plain, check_plain(
+                f"a request of {b} rows", out,
+                plain_predict(torch, model, rows[:b])))
+        gerr = float(np.abs(got_golden - np.asarray(golden["y"])).max())
+        if not gerr <= golden["tol"]:
+            fail(f"phase 8: golden block off by {gerr} > {golden['tol']}")
+        want = T.wlsh_krr_predict(model, stream).cpu().numpy()
+        res = stats["results"]
+        if stats["served"] != SERVE["stream"] or not np.array_equal(res,
+                                                                    want):
+            fail(f"phase 8: stream served {stats['served']}; differs from "
+                 f"wlsh_krr_predict on {int((res != want).sum())} rows")
+        pwant = T.wlsh_krr_predict(model, paced).cpu().numpy()
+        if pstats["served"] != SERVE["paced"] or \
+                not np.array_equal(pstats["results"], pwant):
+            fail("phase 8: the paced stream differs from wlsh_krr_predict")
+        e_plain = max(e_plain, check_plain(
+            "the stream", res, plain_predict(torch, model, stream)),
+            check_plain("the paced stream", pstats["results"],
+                        plain_predict(torch, model, paced)))
+        first = {}
+        for i, r in enumerate(stream):
+            j = first.setdefault(r.tobytes(), i)
+            if res[i] != res[j]:
+                fail(f"phase 8: repeat of request {j} served differently")
+        say(f"  every answer bitwise equal to wlsh_krr_predict on its rows "
+            f"(requests of {sizes} rows and both streams; repeats equal "
+            f"their first answer) and within {e_plain:.3g} of the plain "
+            f"path (featurize_ref, readout_ref; limit 1e-5 of max|pred|); "
+            f"golden block within {gerr:.3g} (tol {golden['tol']})")
+
+        warm = serve_warm_times(torch, pred, model, rows)
+        say("  by bucket, us (host clock, mean of "
+            f"{SERVE['warm_reps']}): warm path (pinned copy in, replay, "
+            f"copy out, sync) / predict() / eager wlsh_krr_predict: " +
+            ", ".join(f"{b}: {t['warm_us']:.1f} / {t['predict_us']:.1f} / "
+                      f"{t['eager_us']:.1f}" for b, t in warm.items()))
+        life, life_counts = serve_lifecycle(torch, dev, f"{tmp}/versions",
+                                            seed)
+    return dict(predictor=pred, counts=(counts, shapes), graphs=graphs,
+                warm=warm, lifecycle=life, lifecycle_counts=life_counts)
+
+
+def serve_graph_times(torch, serving):
+    """Phase 5's part of phase 8: one replay of each bucket's graph, by
+    CUDA events over replays back to back and by the device time of its
+    kernels (torch.profiler), and that busy time's share of the warm
+    path's wall (phase 8, host clock)."""
+    pred = serving["predictor"]
+    hosted = pred._hosted(None)
+    out = {}
+    for b, g in sorted(hosted.graphs.items()):
+        with hosted.lock:
+            ev = time_ms(torch, g.graph.replay, reps=100)
+            split = device_split(torch, g.graph.replay)
+        wall_ms = serving["warm"][b]["warm_us"] / 1e3
+        busy = sum(split.values()) if split else None
+        out[b] = dict(replay_ms=ev, busy_ms=busy, warm_ms=wall_ms)
+        say(f"  graph of bucket {b}: replay {ev * 1e3:.2f} us (events, "
+            f"back to back); device busy " + (
+                "not measured (no device events)" if busy is None else
+                f"{busy * 1e3:.2f} us a replay ("
+                + ", ".join(f"{kernel_name(k)} {v * 1e3:.2f}"
+                            for k, v in sorted(split.items()))
+                + f"), {busy / wall_ms:.1%} of the warm path's "
+                f"{wall_ms * 1e3:.1f} us"))
+    return out
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
-                lm_counts, seed):
+                lm_counts, serving, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
+                                             bin_readout_cuda,
                                              fused_matvec_ref)
     from repro_torch.kernels.binning.ops import (_beta_to_layout,
                                                  bin_fused_matvec_op)
@@ -1557,9 +1963,12 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     lsh_d, beta_d, dist_counts, dist_shapes = dist_state
     launches, tally = merged_tallies(
         [main_counts] + [(dist_counts[p], dist_shapes[p])
-                         for p in sorted(dist_counts)] + [lm_counts])
+                         for p in sorted(dist_counts)] + [lm_counts,
+                                                          serving["counts"]])
     say(f"  launches over the counted runs (phase 3, phase 6 (a), (b), (c), "
-        f"phase 7): {launches}")
+        f"phase 7, phase 8's predictor with its graphs' replays): "
+        f"{launches}; phase 8's lifecycle, counted apart: "
+        f"{ {k: v for k, v in serving['lifecycle_counts'][0].items() if v} }")
     rows = {}
 
     run = lambda: featurize_cuda(x, *lsh, f=T.RECT, table_size=ts)
@@ -1581,10 +1990,16 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         fb = featurize_cuda(src, *lsh, f=T.RECT, table_size=ts)
         b_b, _ = bound(nbytes(src, *lsh, *fb), 5.0 * m * key[0] * d)
         floor = b1_floor(torch, m, key[0], d)
-        entry = dict(ms=time_ms(torch, lambda: featurize_cuda(
-            src, *lsh, f=T.RECT, table_size=ts)), bound_ms=b_b)
+        run_b = lambda: featurize_cuda(src, *lsh, f=T.RECT, table_size=ts)
+        entry = dict(ms=time_ms(torch, run_b), bound_ms=b_b)
+        if key[0] <= SERVE["max_batch"]:
+            # a bucket of phase 8: events over launches back to back time
+            # the host's launch; the profiler gives the kernel's own time
+            entry["device_ms"] = device_ms(torch, run_b)
         feat_timed[key] = entry
-        say(f"  featurize at n={key[0]}: {entry['ms']:.4f} ms; byte bound "
+        say(f"  featurize at n={key[0]}: {entry['ms']:.4f} ms" + (
+            f" (device {entry['device_ms']:.4f} ms by torch.profiler)"
+            if entry.get("device_ms") is not None else "") + "; byte bound "
             f"{b_b:.4f} ms, instruction floor " + (
                 "not measured" if floor is None else
                 f"{floor[0]:.4f} ms ({floor[1]:.2f} per element)")
@@ -1648,6 +2063,13 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
             qf = featurize_cuda(xq[:kn], *lsh, f=T.RECT, table_size=ts)
             row, ro_timed[key] = readout_times(torch, qf[4], qf[5],
                                                model.tables, True)
+            if kn <= SERVE["max_batch"]:     # a bucket of phase 8
+                dev_ms = device_ms(torch, lambda: bin_readout_cuda(
+                    qf[4], qf[5], model.tables))
+                ro_timed[key]["device_ms"] = dev_ms
+                say(f"  readout at phase 8's bucket n={kn}: device "
+                    + ("not measured" if dev_ms is None else
+                       f"{dev_ms:.4f} ms") + " by torch.profiler")
             del qf
             if kn == MAIN["batch"]:
                 rows["bin_readout"] = row
@@ -1677,6 +2099,14 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
             torch, data[0].device, seed, tally["flash_decode"]),
         lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
     decode_long_times(torch, data[0].device, seed)
+    serve_graph_times(torch, serving)
+    for name in SERVE_KERNELS:
+        extra.setdefault(name, {})["graph_launches"] = sum(
+            g["launches"].get(name, 0) * g["replays"]
+            for g in serving["graphs"].values())
+    for name, k in serving["lifecycle_counts"][0].items():
+        if k and name in rows:
+            extra.setdefault(name, {})["lifecycle_launches"] = k
     entries = []
     for name, (ms, plain, (b_ms, b_by), lib) in rows.items():
         src, replaces = KERNELS[name]
@@ -1729,8 +2159,9 @@ def main(argv=None) -> int:
     dist_state = phase_distributed(torch, data, args.seed, main_pred)
     del main_pred
     lm_counts = phase_lm(torch, dev, args.seed)
+    serving = phase_serving(torch, data, model, args.seed)
     entries = phase_times(torch, data, model, counts, errs, dist_state,
-                          lm_counts, args.seed)
+                          lm_counts, serving, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,245 @@
+"""Checkpointing: atomic on-disk snapshots with asynchronous writes and
+latest-complete discovery, in the JAX package's on-disk format.
+
+Layout:  <dir>/step_<n>/arrays.npz + meta.json, written to step_<n>.tmp and
+atomically renamed: a crash mid-write never leaves a half checkpoint that
+``restore_checkpoint`` would pick up.  Arrays are stored on the host,
+unsharded.
+
+The npz keys are the JAX package's ``jax.tree_util.keystr`` paths, written
+here without JAX: a dict entry is ``['name']`` (keys in sorted order), a
+NamedTuple field ``.field`` and a list or tuple item ``[i]``, nested by
+concatenation; ``None`` holds no leaf.  So a checkpoint written by either
+package restores in the other.  Tensors are copied to the host; a Python
+number is stored as a 0-d array.
+
+Asynchronous mode copies the state to host memory on the calling thread
+and runs the file write on a worker thread.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from .. import obs
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+
+# Test-injection point (repro_torch.testing.faults.killed_checkpoint_writer):
+# when set, called with the tmp path after arrays.npz is written but before
+# the atomic rename; raising there leaves the tmp dir exactly as a killed
+# writer would: full payload, invisible to latest_step, swept later by
+# CheckpointManager._gc.
+_crash_mid_save = None
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _leaf(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _walk(tree: Any, path: str):
+    """(keystr path, leaf) pairs of ``tree`` in JAX's flattening order."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], f"{path}[{k!r}]")
+    elif _is_namedtuple(tree):
+        for name in tree._fields:
+            yield from _walk(getattr(tree, name), f"{path}.{name}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _flatten(tree: Any) -> dict[str, np.ndarray]:
+    """{keystr path: host array} of every leaf of ``tree``."""
+    return {key: _leaf(leaf) for key, leaf in _walk(tree, "")}
+
+
+def _unflatten(template: Any, arrays: dict[str, np.ndarray],
+               path: str = "") -> Any:
+    """``template``'s structure with each leaf replaced by ``arrays`` at its
+    keystr path; the shapes must match the template's leaves."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        return {k: _unflatten(template[k], arrays, f"{path}[{k!r}]")
+                for k in template}
+    if _is_namedtuple(template):
+        return type(template)(*(
+            _unflatten(getattr(template, name), arrays, f"{path}.{name}")
+            for name in template._fields))
+    if isinstance(template, (list, tuple)):
+        return type(template)(_unflatten(v, arrays, f"{path}[{i}]")
+                              for i, v in enumerate(template))
+    if path not in arrays:
+        raise KeyError(f"checkpoint missing array for {path}")
+    arr = arrays[path]
+    want = tuple(template.shape) if hasattr(template, "shape") else ()
+    if tuple(arr.shape) != want:
+        raise ValueError(f"{path}: checkpoint shape {arr.shape} != "
+                         f"expected {want}")
+    return arr
+
+
+def save_checkpoint(directory: str, step: int, state: Any,
+                    meta: dict | None = None) -> str:
+    """Blocking atomic save.  Returns the final checkpoint path."""
+    with obs.span("io.checkpoint_save", {"step": step},
+                  to_histogram=obs.histogram(
+                      "io_checkpoint_save_us",
+                      "blocking checkpoint save wall time")):
+        os.makedirs(directory, exist_ok=True)
+        final = os.path.join(directory, f"step_{step}")
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        flat = _flatten(state)
+        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+        if _crash_mid_save is not None:
+            _crash_mid_save(tmp)
+        with open(os.path.join(tmp, "meta.json"), "w") as fh:
+            json.dump({"step": step, **(meta or {})}, fh)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        obs.counter("io_checkpoint_saves_total",
+                    "checkpoints written to disk").inc()
+        obs.counter("io_checkpoint_bytes_total",
+                    "uncompressed array bytes written to checkpoints"
+                    ).inc(sum(v.nbytes for v in flat.values()))
+        return final
+
+
+def atomic_write_json(path: str, obj: dict) -> None:
+    """Write ``obj`` to ``path`` via a temp file and ``os.replace``: readers
+    see the previous complete document or the new one, never a torn
+    write."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(obj, fh)
+    os.replace(tmp, path)
+
+
+def latest_step(directory: str) -> int | None:
+    """Largest step with a COMPLETE checkpoint (tmp dirs are ignored)."""
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        m = _STEP_RE.match(name)
+        if m and os.path.exists(os.path.join(directory, name, "meta.json")):
+            steps.append(int(m.group(1)))
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(directory: str, template: Any, step: int | None = None):
+    """Returns (state, step, meta); the state's leaves are numpy arrays
+    (the caller moves them to its device)."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint under {directory}")
+    with obs.span("io.checkpoint_restore", {"step": step},
+                  to_histogram=obs.histogram(
+                      "io_checkpoint_restore_us",
+                      "checkpoint restore wall time")):
+        path = os.path.join(directory, f"step_{step}")
+        with np.load(os.path.join(path, "arrays.npz")) as npz:
+            arrays = {k: npz[k] for k in npz.files}
+        with open(os.path.join(path, "meta.json")) as fh:
+            meta = json.load(fh)
+        obs.counter("io_checkpoint_restores_total",
+                    "checkpoints restored from disk").inc()
+        return _unflatten(template, arrays), step, meta
+
+
+class CheckpointManager:
+    """Asynchronous checkpointing with bounded retention.
+
+    ``save`` copies the state to the host and hands the file write to a
+    worker thread; ``wait``/``flush`` joins the write in flight and
+    re-raises any exception it hit.  Keeps the newest ``keep`` checkpoints
+    and sweeps stale ``.tmp`` dirs left behind by a killed writer.
+    """
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def save(self, step: int, state: Any, meta: dict | None = None,
+             blocking: bool = False) -> None:
+        # device -> host now, the tree's structure kept
+        host_state = _unflatten(state, _flatten(state))
+        self.wait()
+
+        def _write():
+            try:
+                save_checkpoint(self.directory, step, host_state, meta)
+                self._gc()
+            except BaseException as e:      # surfaced by the next wait()
+                self._error = e
+
+        if blocking:
+            _write()
+            self.wait()                     # raise at once when blocking
+        else:
+            self._thread = threading.Thread(target=_write, daemon=True)
+            self._thread.start()
+
+    def wait(self) -> None:
+        """Join the write in flight; re-raise its exception, if any."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    flush = wait
+
+    # a .tmp dir this old cannot be a write in flight; younger ones are left
+    # alone in case another writer shares the directory
+    STALE_TMP_SECONDS = 600.0
+
+    def _gc(self) -> None:
+        if not os.path.isdir(self.directory):
+            return
+        now = time.time()
+        for name in os.listdir(self.directory):
+            if not (name.endswith(".tmp") and _STEP_RE.match(name[:-4])):
+                continue
+            path = os.path.join(self.directory, name)
+            try:
+                age = now - os.path.getmtime(path)
+            except OSError:
+                continue          # raced with its writer's rename
+            if age > self.STALE_TMP_SECONDS:
+                shutil.rmtree(path, ignore_errors=True)
+        steps = sorted(s for s in (
+            int(m.group(1)) for m in (_STEP_RE.match(n) for n in
+                                      os.listdir(self.directory)) if m))
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
+                          ignore_errors=True)

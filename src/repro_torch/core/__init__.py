@@ -2,7 +2,8 @@
 from .bucket_fns import BUCKET_FNS, RECT, SMOOTH, TENT, BucketFn, get_bucket_fn
 from .kernels import WLSHKernelSpec, laplace_kernel
 from .krr import (PCGResult, SolveState, WLSHKRRModel, exact_krr_fit,
-                  exact_krr_predict, model_operator, pcg_solve, wlsh_krr_fit,
+                  exact_krr_predict, load_solve_state, model_operator,
+                  pcg_solve, solve_state_template, wlsh_krr_fit,
                   wlsh_krr_predict)
 from .lsh import (Features, GammaPDF, LSHParams, featurize,
                   lsh_params_from_numpy, sample_lsh_params,

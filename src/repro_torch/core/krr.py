@@ -54,6 +54,38 @@ class SolveState(NamedTuple):
     col_iters: torch.Tensor  # (k,) int32
 
 
+def solve_state_template(b) -> SolveState:
+    """Zero-filled ``SolveState`` (numpy leaves) shaped for the RHS ``b``:
+    the restore template for ``checkpoint.restore_checkpoint``.  ``it`` is a
+    0-d int32 array, as the JAX package stores it."""
+    n = b.shape[0]
+    k = 1 if b.ndim == 1 else b.shape[1]
+    zk = np.zeros((k,), np.float32)
+    znk = np.zeros((n, k), np.float32)
+    return SolveState(x=znk, r=znk.copy(), p=znk.copy(), rs=zk,
+                      rho=zk.copy(), active=np.zeros((k,), bool),
+                      it=np.zeros((), np.int32),
+                      col_iters=np.zeros((k,), np.int32))
+
+
+def _stored_solve_state(state: SolveState) -> SolveState:
+    """``state`` in the stored form: ``it`` as a 0-d int32 array."""
+    return state._replace(it=np.asarray(state.it, np.int32))
+
+
+def load_solve_state(directory: str, b: torch.Tensor) -> SolveState | None:
+    """Latest persisted ``SolveState`` under ``directory`` (written by either
+    package), on ``b``'s device; None when the directory holds no complete
+    checkpoint (a fresh solve)."""
+    from ..checkpoint.store import latest_step, restore_checkpoint
+    if latest_step(directory) is None:
+        return None
+    state, _, _ = restore_checkpoint(directory, solve_state_template(b))
+    tensors = {name: torch.from_numpy(np.array(getattr(state, name))).to(
+        b.device) for name in SolveState._fields if name != "it"}
+    return SolveState(it=int(state.it), **tensors)
+
+
 def pcg_solve(matvec: MatVec, b: torch.Tensor, lam: float, *,
               precond: Preconditioner | None = None, tol: float = 1e-6,
               atol: float = 1e-12, maxiter: int = 200,
@@ -186,7 +218,9 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
                  maxiter: int = 400, precond: str = "none",
                  precond_rank: int = DEFAULT_NYSTROM_RANK,
                  nonfinite_targets: str = "raise", device=None,
-                 fused: bool = True, solve_checkpoint_every: int = 0,
+                 fused: bool = True,
+                 solve_checkpoint_dir: str | None = None,
+                 solve_checkpoint_every: int = 0,
                  on_solve_checkpoint=None) -> WLSHKRRModel:
     """Fit WLSH-KRR with the m instances of ``lsh`` on ``device`` (None:
     the card, raising without one).  ``y`` is (n,) or an (n, k) block.
@@ -202,7 +236,12 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
     residual under a preconditioner restarts once with the identity; still
     non-finite iterates raise ``SolveDivergedError``.
     ``on_solve_checkpoint(state)`` is called every
-    ``solve_checkpoint_every`` iterations (state kept in memory)."""
+    ``solve_checkpoint_every`` iterations.  ``solve_checkpoint_dir``
+    persists the state there at that interval (default maxiter // 10)
+    through ``checkpoint/store.py``, in the JAX package's format, and
+    resumes from the newest complete state in it: a preempted fit restarted
+    with the same arguments continues where it left off, whichever package
+    wrote the state."""
     if nonfinite_targets not in ("raise", "deactivate"):
         raise ValueError(f"nonfinite_targets must be 'raise' or "
                          f"'deactivate', got {nonfinite_targets!r}")
@@ -232,9 +271,25 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
     mv = lambda v: op.matvec(tidx, v)
     pre = make_preconditioner(precond, matvec=mv, diag=table_diag(tidx.coeff),
                               lam=lam, rank=precond_rank)
-    on_ck = on_solve_checkpoint if solve_checkpoint_every > 0 else None
+    state = None
+    every = int(solve_checkpoint_every)
+    on_ck = on_solve_checkpoint if every > 0 else None
+    if solve_checkpoint_dir:
+        from ..checkpoint.store import CheckpointManager
+        if every <= 0:
+            every = max(1, maxiter // 10)
+        mgr = CheckpointManager(solve_checkpoint_dir, keep=2)
+        state = load_solve_state(solve_checkpoint_dir, y)
+
+        def on_ck(st):
+            # persist first, then call the hook: a preemption the hook
+            # injects leaves this chunk's state on disk
+            mgr.save(int(st.it), _stored_solve_state(st), blocking=True)
+            if on_solve_checkpoint is not None:
+                on_solve_checkpoint(st)
+
     res = pcg_solve(mv, y, lam, precond=pre, tol=tol, atol=atol,
-                    maxiter=maxiter, checkpoint_every=solve_checkpoint_every,
+                    maxiter=maxiter, state=state, checkpoint_every=every,
                     on_checkpoint=on_ck)
     fallback = ""
     if precond not in ("none", None) and \

@@ -1,7 +1,8 @@
 """Structured errors of the WLSH-KRR port.
 
-The solver raises these where the JAX package raises its own, so callers can
-catch a bad input apart from a diverged solve instead of matching messages.
+The solver and the serving stack raise these where the JAX package raises
+its own, so callers can catch a bad input apart from a diverged solve, or a
+shed request apart from a crashed worker, instead of matching messages.
 """
 from __future__ import annotations
 
@@ -39,6 +40,54 @@ class WireOverflowError(ReproError, RuntimeError):
         super().__init__(message)
         self.dropped = int(dropped)
 
+
+# -- serving -----------------------------------------------------------------
+
+class ServingError(ReproError):
+    """Base class for request-path failures."""
+
+
+class Overloaded(ServingError):
+    """Request shed by queue-depth load shedding: a structured result the
+    client can back off on, never a hang."""
+
+    def __init__(self, message: str = "request shed: queue full", *,
+                 queue_depth: int = 0):
+        super().__init__(message)
+        self.queue_depth = int(queue_depth)
+
+
+class CircuitOpen(Overloaded):
+    """Fast rejection while a circuit breaker is open.  Subclasses
+    ``Overloaded`` so shed-handling backoff treats it alike;
+    ``retry_after_s`` hints when the half-open probe window starts."""
+
+    def __init__(self, message: str = "circuit open", *,
+                 retry_after_s: float = 0.0):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+
+
+class DeadlineExceeded(ServingError):
+    """The request's deadline budget elapsed before its batch ran."""
+
+    def __init__(self, message: str = "deadline exceeded", *,
+                 waited_s: float = 0.0):
+        super().__init__(message)
+        self.waited_s = float(waited_s)
+
+
+class WorkerCrashed(ServingError):
+    """The batcher worker thread died; every in-flight future fails with
+    this and later submits fail fast instead of hanging."""
+
+
+class InvalidRequest(ServingError, ValueError):
+    """Malformed request rejected before it reaches the model (non-finite
+    query row, wrong dimensionality)."""
+
+
+# -- test harness --------------------------------------------------------------
 
 class FaultInjected(ReproError):
     """Raised by ``repro_torch.testing.faults`` when an armed fault fires —

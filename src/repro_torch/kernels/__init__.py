@@ -4,9 +4,14 @@
 ``launch_counts_by_shape`` the same counts split by the shape of the
 kernel's inputs, and ``reset_launch_counts`` sets them all to 0, so a run
 can show that its main path went through the kernels, and at which shapes.
+A launch into a CUDA graph is counted when the graph is replayed, not when
+it is captured: ``captured_launches`` records it at capture,
+``credit_launches`` counts the record at each replay and ``record_tally``
+names it.
 """
 from __future__ import annotations
 
+from ._build import captured_launches, credit_launches
 from .binning.kernel import (bin_fused_matvec_cuda, bin_gather_blocked_cuda,
                              bin_gather_cuda, bin_readout_cuda,
                              bin_scatter_blocked_cuda, bin_scatter_cuda,
@@ -40,3 +45,16 @@ def launch_counts_by_shape() -> dict[str, dict[tuple, int]]:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches, fn.launches_by_shape = 0, {}
+
+
+def record_tally(record) -> tuple[dict[str, int], dict[str, dict[tuple, int]]]:
+    """A ``captured_launches`` record as ({kernel: launches},
+    {kernel: {input shape: launches}})."""
+    names = {fn: name for name, fn in KERNEL_WRAPPERS.items()}
+    counts, shapes = {}, {}
+    for fn, shape in record:
+        name = names.get(fn, fn.__name__)
+        counts[name] = counts.get(name, 0) + 1
+        per = shapes.setdefault(name, {})
+        per[shape] = per.get(shape, 0) + 1
+    return counts, shapes

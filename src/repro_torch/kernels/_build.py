@@ -13,6 +13,7 @@ path: a missing compiler, a failed build or a refused launch raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()      # counters bumped from serving threads
+_capturing = threading.local()      # the open record of captured_launches
 
 
 def _nvcc() -> str:
@@ -103,9 +106,44 @@ def check(rc: int, what: str, error_string) -> None:
 def count_launch(fn, shape: tuple) -> None:
     """Count one launch of the kernel behind wrapper ``fn``: in
     ``fn.launches`` and, under the shape of its inputs, in
-    ``fn.launches_by_shape``."""
-    fn.launches += 1
-    fn.launches_by_shape[shape] = fn.launches_by_shape.get(shape, 0) + 1
+    ``fn.launches_by_shape``.
+
+    A launch made while the current stream captures a CUDA graph runs
+    nothing yet: it goes to the record of ``captured_launches`` instead,
+    and whoever replays the graph credits that record at each replay
+    (``credit_launches``).  A capture with no record open raises, since
+    its replays would go uncounted."""
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        record = getattr(_capturing, "record", None)
+        if record is None:
+            raise RuntimeError(
+                f"{fn.__name__} launched into a CUDA graph outside "
+                f"captured_launches(): its replays would go uncounted")
+        record.append((fn, shape))
+        return
+    credit_launches(((fn, shape),))
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Open a record of the launches this thread makes into a CUDA graph
+    it captures; yields the list of (wrapper, input shape) it fills."""
+    record, outer = [], getattr(_capturing, "record", None)
+    _capturing.record = record
+    try:
+        yield record
+    finally:
+        _capturing.record = outer
+
+
+def credit_launches(record) -> None:
+    """Count each (wrapper, input shape) of ``record`` as one launch."""
+    with _count_lock:
+        for fn, shape in record:
+            fn.launches += 1
+            fn.launches_by_shape[shape] = \
+                fn.launches_by_shape.get(shape, 0) + 1
 
 
 def dtype_name(dtype) -> str:

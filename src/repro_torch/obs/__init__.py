@@ -9,8 +9,9 @@ profiler).  Instrumented call sites do::
             "dist_krr_step_us")):
         ...
 
-and a process writes everything out with ``obs.REGISTRY.write_jsonl``.
-The live HTTP endpoint waits for the serving slice.
+and a process writes everything out with ``obs.REGISTRY.write_jsonl``
+(headless snapshot) or exposes it with ``obs.serve_metrics(port)`` (live
+Prometheus text and ``/healthz``, http.py).
 """
 from .registry import (
     COUNT_BUCKETS,
@@ -22,6 +23,13 @@ from .registry import (
     gauge,
     histogram,
     set_enabled,
+)
+from .http import (
+    MetricsServer,
+    add_health_provider,
+    health_document,
+    remove_health_provider,
+    serve_metrics,
 )
 from .tracing import (
     annotation,
@@ -41,14 +49,19 @@ __all__ = [
     "COUNT_BUCKETS",
     "LATENCY_BUCKETS_US",
     "MetricsRegistry",
+    "MetricsServer",
     "REGISTRY",
+    "add_health_provider",
     "annotation",
     "clear_span_samples",
     "counter",
     "current_span",
     "enabled",
     "gauge",
+    "health_document",
     "histogram",
+    "remove_health_provider",
+    "serve_metrics",
     "set_annotations",
     "set_enabled",
     "set_tracing",

@@ -643,3 +643,115 @@ def test_flash_decode_bf16_tensor_core_path(cuda, t):
             torch.cuda.synchronize()
             assert float((got - want).abs().max()) <= 1e-4 * float(
                 want.abs().max())
+
+
+def _served_model(cuda, tmp_path, norm=None):
+    """A small fit on the card, exported and loaded into a Predictor on the
+    card (max_batch 64); returns (predictor, model, query rows)."""
+    from repro_torch.serve import Predictor, export_artifact
+    rng = np.random.default_rng(11)
+    n, d, m = 4096, 16, 32
+    x = rng.uniform(0.0, 2.0, (n, d)).astype(np.float32)
+    y = rng.standard_normal(n).astype(np.float32)
+    lsh = T.sample_lsh_params(rng, m, d, T.GammaPDF(2.0, 1.0), device=cuda)
+    model = T.wlsh_krr_fit(lsh, x, y, T.WLSHKernelSpec(bucket=T.RECT),
+                           lam=0.5, maxiter=20, device=cuda)
+    export_artifact(str(tmp_path / "art"), model, norm=norm)
+    pred = Predictor(device=cuda, max_batch=64)
+    pred.load(str(tmp_path / "art"))
+    xq = rng.uniform(0.0, 2.0, (300, d)).astype(np.float32)
+    return pred, model, xq
+
+
+def test_predictor_captures_one_graph_per_bucket(cuda, tmp_path):
+    """warmup captures the seven buckets of max_batch 64, each recording
+    one B1 and one readout call, which the capture does not count; ragged
+    and over-size requests capture nothing more and replay the graphs, and
+    each replay counts its recorded launches."""
+    pred, _, xq = _served_model(cuda, tmp_path)
+    reset_launch_counts()
+    assert pred.warmup() == 7
+    # the eager run before each capture launches for real; the capture not
+    assert launch_counts()["featurize"] == 7
+    stats = pred.graph_stats()
+    assert sorted(stats) == [1, 2, 4, 8, 16, 32, 64]
+    for b, g in stats.items():
+        assert g["launches"] == {"featurize": 1, "bin_readout": 1}
+        assert g["launches_by_shape"]["featurize"] == {(b, 16, 32): 1}
+    reset_launch_counts()
+    for b in (1, 3, 17, 33, 64, 65, 300):
+        pred.predict(xq[:b])
+    assert pred.compile_count() == 7
+    # one replay a request up to 64 rows; 65 rows in 64 + 1, 300 in
+    # 4 x 64 + 44
+    assert sum(g["replays"] for g in pred.graph_stats().values()) == 12
+    counts = launch_counts()
+    assert counts["featurize"] == counts["bin_readout"] == 12
+    assert sum(counts.values()) == 24
+
+
+def test_graph_replay_bitwise_equals_eager_path(cuda, tmp_path):
+    """Every bucket's replay gives the bits of ``wlsh_krr_predict`` on the
+    same rows (rows are independent: padding changes none), with and
+    without normalization (eager normalize -> predict -> denormalize)."""
+    from repro_torch.serve import Normalization
+    d = 16
+    norm = Normalization(x_mean=np.full((d,), 0.25, np.float32),
+                         x_std=np.full((d,), 1.5, np.float32),
+                         y_mean=0.5, y_std=2.0)
+    for nm in (None, norm):
+        pred, model, xq = _served_model(cuda, tmp_path / str(nm is None),
+                                        norm=nm)
+        for b in (1, 2, 5, 8, 13, 32, 64, 200):
+            got = pred.predict(xq[:b], use_cache=False)
+            xin = xq[:b] if nm is None else (xq[:b] - np.float32(0.25)) \
+                / np.float32(1.5)
+            want = T.wlsh_krr_predict(model, xin).cpu().numpy()
+            if nm is not None:
+                want = want * np.float32(2.0) + np.float32(0.5)
+            np.testing.assert_array_equal(got, want)
+
+
+def test_concurrent_predicts_from_four_threads(cuda, tmp_path):
+    """Four threads predict ragged batches against one model at once: the
+    per-model lock keeps each graph's buffers to one request at a time, so
+    every answer is the bits of the serial answer."""
+    import threading
+    pred, _, xq = _served_model(cuda, tmp_path)
+    pred.warmup()
+    sizes = (1, 3, 7, 16, 40, 64)
+    want = {b: pred.predict(xq[:b], use_cache=False) for b in sizes}
+    errors = []
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(50):
+            b = int(rng.choice(sizes))
+            if not np.array_equal(pred.predict(xq[:b], use_cache=False),
+                                  want[b]):
+                errors.append(b)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert pred.compile_count() == 7
+
+
+def test_unloaded_model_releases_its_graphs(cuda, tmp_path):
+    """After unload, the model's graphs, static buffers and tables are
+    released: device memory in use falls back below its hosted level."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    pred, model, xq = _served_model(cuda, tmp_path)
+    del model
+    pred.warmup()
+    pred.predict(xq[:5])
+    hosted = torch.cuda.memory_allocated()
+    assert pred.unload("art")
+    torch.cuda.synchronize()
+    released = torch.cuda.memory_allocated()
+    assert released < hosted and released <= base + (1 << 20)
