@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
-predict and the distributed step, LM serving, and KRR serving.
+predict and the distributed step, LM serving, KRR serving, and the paper's
+Tables 1 and 2.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -109,6 +110,38 @@ non-zero:
    run of its own (counts reset before, read after; B1, B2, B3 and the
    readout must launch), listed as ``lifecycle_launches`` in the
    ``kernels`` line apart from ``launches``, whose shapes phase 5 times.
+9. The paper's tables at their own sizes, through the port on the card.
+   (a) Table 1 (``benchmarks/table1_gp.py`` at scale 1): n_train 3000,
+   n_test 1000, d 5 and 30, noise 0.05, lam 0.05; GP data from
+   ``core.gp.gp_regression_dataset`` under the sqexp, laplace and
+   matern52 covariances (lengthscale max(1, sqrt(d / 6)); an eigh of
+   4000 x 4000); exact KRR with each covariance and ``wlsh_krr_fit(mode=
+   "exact")`` at m 450 (smooth, Gamma(7, 1) at d 5; rect, Gamma(2, 1) at
+   d 30), its lengthscale picked on a validation split over four values.
+   Every row is printed and must pass the JAX script's own test; B1, the
+   point scatter B5 and the readout must launch (counts reset before,
+   read after).  Then, outside the counts, ``build_exact_index`` on one
+   d = 5 instance set bitwise against the CPU and ``exact_matvec`` within
+   1e-5 of max|out|.  (b) Table 2 (``benchmarks/table2_krr.py``'s grid at
+   scale 1: wine 4000 x 11, insurance 5822 x 85, ct_slices 35000 x 384,
+   forest 500000 x 54, with its m and D_rff): exact Laplace KRR where its
+   peak memory fits the card's free memory (wine, insurance, ct_slices;
+   the skip and its reason printed otherwise), RFF, and table-mode WLSH
+   (rect, median-heuristic lengthscales from a numpy subsample); RMSE and
+   fit seconds; every RMSE must be finite and WLSH's below the mean
+   predictor's; B1, B2, B3 and the readout must launch (a counted run of
+   its own).  Over (a) and (b), each kernel launch is held against its
+   plain version on the same inputs the first time the kernel meets a
+   shape (``HeldToPlain``: B1 at phase 2's limits, keys, slot and sign
+   bitwise, weight and coeff to 2e-6; B2, B3, B5 and the readout to 1e-5
+   of max|out| plus 8 sqrt(n) units of float32 rounding of each output's
+   sum of n absolute terms, since Table 1's sums cancel).  The launches of (a) and (b) are added to the
+   ``kernels`` line's ``launches`` and listed apart as
+   ``tables_launches``; phase 5 times each kernel at its largest shape
+   there (``tables_ms``).  (c) The exact estimator at phase 3's points
+   (n = 2^22, d = 64, m = 64): ``build_exact_index`` and one
+   ``exact_matvec`` timed by CUDA events; phase 5 prints them beside the
+   table matvec and B2 on the same points.
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -128,13 +161,14 @@ non-zero:
    against the same kernel with its splits capped at a cluster's.  Each
    wrapper also counts its launches by input shape; a kernel's
    ``launches`` are summed over the counted runs (phase 3, phase 6 (a),
-   (b) and (c), phase 7, phase 8 with its graphs' replays), and B1, B3,
-   the readout, B7 and B9 are timed at every shape those runs launched
-   them at (for B1 and the readout also phase 8's eleven bucket shapes,
-   where the kernel's own time comes from torch.profiler as
-   ``device_ms``: events over launches back to back time the host there),
-   listed with those launches as ``by_shape`` (B9's device time from
-   torch.profiler).  Last, one replay of each of phase 8's graphs: by
+   (b) and (c), phase 7, phase 8 with its graphs' replays, phase 9 (a)
+   and (b)), and B1, B3, the readout, B7 and B9 are timed at every shape
+   the runs before phase 9 launched them at (for B1 and the readout also
+   phase 8's eleven bucket shapes, where the kernel's own time comes from
+   torch.profiler as ``device_ms``: events over launches back to back
+   time the host there), listed with those launches as ``by_shape`` (B9's
+   device time from torch.profiler); B1, B2, B3, B5 and the readout also
+   at phase 9's largest shape (``tables_ms``).  Last, one replay of each of phase 8's graphs: by
    CUDA events back to back, and its kernels' device time by
    torch.profiler over the warm path's wall (the device-busy share).
 
@@ -400,21 +434,28 @@ def phase_build(torch):
             f"({built.get(name, 0.0):.2f} s); ptxas: {' | '.join(regs)}")
 
 
-def check_featurize(torch, x, lsh, f, table_size):
-    from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
-    got = featurize_cuda(x, *lsh, f=f, table_size=table_size)
-    want = featurize_ref(x, *lsh, f=f, table_size=table_size)
+def compare_featurize(torch, got, want, what):
+    """B1's outputs against featurize_ref's: keys, slot and sign bitwise,
+    weight and coeff to atol 2e-6.  Returns the weight/coeff error."""
     torch.cuda.synchronize()
     for name, g, w in zip(("key1", "key2", "slot", "sign"),
                           (got[0], got[1], got[4], got[3]),
                           (want[0], want[1], want[4], want[3])):
         if not torch.equal(g, w):
-            fail(f"featurize {f.name} n={x.shape[0]}: {name} differs in "
+            fail(f"featurize {what}: {name} differs in "
                  f"{int((g != w).sum())} places")
     err = max(max_err(got[2], want[2]), max_err(got[5], want[5]))
     if err > 2e-6:
-        fail(f"featurize {f.name} n={x.shape[0]}: weight/coeff err {err}")
-    return got, err
+        fail(f"featurize {what}: weight/coeff err {err}")
+    return err
+
+
+def check_featurize(torch, x, lsh, f, table_size):
+    from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
+    got = featurize_cuda(x, *lsh, f=f, table_size=table_size)
+    want = featurize_ref(x, *lsh, f=f, table_size=table_size)
+    return got, compare_featurize(torch, got, want,
+                                  f"{f.name} n={x.shape[0]}")
 
 
 def check_binning(torch, lay, beta, k):
@@ -1946,8 +1987,516 @@ def serve_graph_times(torch, serving):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper's Tables 1 and 2 at their own sizes, and the exact
+# estimator at the main config
+# ---------------------------------------------------------------------------
+
+# Table 1 (benchmarks/table1_gp.py at scale 1): GP data on [0, 1]^d, exact
+# KRR with each covariance and exact-mode WLSH, its lengthscale picked on a
+# validation split from ells * ell_d
+TABLE1 = dict(n_train=3000, n_test=1000, dims=(5, 30), noise=0.05, lam=0.05,
+              m=450, ells=(0.125, 0.25, 0.5, 1.0))
+# Table 2 (benchmarks/table2_krr.py:26-31's grid at scale 1): dataset, m,
+# D_rff; lam as there
+TABLE2 = (("wine", 450, 1024), ("insurance", 250, 1024),
+          ("ct_slices", 64, 512), ("forest", 64, 256))
+TABLE2_LAM = 0.5
+# the memory exact KRR may take when phase 9 runs on the CPU (a rehearsal);
+# on the card it is the free device memory
+CPU_EXACT_BYTES = 4 << 30
+# the kernels of (a)'s exact-mode fits and predictions, each launched there
+# or the run fails: B1, the point scatter B5 (tables from an index without
+# a layout), the readout; (b)'s table-mode fits run the main path's four
+TABLE1_KERNELS = ("featurize", "bin_scatter", "bin_readout")
+# phase 9 allows a summing kernel, beyond 1e-5 of max|out|, ROUND_UNITS
+# sqrt(n) units of float32 rounding (2^-24) of an output's sum of absolute
+# terms, n the number of terms: two float32 sums of them in any orders,
+# each within lambda sqrt(n) u sum|x| (Higham and Mary's probabilistic
+# bound) at lambda = 4
+ROUND_UNITS = 8.0
+# phase 9's kernels: the wrapper each calls, by its name in its ops module
+HELD = {"featurize": ("repro_torch.kernels.featurize.ops", "featurize_cuda"),
+        **{name: ("repro_torch.kernels.binning.ops", f"{name}_cuda")
+           for name in ("bin_fused_matvec", "bin_scatter_blocked",
+                        "bin_scatter", "bin_readout")}}
+
+
+def plain_err(torch, name, a, got, what) -> dict:
+    """Kernel ``name``'s output ``got`` on the bound arguments ``a``
+    against its plain version on the same inputs.  B1 at phase 2's limits:
+    keys, slot and sign bitwise, weight and coeff to atol 2e-6.  The
+    kernels that sum (B2, B3, B5, the readout) to 1e-5 of max|out| plus,
+    for each output, ROUND_UNITS sqrt(n) units of float32 rounding of its
+    sum of absolute terms (the plain version on |inputs|; n, its number
+    of terms, from the plain version on ones): where the terms cancel,
+    two orders of the plain float32 sum differ by more than 1e-5 of
+    max|out| (PERF.md, PR 18).  Returns the error (``err``), its
+    largest share of the limit (``share``), the largest absolute sum over
+    max|out| (``cond``), for B5 how far the plain sum in reversed point
+    order lies from it (``spread``), and whether the comparison could see
+    a fault (``seen``: an output of zeros, as a solve's first residual
+    from x0 = 0 gives, cannot)."""
+    from repro_torch.kernels.binning import (fused_matvec_ref, readout_ref,
+                                             scatter_blocked_ref, scatter_ref)
+    from repro_torch.kernels.featurize import featurize_ref
+    if name == "featurize":
+        err = compare_featurize(torch, got, featurize_ref(**a), what)
+        return dict(err=err, share=err / 2e-6, seen=True)
+    if name == "bin_fused_matvec":
+        width = (a["blk_start"].shape[1] - 1) * a["block_t"]
+        plain = lambda f: fused_matvec_ref(a["slot_lay"], f(a["coeff_lay"]),
+                                           f(a["beta_lay"]), width=width)
+    elif name == "bin_scatter_blocked":
+        plain = lambda f: scatter_blocked_ref(
+            a["slot_lay"], f(a["contrib_lay"]), width=got.shape[-1])
+    elif name == "bin_scatter":
+        plain = lambda f: scatter_ref(a["slot"], f(a["contrib"]),
+                                      table_size=a["table_size"])
+    else:
+        plain = lambda f: readout_ref(a["slot"], f(a["coeff"]),
+                                      f(a["tables"]), a["average"])
+    want = plain(lambda t: t)
+    if not want.numel():
+        return dict(err=0.0, share=0.0, seen=False)
+    diff = (got.double() - want.double()).abs()
+    top = float(want.abs().max())
+    abs_sum = plain(torch.abs).double()
+    terms = (a["slot"].shape[0] if name == "bin_readout"
+             else plain(torch.ones_like).double())
+    lim = 1e-5 * top + ROUND_UNITS * 2.0 ** -24 * abs_sum * terms ** 0.5
+    share = float((diff / lim).nan_to_num(0.0).max())
+    if not share <= 1.0:
+        fail(f"{name} {what}: err {float(diff.max())} past its limit "
+             f"({share:.3g} of it at the worst output)")
+    out = dict(err=float(diff.max()), share=share,
+               seen=bool((lim > 0).any()),
+               cond=float(abs_sum.max()) / top if top else 0.0)
+    if name == "bin_scatter":
+        out["spread"] = max_err(scatter_ref(
+            a["slot"].flip(1), a["contrib"].flip(1),
+            table_size=a["table_size"]), want) / top if top else 0.0
+    return out
+
+
+class HeldToPlain:
+    """While open, the ops modules call phase 9's kernels through wrappers
+    that launch the kernel (counted as always) and, the first time it
+    meets a shape of inputs, hold its output against its plain version on
+    the same inputs (``plain_err``; the plain version launches nothing),
+    again at each call of that shape until an output is not all zeros.
+    Each kernel's inputs at its largest shape (by bytes) are kept, copied,
+    for phase 5 to time."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        # name: {shape: plain_err's result}
+        self.errs = {name: {} for name in HELD}
+        self.zeros = {name: set() for name in HELD}  # all-zero outputs
+        # name: (bytes, shape, arguments, output not all zeros)
+        self.largest = {}
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for name, (module, attr) in HELD.items():
+            mod = importlib.import_module(module)
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, self._held(name, getattr(mod, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+    def _held(self, name, fn):
+        import inspect
+        torch, sig = self.torch, inspect.signature(fn)
+
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            bound_args = sig.bind(*args, **kw)
+            bound_args.apply_defaults()
+            a = bound_args.arguments
+            shape = tuple(tuple(v.shape) if isinstance(v, torch.Tensor)
+                          else getattr(v, "name", v) for v in a.values())
+            if shape not in self.errs[name]:
+                res = plain_err(torch, name, a, out, f"at {shape}")
+                if res["seen"]:
+                    self.errs[name][shape] = res
+                else:
+                    self.zeros[name].add(shape)
+            size = nbytes(*(v for v in a.values()
+                            if isinstance(v, torch.Tensor)))
+            seen = shape in self.errs[name]
+            best = self.largest.get(name, (-1, None, None, False))
+            if size > best[0] or (size == best[0] and seen and not best[3]):
+                self.largest[name] = (size, shape, {
+                    k: v.clone() if isinstance(v, torch.Tensor) else v
+                    for k, v in a.items()}, seen)
+            return out
+        return run
+
+    def summary(self) -> str:
+        parts = []
+        for name, e in self.errs.items():
+            zero = self.zeros[name] - set(e)
+            if e or zero:
+                top = lambda k: max((v.get(k, 0.0) for v in e.values()),
+                                    default=0.0)
+                worst = max(e, key=lambda sh: e[sh]["share"], default=None)
+                parts.append(
+                    f"{name} at {len(e)} shape(s), max err "
+                    f"{top('err'):.3g}, {top('share'):.3g} of its limit"
+                    f" (at {worst})"
+                    + (f", absolute sums up to {top('cond'):.4g} x max|out|"
+                       if name != "featurize" else "")
+                    + (f", the plain sum in reversed order off by "
+                       f"{top('spread'):.3g} of max|out|"
+                       if name == "bin_scatter" else "") + (
+                        f" ({len(zero)} more with only all-zero outputs)"
+                        if zero else ""))
+        return "; ".join(parts)
+
+
+def rmse(torch, a, b) -> float:
+    return float(torch.sqrt(((a - b) ** 2).mean()))
+
+
+def table1_rows(torch, dev, seed, cfg=TABLE1):
+    """Table 1's rows: for each d and covariance, the test RMSE against the
+    noiseless GP of exact KRR with each covariance and of exact-mode
+    WLSH (smooth, Gamma(7, 1) at d <= 10; rect, Gamma(2, 1) above)."""
+    import repro_torch.core as T
+    from repro_torch.core.gp import gp_regression_dataset
+    covs = {"sqexp": T.gaussian_kernel, "laplace": T.laplace_kernel,
+            "matern52": T.matern52_kernel}
+    n_train, n_test, lam, m = (cfg["n_train"], cfg["n_test"], cfg["lam"],
+                               cfg["m"])
+    n_val = max(50, n_test // 4)
+    rows = []
+    for d in cfg["dims"]:
+        # distances on [0, 1]^d concentrate at ~sqrt(d / 6): every
+        # lengthscale scales with it, as in the JAX script
+        ell_d = max(1.0, (d / 6.0) ** 0.5)
+        bucket, pdf = ((T.SMOOTH, T.GammaPDF(7.0, 1.0)) if d <= 10
+                       else (T.RECT, T.GammaPDF(2.0, 1.0)))
+
+        def wlsh(ell, xa, ya):
+            lsh = T.sample_lsh_params(np.random.default_rng(seed + d + 1), m,
+                                      d, pdf, ell, device=dev)
+            spec = T.WLSHKernelSpec(bucket=bucket, pdf=pdf, lengthscale=ell)
+            return T.wlsh_krr_fit(lsh, xa, ya, spec, lam=lam, mode="exact",
+                                  device=dev)
+
+        for cov_name, cov0 in covs.items():
+            cov = lambda a, b, k=cov0: k(a, b, lengthscale=ell_d)
+            t0 = sync_clock(torch)
+            x, y, f = gp_regression_dataset(np.random.default_rng(seed + d),
+                                            cov, n=n_train + n_test, d=d,
+                                            noise=cfg["noise"], device=dev)
+            t1 = sync_clock(torch)
+            xtr, ytr, xte, fte = x[:n_train], y[:n_train], x[n_train:], \
+                f[n_train:]
+            row = dict(cov=cov_name, d=d, gp_s=t1 - t0)
+            for fit_name, fit0 in covs.items():
+                fit_k = lambda a, b, k=fit0: k(a, b, lengthscale=ell_d)
+                beta = T.exact_krr_fit(fit_k, xtr, ytr, lam)
+                row[fit_name] = rmse(torch, T.exact_krr_predict(
+                    fit_k, xtr, beta, xte), fte)
+            t2 = sync_clock(torch)
+            best = (float("inf"), None)
+            for s in cfg["ells"]:
+                mod = wlsh(s * ell_d, xtr[:-n_val], ytr[:-n_val])
+                vr = rmse(torch, T.wlsh_krr_predict(mod, xtr[-n_val:]),
+                          ytr[-n_val:])
+                if vr < best[0]:
+                    best = (vr, s * ell_d)
+            t3 = sync_clock(torch)
+            model = wlsh(best[1], xtr, ytr)
+            row["wlsh"] = rmse(torch, T.wlsh_krr_predict(model, xte), fte)
+            t4 = sync_clock(torch)
+            row.update(wlsh_ell=best[1], wlsh_iters=model.telemetry["iters"],
+                       exact_s=t2 - t1, select_s=t3 - t2, wlsh_s=t4 - t3)
+            rows.append(row)
+    return rows
+
+
+def table1_verdict(row) -> bool:
+    """The JAX script's own test (benchmarks/table1_gp.py:90-98): smooth
+    WLSH within 2x (+0.08) of the best classical kernel at d <= 10; rect
+    WLSH within 1.3x (+0.02) of its own exact kernel, Laplace, above."""
+    vals = [row[k] for k in ("laplace", "sqexp", "matern52", "wlsh")]
+    if not all(np.isfinite(vals)):
+        return False
+    if row["d"] <= 10:
+        return row["wlsh"] < 2.0 * min(vals[:3]) + 0.08
+    return row["wlsh"] < 1.3 * row["laplace"] + 0.02
+
+
+def median_dists(x: np.ndarray, seed: int, k: int = 256):
+    """Median L1 and L2 pairwise distance on a subsample of k rows drawn
+    with numpy (the median heuristic of benchmarks/table2_krr.py:38-57)."""
+    rng = np.random.default_rng(seed + 3)
+    xs = x[rng.choice(x.shape[0], min(k, x.shape[0]), replace=False)]
+    diff = xs[:, None, :] - xs[None, :, :]
+    return (float(np.median(np.abs(diff).sum(-1))),
+            float(np.median(np.sqrt((diff * diff).sum(-1)))))
+
+
+def exact_krr_bytes(n: int, n_test: int) -> int:
+    """The float32 bytes exact KRR holds at its peak: the n x n kernel,
+    its shifted copy and the solve's LU factor (or, predicting, the
+    n_test x n test kernel), and two row blocks of the pairwise
+    differences."""
+    from repro_torch.core.kernels import PAIRWISE_BLOCK_ELEMS
+    return 4 * (n * max(3 * n, n_test) + 2 * PAIRWISE_BLOCK_ELEMS)
+
+
+def table2_rows(torch, dev, seed, grid=TABLE2, scale=1.0):
+    """Table 2's rows: exact Laplace KRR where its peak memory fits the
+    device's free memory, RFF and table-mode WLSH (rect) on every dataset;
+    RMSE and fit seconds, and the RMSE of predicting the training mean."""
+    import repro_torch.core as T
+    from repro_torch.data import make_regression_dataset
+    rows = []
+    for name, m, d_rff in grid:
+        t0 = time.perf_counter()
+        xtr, ytr, xte, yte = make_regression_dataset(name, seed, scale=scale)
+        l1, l2 = median_dists(xtr, seed)
+        ell1, ell2 = l1 / 2.0, l2
+        n, d = xtr.shape
+        xtr, ytr, xte, yte = (torch.from_numpy(a).to(dev)
+                              for a in (xtr, ytr, xte, yte))
+        row = dict(dataset=name, n=n, d=d, n_test=xte.shape[0], m=m,
+                   d_rff=d_rff, data_s=time.perf_counter() - t0,
+                   mean_rmse=rmse(torch, ytr.mean(), yte))
+        need = exact_krr_bytes(n, xte.shape[0])
+        free = (torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda"
+                else CPU_EXACT_BYTES)
+        if need <= free:
+            kern = lambda a, b: T.laplace_kernel(a, b, ell1)
+            t0 = sync_clock(torch)
+            beta = T.exact_krr_fit(kern, xtr, ytr, TABLE2_LAM)
+            row["exact_s"] = sync_clock(torch) - t0
+            row["exact_rmse"] = rmse(torch, T.exact_krr_predict(
+                kern, xtr, beta, xte), yte)
+            del beta
+        else:
+            row["exact_skip"] = (
+                f"it needs about {need / 1e9:.3g} GB (the {n} x {n} "
+                f"kernel, its shifted copy and the solve's factor), "
+                f"{free / 1e9:.3g} GB are free on the {dev.type}")
+        t0 = sync_clock(torch)
+        rmod = T.rff_krr_fit(np.random.default_rng(seed + 1), xtr, ytr,
+                             n_features=d_rff, lam=TABLE2_LAM,
+                             lengthscale=ell2, device=dev)
+        row["rff_s"] = sync_clock(torch) - t0
+        row["rff_rmse"] = rmse(torch, T.rff_krr_predict(rmod, xte), yte)
+        t0 = sync_clock(torch)
+        lsh = T.sample_lsh_params(np.random.default_rng(seed + 2), m, d,
+                                  T.GammaPDF(2.0, 1.0), ell1, device=dev)
+        spec = T.WLSHKernelSpec(bucket=T.RECT, lengthscale=ell1)
+        wmod = T.wlsh_krr_fit(lsh, xtr, ytr, spec, lam=TABLE2_LAM,
+                              device=dev)
+        row["wlsh_s"] = sync_clock(torch) - t0
+        row["wlsh_rmse"] = rmse(torch, T.wlsh_krr_predict(wmod, xte), yte)
+        row["wlsh_iters"] = wmod.telemetry["iters"]
+        rows.append(row)
+        del wmod, rmod, xtr, ytr, xte, yte
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def exact_at_main(torch, data, model):
+    """(c): the exact estimator at phase 3's points (n = 2^22, d = 64,
+    m = 64): build_exact_index and one exact_matvec by CUDA events.  Phase
+    3 times the table index's layout and phase 5 the table matvec on the
+    same points."""
+    import repro_torch.core as T
+    x, beta = data[0], model.beta
+    feats = T.model_operator(model).featurize(x)
+    m, n = feats.key1.shape
+    t_index = time_ms(torch, lambda: T.build_exact_index(feats), reps=3)
+    eidx = T.build_exact_index(feats)
+    del feats
+    t_exact = time_ms(torch, lambda: T.exact_matvec(eidx, beta))
+    out = T.exact_matvec(eidx, beta)
+    if out.shape != (n,) or not bool(torch.isfinite(out).all()):
+        fail("phase 9 (c): exact matvec not finite or of the wrong shape")
+    buckets = (eidx.seg_id[:, -1].double() + 1).mean().item()
+    # the exact matvec must read perm, seg_id and weight (m n each) and
+    # beta, and write its output: its byte floor
+    floor, _ = bound(3 * 4 * m * n + 2 * 4 * n)
+    del eidx, out
+    if x.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(n=n, m=m, index_ms=t_index, exact_ms=t_exact,
+                exact_floor_ms=floor, buckets=buckets)
+
+
+def phase_tables(torch, data, model, seed, cfg=TABLE1, grid=TABLE2,
+                 scale=1.0):
+    """Phase 9: the paper's Tables 1 and 2 through the port on the card,
+    every kernel launch held to its plain version at each new shape, then
+    the exact estimator at the main config.  Returns the launches of (a)
+    and (b), the counted runs, summed; the ``HeldToPlain`` with the
+    largest shapes' inputs; and (c)'s times."""
+    import repro_torch.core as T
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    say("== phase 9: the paper's Table 1 (GP RMSE by kernel) and Table 2 "
+        "(exact vs RFF vs WLSH) at their own sizes")
+    dev = data[0].device
+    t_start = sync_clock(torch)
+    with HeldToPlain(torch) as held:
+        reset_launch_counts()
+        rows1 = table1_rows(torch, dev, seed, cfg)
+        counts_a = launch_counts()
+        t1 = sync_clock(torch)
+        c = cfg
+        say(f"  (a) Table 1: n_train {c['n_train']}, n_test {c['n_test']}, "
+            f"noise {c['noise']}, lam {c['lam']}, m {c['m']}; test RMSE "
+            f"against the noiseless GP; {t1 - t_start:.1f} s")
+        say("  cov,d,laplace,sqexp,matern52,wlsh,wlsh_ell,wlsh_iters,gp_s,"
+            "exact_s,select_s,wlsh_s,passes")
+        bad = []
+        for r in rows1:
+            ok = table1_verdict(r)
+            say(f"  {r['cov']},{r['d']},{r['laplace']:.4f},{r['sqexp']:.4f},"
+                f"{r['matern52']:.4f},{r['wlsh']:.4f},{r['wlsh_ell']:.4g},"
+                f"{r['wlsh_iters']},{r['gp_s']:.3f},{r['exact_s']:.3f},"
+                f"{r['select_s']:.3f},{r['wlsh_s']:.3f},{ok}")
+            if not ok:
+                bad.append((r["cov"], r["d"]))
+        say(f"  (a) launches {counts_a}")
+        missing = [k for k in TABLE1_KERNELS if counts_a[k] <= 0]
+        if missing:
+            fail(f"phase 9 (a): kernels not launched: {missing}")
+        if bad:
+            fail(f"phase 9 (a): Table 1 rows miss the script's test: {bad}")
+
+        # outside the counts: exact mode on the card against the CPU, on
+        # the features of one d = 5 instance set at Table 1's size
+        d = c["dims"][0]
+        rng = np.random.default_rng(seed)
+        lsh = T.sample_lsh_params(rng, c["m"], d, T.GammaPDF(7.0, 1.0),
+                                  device=dev)
+        x = torch.from_numpy(rng.random((c["n_train"], d),
+                                        dtype=np.float32))
+        feats = T.make_operator(lsh, T.SMOOTH, 1 << 14,
+                                device=dev).featurize(x.to(dev))
+        host = T.Features(*(t.cpu() for t in feats[:4]))
+        got, want = T.build_exact_index(feats), T.build_exact_index(host)
+        same = all(torch.equal(getattr(got, k).cpu(), getattr(want, k))
+                   for k in ("perm", "seg_id"))
+        beta = torch.from_numpy(rng.standard_normal(c["n_train"],
+                                                    dtype=np.float32))
+        ref = T.exact_matvec(want, beta)
+        err = max_err(T.exact_matvec(got, beta.to(dev)).cpu(), ref)
+        lim = 1e-5 * float(ref.abs().max())
+        say(f"  exact mode, card against CPU (n {c['n_train']}, d {d}, m "
+            f"{c['m']}, smooth): perm and seg_id bitwise {same}; matvec max "
+            f"err {err:.3g} (limit {lim:.3g}, 1e-5 of max|out|)")
+        if not same:
+            fail("phase 9: the card's exact index differs from the CPU's")
+        if err > lim:
+            fail(f"phase 9: exact matvec on the card differs by {err} > "
+                 f"{lim}")
+        del feats, got
+
+        t2 = sync_clock(torch)
+        reset_launch_counts()
+        rows2 = table2_rows(torch, dev, seed, grid, scale)
+        counts_b = launch_counts()
+    t3 = sync_clock(torch)
+    say(f"  (b) Table 2 at scale {scale} (lam {TABLE2_LAM}; RMSE on the "
+        f"test split, fit seconds; mean = predicting the training mean); "
+        f"{t3 - t2:.1f} s")
+    say("  dataset,n,d,m,D_rff,exact_rmse,exact_s,rff_rmse,rff_s,wlsh_rmse,"
+        "wlsh_s,wlsh_iters,mean_rmse,wlsh/mean,data_s")
+    bad = []
+    for r in rows2:
+        ex = (f"{r['exact_rmse']:.4f},{r['exact_s']:.3f}"
+              if "exact_rmse" in r else "-,-")
+        ratio = r["wlsh_rmse"] / r["mean_rmse"]
+        say(f"  {r['dataset']},{r['n']},{r['d']},{r['m']},{r['d_rff']},{ex},"
+            f"{r['rff_rmse']:.4f},{r['rff_s']:.3f},{r['wlsh_rmse']:.4f},"
+            f"{r['wlsh_s']:.3f},{r['wlsh_iters']},{r['mean_rmse']:.4f},"
+            f"{ratio:.3f},{r['data_s']:.2f}")
+        if "exact_skip" in r:
+            say(f"    exact KRR skipped at {r['dataset']}: {r['exact_skip']}")
+        vals = [r["rff_rmse"], r["wlsh_rmse"], r.get("exact_rmse", 0.0)]
+        if not all(np.isfinite(vals)) or not ratio < 1.0:
+            bad.append(r["dataset"])
+    say(f"  (b) launches {counts_b}")
+    missing = [k for k in MAIN_KERNELS if counts_b[k] <= 0]
+    if missing:
+        fail(f"phase 9 (b): kernels not launched: {missing}")
+    if bad:
+        fail(f"phase 9 (b): non-finite RMSE, or WLSH not below the mean "
+             f"predictor: {bad}")
+    say(f"  (a) and (b) held to the plain versions at every shape "
+        f"launched: {held.summary()}")
+
+    ex = exact_at_main(torch, data, model)
+    say(f"  (c) exact estimator at phase 3's points (n {ex['n']}, d "
+        f"{data[0].shape[1]}, m {ex['m']}; {card_line()}): "
+        f"build_exact_index {ex['index_ms']:.3f} ms, exact_matvec "
+        f"{ex['exact_ms']:.3f} ms (byte floor {ex['exact_floor_ms']:.3f}); "
+        f"{ex['buckets']:.0f} buckets an instance; the table matvec beside "
+        f"it in phase 5")
+    say(f"  phase 9 {sync_clock(torch) - t_start:.1f} s")
+    counts = {k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in KERNELS}
+    return counts, held, ex
+
+
+def held_bound(name, a, out):
+    """The bound of one call of phase 9's kernel ``name`` on ``a``: the
+    bytes of its inputs and outputs (B3 over the tiles' ranges alone, the
+    readout one table read a point and instance) and its operations, as
+    phase 5 bounds the kernel at the main phase's shapes."""
+    if name == "featurize":
+        (n, d), m = a["x"].shape, a["w"].shape[0]
+        return bound(nbytes(a["x"], a["w"], a["z"], a["r1"], a["r2"], *out),
+                     5.0 * m * n * d)
+    if name == "bin_fused_matvec":
+        return bound(nbytes(a["blk_start"], a["slot_lay"], a["coeff_lay"],
+                            a["beta_lay"], out), 3.0 * out.numel())
+    if name == "bin_scatter_blocked":
+        c = a["contrib_lay"]
+        k = c.shape[1] if c.ndim == 3 else 1
+        used = int(a["blk_start"][:, -1].sum()) * a["block_n"]
+        return bound((4 + 4 * k) * used + nbytes(a["blk_start"], out),
+                     k * used)
+    if name == "bin_scatter":
+        return bound(nbytes(a["slot"], a["contrib"], out))
+    k = a["tables"].shape[2] if a["tables"].ndim == 3 else 1
+    pts = a["slot"].numel()
+    return bound(nbytes(a["slot"], a["coeff"], out) + 4 * k * pts,
+                 2.0 * k * pts)
+
+
+def held_times(torch, held):
+    """Phase 9's kernels at their largest shapes there (the inputs
+    ``HeldToPlain`` kept), by CUDA events: the ``tables_*`` keys of the
+    kernels line."""
+    from repro_torch.kernels import KERNEL_WRAPPERS
+    extra = {}
+    for name, (_, shape, a, _) in held.largest.items():
+        run = lambda: KERNEL_WRAPPERS[name](**a)
+        ms = time_ms(torch, run)
+        b_ms, b_by = held_bound(name, a, run())
+        extra[name] = dict(tables_shape=str(shape), tables_ms=ms,
+                           tables_bound_ms=b_ms, tables_bound_by=b_by)
+        say(f"  {name} at phase 9's largest shape {shape}: {ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)")
+    held.largest.clear()
+    return extra
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
-                lm_counts, serving, seed):
+                lm_counts, serving, tables, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                              bin_readout_cuda,
@@ -1957,6 +2506,8 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
     from repro_torch.core.wlsh import TableIndex, build_blocked_layout
     say("== phase 5: times at the counted runs' shapes")
+    # phase 9's launches, its HeldToPlain, (c)'s times; phase 3's layout s
+    tables_counts, held, ex, layout_s = tables
     x, _, xq = data
     lsh, ts = model.lsh, model.table_size
     n, d, m = x.shape[0], x.shape[1], lsh.m
@@ -2038,6 +2589,11 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     op_bound, _ = bound(nbytes(slot, coeff, model.beta, model.beta))
     say(f"  whole matvec op: {op_ms:.4f} ms against {op_bound:.4f} ms for "
         f"its point-order inputs (slot, coeff, beta) and output")
+    say(f"  the exact estimator at these points (phase 9 (c); "
+        f"{card_line()}): exact_matvec {ex['exact_ms']:.4f} ms beside the "
+        f"whole table matvec op {op_ms:.4f} ms and B2 {ms:.4f} ms; "
+        f"build_exact_index {ex['index_ms']:.4f} ms beside the table "
+        f"index's layout {1e3 * layout_s:.4f} ms (phase 3)")
     del idx
     b3_timed = {}
     row, b3 = b3_times(torch, lay, lay.coeff_lay * beta_lay,
@@ -2107,6 +2663,12 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     for name, k in serving["lifecycle_counts"][0].items():
         if k and name in rows:
             extra.setdefault(name, {})["lifecycle_launches"] = k
+    for name, k in tables_counts.items():
+        if k:
+            launches[name] += k
+            extra.setdefault(name, {})["tables_launches"] = k
+    for name, times in held_times(torch, held).items():
+        extra.setdefault(name, {}).update(times)
     entries = []
     for name, (ms, plain, (b_ms, b_by), lib) in rows.items():
         src, replaces = KERNELS[name]
@@ -2154,14 +2716,17 @@ def main(argv=None) -> int:
         f"from seed {args.seed} in {time.perf_counter() - t0:.2f} s")
     errs = phase_parity(torch, data[0], data[2], args.seed)
     errs["flash_decode"] = phase_parity_decode(torch, dev, args.seed)
-    model, counts, _, main_pred = phase_main(torch, data, args.seed)
+    model, counts, main_phases, main_pred = phase_main(torch, data,
+                                                       args.seed)
     phase_small(torch, dev, args.seed)
     dist_state = phase_distributed(torch, data, args.seed, main_pred)
     del main_pred
     lm_counts = phase_lm(torch, dev, args.seed)
     serving = phase_serving(torch, data, model, args.seed)
+    tables = phase_tables(torch, data, model, args.seed) + (
+        main_phases["layout"],)
     entries = phase_times(torch, data, model, counts, errs, dist_state,
-                          lm_counts, serving, args.seed)
+                          lm_counts, serving, tables, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@
   column and converged columns are deflated.  A column whose step goes
   non-finite is deactivated before the bad update lands (resnorm NaN).  The
   loop runs on the host: its ``any(active)`` test syncs once per iteration.
+* ``cg_solve`` — the unpreconditioned single-RHS entry point over
+  ``pcg_solve``, with its scalar ``CGResult``.
 * ``exact_krr_fit`` / ``exact_krr_predict`` — the dense baseline.
 * ``wlsh_krr_fit`` / ``wlsh_krr_predict`` — the paper's §4.2 algorithm:
-  solve (K~ + lam I) beta = y with PCG, predict via bucket loads.
+  solve (K~ + lam I) beta = y with PCG (on the CountSketch or the exact
+  estimator), predict via bucket loads.
 
 Everything runs through ``core.operator.WLSHOperator`` on one device.
 """
@@ -30,6 +33,12 @@ from .precond import (DEFAULT_NYSTROM_RANK, Preconditioner, identity_precond,
                       make_preconditioner, table_diag)
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
+
+
+class CGResult(NamedTuple):
+    x: torch.Tensor
+    iters: torch.Tensor
+    resnorm: torch.Tensor
 
 
 class PCGResult(NamedTuple):
@@ -89,13 +98,16 @@ def load_solve_state(directory: str, b: torch.Tensor) -> SolveState | None:
 def pcg_solve(matvec: MatVec, b: torch.Tensor, lam: float, *,
               precond: Preconditioner | None = None, tol: float = 1e-6,
               atol: float = 1e-12, maxiter: int = 200,
+              x0: torch.Tensor | None = None,
               state: SolveState | None = None, checkpoint_every: int = 0,
               on_checkpoint: Callable[[SolveState], None] | None = None,
               ) -> PCGResult:
     """Solve (A + lam I) X = B by preconditioned CG (see the JAX package's
     ``pcg_solve`` for the recurrences, which this follows line by line).
 
-    Column j converges when ||r_j|| <= max(tol ||b_j||, atol).  With
+    Column j converges when ||r_j|| <= max(tol ||b_j||, atol).  ``x0``
+    (shaped as ``b``) starts the iterates there instead of at 0; a given
+    ``state`` takes precedence over it.  With
     ``checkpoint_every > 0`` the loop runs in chunks of that many iterations
     and calls ``on_checkpoint(state)`` after each; pass a ``state`` to
     resume from it.  For a 1-D ``b`` the matvec only sees 1-D vectors."""
@@ -114,7 +126,10 @@ def pcg_solve(matvec: MatVec, b: torch.Tensor, lam: float, *,
     hist = torch.full((maxiter + 1, b2.shape[1]), float("nan"),
                       dtype=b2.dtype, device=b2.device)
     if state is None:
-        x = torch.zeros_like(b2)
+        if x0 is None:
+            x = torch.zeros_like(b2)
+        else:
+            x = (x0[:, None] if vec else x0).to(b2.dtype)
         r = b2 - amv(x)
         z = psolve(r)
         rs = (r * r).sum(0)
@@ -162,6 +177,20 @@ def pcg_solve(matvec: MatVec, b: torch.Tensor, lam: float, *,
     return PCGResult(x=state.x[:, 0] if vec else state.x, iters=state.it,
                      col_iters=state.col_iters, resnorm=torch.sqrt(state.rs),
                      resnorm_history=hist)
+
+
+def cg_solve(matvec: MatVec, b: torch.Tensor, lam: float, *,
+             tol: float = 1e-6, atol: float = 1e-12, maxiter: int = 200,
+             x0: torch.Tensor | None = None) -> CGResult:
+    """Unpreconditioned CG over ``pcg_solve``: for a 1-D ``b`` the
+    iteration count and resnorm are scalars."""
+    res = pcg_solve(matvec, b, lam, tol=tol, atol=atol, maxiter=maxiter,
+                    x0=x0)
+    squeeze = b.ndim == 1
+    return CGResult(x=res.x,
+                    iters=res.col_iters[0] if squeeze
+                    else torch.tensor(res.iters),
+                    resnorm=res.resnorm[0] if squeeze else res.resnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +243,9 @@ def _sync(device: torch.device) -> float:
 
 
 def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
-                 table_size: int = 0, tol: float = 1e-5, atol: float = 1e-12,
-                 maxiter: int = 400, precond: str = "none",
+                 mode: str = "table", table_size: int = 0,
+                 tol: float = 1e-5, atol: float = 1e-12, maxiter: int = 400,
+                 precond: str = "none",
                  precond_rank: int = DEFAULT_NYSTROM_RANK,
                  nonfinite_targets: str = "raise", device=None,
                  fused: bool = True,
@@ -225,10 +255,16 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
     """Fit WLSH-KRR with the m instances of ``lsh`` on ``device`` (None:
     the card, raising without one).  ``y`` is (n,) or an (n, k) block.
 
-    ``fused`` runs every PCG matvec as one pass over the slot-blocked
-    layout; ``fused=False`` builds no layout and runs the split
-    scatter -> gather matvec (B5 then B4) for A/B runs.  The fitted model
-    agrees either way to float rounding.
+    ``mode`` picks the estimator PCG solves with: 'table' (CountSketch) or
+    'exact' (the sorted-bucket estimator of Def. 6, Jacobi diagonal
+    mean_s weight^2).  The prediction tables are CountSketch either way; in
+    exact mode they come from the point scatter (B5), as no layout is
+    built.
+
+    ``fused`` runs every table-mode PCG matvec as one pass over the
+    slot-blocked layout; ``fused=False`` builds no layout and runs the
+    split scatter -> gather matvec (B5 then B4) for A/B runs.  The fitted
+    model agrees either way to float rounding.
 
     ``precond`` is 'none' | 'jacobi' | 'nystrom'.  ``nonfinite_targets``:
     'raise' rejects NaN/Inf in x or y with ``NonFiniteError``; 'deactivate'
@@ -245,6 +281,8 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
     if nonfinite_targets not in ("raise", "deactivate"):
         raise ValueError(f"nonfinite_targets must be 'raise' or "
                          f"'deactivate', got {nonfinite_targets!r}")
+    if mode not in ("table", "exact"):
+        raise ValueError(f"unknown mode {mode!r}")
     dev = resolve_device(device)
     x = as_tensor(x, dev)
     y = as_tensor(y, dev)
@@ -265,12 +303,18 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
     t0 = _sync(dev)
     feats = op.featurize(x)
     t1 = _sync(dev)
-    tidx = op.build_index(feats, blocked=fused)
+    tidx = op.build_index(feats, blocked=fused and mode == "table")
+    if mode == "exact":
+        eidx = op.build_index(feats, mode="exact")
+        mv = lambda v: op.matvec(eidx, v)
+        diag = (eidx.weight * eidx.weight).mean(0)
+    else:
+        mv = lambda v: op.matvec(tidx, v)
+        diag = table_diag(tidx.coeff)
     del feats
     t2 = _sync(dev)
-    mv = lambda v: op.matvec(tidx, v)
-    pre = make_preconditioner(precond, matvec=mv, diag=table_diag(tidx.coeff),
-                              lam=lam, rank=precond_rank)
+    pre = make_preconditioner(precond, matvec=mv, diag=diag, lam=lam,
+                              rank=precond_rank)
     state = None
     every = int(solve_checkpoint_every)
     on_ck = on_solve_checkpoint if every > 0 else None

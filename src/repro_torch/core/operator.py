@@ -2,12 +2,15 @@
 
     featurize       points -> Features             (hash + weight + sign)
     build_index     Features -> TableIndex         (with the slot-blocked
-                                                    layout for fits)
+                                                    layout for fits), or
+                                ExactIndex         (mode='exact')
     loads           index, beta -> (m, B) tables   (CountSketch scatter)
     readout         index, tables -> per point     (CountSketch gather)
     matvec          index, beta -> K~ beta         (fused one-pass off the
                                                     layout, or loads then
-                                                    readout when split)
+                                                    readout when split; the
+                                                    sorted segment sum of
+                                                    an ExactIndex)
     featurize_buckets / predict_from_buckets / predict_batched (prediction)
 
 There is no backend switch: the operator's tensors live on one device, and
@@ -26,7 +29,8 @@ from ..backend import as_tensor, resolve_device
 from .bucket_fns import BucketFn
 from .lsh import Features, LSHParams
 from .wlsh import (BLOCKED_N, BLOCKED_SPLIT_N, BLOCKED_SPLIT_T, BLOCKED_T,
-                   TableIndex, build_blocked_layout, build_table_index)
+                   ExactIndex, TableIndex, build_blocked_layout,
+                   build_exact_index, build_table_index, exact_matvec)
 
 
 def default_table_size(n: int, *, min_pow: int = 8) -> int:
@@ -54,15 +58,19 @@ class WLSHOperator(NamedTuple):
 
     def build_index(self, feats: Features, mode: str = "table", *,
                     blocked: bool | None = None,
-                    parts: str = "kernel") -> TableIndex:
-        """CountSketch index; ``blocked`` (None: the operator's ``fused``)
-        attaches the slot-blocked layout (one sort per instance) that the
-        fused matvec, the table build and the layout readout read, at the
-        split geometry when the operator is not fused.  ``parts`` picks the
+                    parts: str = "kernel") -> TableIndex | ExactIndex:
+        """CountSketch index (mode 'table'), or the exact sorted-bucket
+        index (mode 'exact'; ``blocked`` and ``parts`` unused).
+        ``blocked`` (None: the operator's ``fused``) attaches the
+        slot-blocked layout (one sort per instance) that the fused matvec,
+        the table build and the layout readout read, at the split geometry
+        when the operator is not fused.  ``parts`` picks the
         layout's array groups (the hash join also needs 'reference').
         Prediction passes ``blocked=False``: it only gathers."""
+        if mode == "exact":
+            return build_exact_index(feats)
         if mode != "table":
-            raise NotImplementedError(f"mode {mode!r}: only 'table' is ported")
+            raise ValueError(f"unknown mode {mode!r}")
         idx = build_table_index(feats, self.table_size)
         if self.fused if blocked is None else blocked:
             bn = BLOCKED_N if self.fused else BLOCKED_SPLIT_N
@@ -85,12 +93,18 @@ class WLSHOperator(NamedTuple):
         from ..kernels.binning import bin_readout_op
         return bin_readout_op(index, tables, average=average)
 
-    def matvec(self, index: TableIndex, beta: torch.Tensor, *,
+    def matvec(self, index: TableIndex | ExactIndex, beta: torch.Tensor, *,
                average: bool = True) -> torch.Tensor:
         """K~ beta in O(n m) for beta (n,) or an (n, k) block: one pass over
         the slot-blocked layout when the operator is fused and the index
-        has the layout's kernel group, else loads then readout."""
+        has the layout's kernel group, else loads then readout.  An
+        ``ExactIndex`` runs the exact estimator (``average`` only)."""
         from ..kernels.binning import bin_fused_matvec_op, table_matvec_op
+        if isinstance(index, ExactIndex):
+            if not average:
+                raise ValueError("exact-mode matvec only supports "
+                                 "average=True")
+            return exact_matvec(index, beta)
         lay = index.blocked
         if self.fused and lay is not None and lay.blk_start is not None:
             return bin_fused_matvec_op(index, beta, average=average)

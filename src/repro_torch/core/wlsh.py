@@ -1,23 +1,31 @@
-"""WLSH estimator (paper Def. 6), table (CountSketch) mode.
+"""WLSH estimator (paper Def. 6): its two matvec data structures.
 
-Scatters signed loads into a dense table of size B per instance; collisions
-are sign-randomized, so the estimator stays unbiased and the implied kernel
-matrix stays PSD.  ``matvec`` computes (1/m) sum_s K~^s beta in O(n m).
+* **exact** -- equal buckets grouped by a stable sort of the two 32-bit
+  keys, bucket loads by a segment sum: the paper's estimator verbatim (up
+  to 2^-64 hash collisions), the validation path.  ``perm`` and ``seg_id``
+  are the JAX package's bit for bit, ties in point order.
+* **table** (CountSketch) -- signed loads scattered into a dense table of
+  size B per instance; collisions are sign-randomized, so the estimator
+  stays unbiased and the implied kernel matrix stays PSD.
+
+Both compute (1/m) sum_s K~^s beta in O(n m).
 
 The slot-blocked layout is built exactly as the JAX package builds it
 (bitwise: a stable sort, the same searchsorted sides), with one addition the
 CUDA kernels read instead of the visit lists: ``blk_start``, the first
 layout block of every table tile.  ``build_route_schedule`` is the JAX
 package's hash-join visit schedule, also bitwise (and, like it, built with
-no sort).  Exact mode waits for a later slice.
+no sort).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
-from .lsh import Features, slots_from_features
+from .bucket_fns import BucketFn
+from .lsh import Features, LSHParams, slots_from_features
 
 # Default fused-kernel geometry: layout block and table tile (as in the JAX
 # package, so the layouts compare bitwise).
@@ -380,3 +388,120 @@ def table_matvec_fused(index: TableIndex, beta: torch.Tensor, *,
     vals = loads[(lay.seg_pt.long() + off).reshape(-1)].reshape((m, n) + tail)
     outs = _rowwise(index.coeff, vals)
     return outs.mean(0) if average else outs.sum(0)
+
+
+def table_matvec(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
+    """The split table matvec, loads then readout (plain version)."""
+    return table_readout(index, table_loads(index, beta))
+
+
+def table_kernel_matrix(index: TableIndex) -> torch.Tensor:
+    """Explicit CountSketch kernel matrix (tests only): PSD by
+    construction."""
+    eq = index.slot[:, :, None] == index.slot[:, None, :]
+    cc = index.coeff[:, :, None] * index.coeff[:, None, :]
+    return (eq * cc).mean(0)
+
+
+# ---------------------------------------------------------------------------
+# exact mode: sort + segment sum
+# ---------------------------------------------------------------------------
+
+class ExactIndex(NamedTuple):
+    """Per-instance sorted bucket structure for a fixed point set."""
+
+    perm: torch.Tensor    # (m, n) int32 sort order by (key1, key2)
+    seg_id: torch.Tensor  # (m, n) int32 bucket id of sorted position
+    weight: torch.Tensor  # (m, n) float32 WLSH weights (point order)
+
+
+def _u32(key: torch.Tensor) -> torch.Tensor:
+    """uint32 key bits as int64 values in [0, 2^32)."""
+    return key.view(torch.int32).to(torch.int64) & 0xFFFF_FFFF
+
+
+def build_exact_index(feats: Features) -> ExactIndex:
+    """The JAX package's ``lexsort((key2, key1))`` per instance as one
+    stable sort of the int64 key (key1 - 2^31) * 2^32 + key2, which orders
+    as the pair of uint32 keys does (the bias keeps key1 >= 2^31 from
+    wrapping negative); equal keys keep their point order."""
+    key = (_u32(feats.key1) - 2 ** 31) * 2 ** 32 + _u32(feats.key2)
+    sk, order = torch.sort(key, dim=1, stable=True)
+    del key
+    i32 = torch.int32
+    new_seg = torch.cat([torch.zeros((sk.shape[0], 1), dtype=i32,
+                                     device=sk.device),
+                         (sk[:, 1:] != sk[:, :-1]).to(i32)], dim=1)
+    del sk
+    return ExactIndex(perm=order.to(i32),
+                      seg_id=torch.cumsum(new_seg, dim=1, dtype=i32),
+                      weight=feats.weight)
+
+
+def exact_matvec(index: ExactIndex, beta: torch.Tensor) -> torch.Tensor:
+    """(1/m) sum_s K~^s beta in O(m n) after the one-off sort; beta (n,) or
+    (n, k).  One segment sum for all m instances: instance s's segments
+    are offset by s * n.  Plain PyTorch (``index_add_``)."""
+    m, n = index.perm.shape
+    tail = tuple(beta.shape[1:])
+    idx = torch.int32 if m * n < 2 ** 31 else torch.int64
+    base = (torch.arange(m, dtype=idx, device=beta.device) * n)[:, None]
+    flat_perm = (index.perm.to(idx) + base).view(-1)
+    flat_seg = (index.seg_id.to(idx) + base).view(-1)
+    del base
+    w_sorted = index.weight.reshape(-1).index_select(0, flat_perm).view(m, n)
+    contrib = _rowwise(w_sorted, beta.index_select(
+        0, index.perm.view(-1)).view((m, n) + tail))
+    loads = torch.zeros((m * n,) + tail, dtype=contrib.dtype,
+                        device=beta.device)
+    loads.index_add_(0, flat_seg, contrib.view((m * n,) + tail))
+    del contrib
+    out_sorted = _rowwise(w_sorted, loads.index_select(0, flat_seg).view(
+        (m, n) + tail))
+    del loads, w_sorted
+    out = torch.empty_like(out_sorted).view((m * n,) + tail)
+    out.index_copy_(0, flat_perm.long(), out_sorted.view((m * n,) + tail))
+    return out.view((m, n) + tail).mean(0)
+
+
+def exact_kernel_matrix(feats: Features) -> torch.Tensor:
+    """Explicit K~ = (1/m) sum_s K~^s, O(m n^2): tests and small n only."""
+    k1, k2 = _u32(feats.key1), _u32(feats.key2)
+    eq = (k1[:, :, None] == k1[:, None, :]) & \
+        (k2[:, :, None] == k2[:, None, :])
+    ww = feats.weight[:, :, None] * feats.weight[:, None, :]
+    return (eq * ww).mean(0)
+
+
+# ---------------------------------------------------------------------------
+# estimator facade
+# ---------------------------------------------------------------------------
+
+class WLSHEstimator(NamedTuple):
+    """m independent WLSH instances bound to a bucket fn."""
+
+    params: LSHParams
+    bucket_name: str
+    mode: str            # 'exact' | 'table'
+    table_size: int
+
+    def featurize(self, f: BucketFn, x) -> Features:
+        from ..kernels.featurize import featurize_op
+        return featurize_op(self.params, f, x)
+
+
+def make_matvec(feats: Features, mode: str = "exact", table_size: int = 0):
+    """(matvec_fn, index): the matvec closes over the prebuilt index (the
+    paper's O(dn) preprocessing / O(n) matvec split).  Table mode runs the
+    split matvec on the binning kernels (B5, then the readout) on the
+    card."""
+    if mode == "exact":
+        idx = build_exact_index(feats)
+        return functools.partial(exact_matvec, idx), idx
+    if mode == "table":
+        if table_size <= 0:
+            raise ValueError("table mode needs table_size > 0")
+        from ..kernels.binning import table_matvec_op
+        idx = build_table_index(feats, table_size)
+        return functools.partial(table_matvec_op, idx), idx
+    raise ValueError(f"unknown mode {mode!r}")

@@ -755,3 +755,48 @@ def test_unloaded_model_releases_its_graphs(cuda, tmp_path):
     torch.cuda.synchronize()
     released = torch.cuda.memory_allocated()
     assert released < hosted and released <= base + (1 << 20)
+
+
+@pytest.mark.parametrize("n,d,m", [(5000, 5, 16), (1 << 16, 64, 8)])
+def test_exact_index_and_matvec_on_card_match_cpu(cuda, n, d, m):
+    """Exact mode on the card: the index from B1's features bitwise the
+    CPU's (the keys made equal ties common), the matvec within 1e-5 of
+    max|out| at k = 1 and 4 (index_add_ adds in another order)."""
+    rng = np.random.default_rng(n + d)
+    p = _params(rng, m, d, cuda)
+    x = torch.from_numpy(rng.random((n, d), dtype=np.float32)).to(cuda)
+    feats = T.Features(*featurize_cuda(x, *p, f=T.RECT,
+                                       table_size=1 << 12)[:4])
+    cpu = T.Features(*(t.cpu() for t in feats[:4]))
+    got, want = T.build_exact_index(feats), T.build_exact_index(cpu)
+    assert torch.equal(got.perm.cpu(), want.perm)
+    assert torch.equal(got.seg_id.cpu(), want.seg_id)
+    for k in (None, 4):
+        beta = torch.from_numpy(rng.standard_normal(
+            (n,) if k is None else (n, k), dtype=np.float32))
+        out = T.exact_matvec(got, beta.to(cuda)).cpu()
+        ref = T.exact_matvec(want, beta)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def test_exact_mode_fit_on_card_matches_cpu(cuda):
+    """wlsh_krr_fit(mode='exact') on the card (B1, B5, the readout) against
+    the same fit on the CPU, both solved to tol 1e-7: predictions within
+    1e-4 of max|pred|."""
+    x, y, xq, _ = make_regression(3000, 500, 5, rough=0.3, seed=3)
+    rng = np.random.default_rng(3)
+    lsh = T.sample_lsh_params(rng, 64, 5, T.GammaPDF(7.0, 1.0), 1.5)
+    spec = T.WLSHKernelSpec(bucket=T.SMOOTH, pdf=T.GammaPDF(7.0, 1.0))
+    reset_launch_counts()
+    card = T.wlsh_krr_fit(lsh.to(cuda), x, y, spec, lam=0.5, mode="exact",
+                          tol=1e-7, precond="jacobi", device=cuda)
+    pc = T.wlsh_krr_predict(card, xq).cpu()
+    counts = launch_counts()
+    assert counts["featurize"] >= 2 and counts["bin_scatter"] == 1
+    assert counts["bin_readout"] == 1
+    host = T.wlsh_krr_fit(lsh, x, y, spec, lam=0.5, mode="exact",
+                          tol=1e-7, precond="jacobi", device="cpu")
+    ph = T.wlsh_krr_predict(host, xq)
+    torch.testing.assert_close(pc, ph, rtol=0,
+                               atol=1e-4 * float(ph.abs().max()))

@@ -82,8 +82,10 @@ def test_operator_refuses_unported_paths():
                               device="cpu")
     op = T.make_operator(lsh, T.RECT, 256, device="cpu")
     feats = op.featurize(np.random.default_rng(2).random((50, 2)))
-    with pytest.raises(NotImplementedError):
-        op.build_index(feats, mode="exact")
+    # exact mode is ported; a mode neither package has raises
+    assert isinstance(op.build_index(feats, mode="exact"), T.ExactIndex)
+    with pytest.raises(ValueError):
+        op.build_index(feats, mode="sketch")
     idx = op.build_index(feats, blocked=False)
     beta = torch.ones(50)
     full = op.build_index(feats)
