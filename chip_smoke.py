@@ -15,12 +15,14 @@ non-zero:
 2. Per-kernel parity at full width (d = m = 64), at n = 2^16 and at the main
    phase's n = 2^22, each kernel against its plain PyTorch version on the
    same inputs: featurize keys, slot and sign bitwise, weight and coeff to
-   atol 2e-6; matvec and blocked scatter to 1e-5 of the output's max (both
-   sum in another order than index_add_; the scatter also bitwise across
-   two launches), at k = 1 and, where the plain version fits, k = 4;
-   gather (B4's contract form) bitwise; the readout (B4 with its combine:
-   mean and sum) to 1e-5 of max|out|, bitwise at one instance a launch
-   and all in one; B1 and the readout the same way on the queries at each
+   atol 2e-6; matvec (B2, in its contract form and as the run totals the
+   matvec op reads, beta in point order) and blocked scatter to 1e-5 of
+   the output's max (both sum in another order than index_add_), each
+   also bitwise across two launches, at k = 1 and, where the plain
+   version fits, k = 4; gather (B4's contract form) bitwise; the readout
+   (B4 with its combine: mean and sum) to 1e-5 of max|out|, bitwise at
+   one instance a launch and all in one, on the queries, on the run
+   totals read through inv_pos (B = L, the matvec op's shape) and at each
    of phase 8's padding buckets (n = 1 ... 1024).  Then the distributed step's kernels on a
    layout at the split geometry (block_n = 64): the blocked scatter again,
    the point scatter B5 to 1e-5 of max|out| (global atomics), the layout
@@ -29,7 +31,13 @@ non-zero:
    over four routings built on the one card (one owner; one owner with
    cap_factor 0.1, which drops buckets; 2 and 4 owners), and again with
    4096 points of every instance on one slot (1 and 2 owners); at
-   n = 2^22 one rank's routing and k = 1.  B1 also on its edge operands
+   n = 2^22 one rank's routing and k = 1.  B2 at n = 2^16 on the trap
+   layout of ``repro_torch.testing.matvec_model`` (an instance with every
+   point on one slot, one with two slots splitting n, runs of a chunk's
+   length and one less and one more, a run ending on a chunk's last
+   position, zero coefficients), k = 1 and 4, both forms: bitwise the
+   numpy model of its sum order, the same bits in two launches, and its
+   plain version within phase 9's limit.  B1 also on its edge operands
    (``repro_torch.testing.operands``: NaN, +-inf, |t| at 2^22, 2^23 and
    2^31, ties +- 1 ulp, widths past the fast path's range), all three
    bucket functions, and B1's fast-path quotient bitwise against IEEE
@@ -141,7 +149,11 @@ non-zero:
    there (``tables_ms``).  (c) The exact estimator at phase 3's points
    (n = 2^22, d = 64, m = 64): ``build_exact_index`` and one
    ``exact_matvec`` timed by CUDA events; phase 5 prints them beside the
-   table matvec and B2 on the same points.
+   table matvec and B2 on the same points.  Forest's slot-blocked index
+   is rebuilt after (b), outside the counts, and its skew printed
+   (distinct slots an instance and the points on its largest slot,
+   min/median/max over the instances); phase 5 times B2 and the matvec op
+   there.
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -155,7 +167,13 @@ non-zero:
    times coeff (its function in two calls).  The
    readout against its first design (B4's gather kernel, then the PyTorch
    combine; in turns), at one instance a launch and all in one, beside its
-   32-byte-sector floor.  B1 beside its SASS instruction floor, B9 at
+   32-byte-sector floor.  B2 as the matvec op runs it (the run totals)
+   at phase 3's layout and at forest's (phase 9), each in turns with its
+   first design (kept for that; beta laid out beforehand), beside beta
+   gathered through src alone; the whole matvec op there in turns with
+   the parent's op (beta laid out, B2's first design, the map back, the
+   mean), with its peak extra allocation.  B1 beside its SASS
+   instruction floor, B9 at
    phase 7's shapes over six turns, and B9 on one long cache (B 1, T
    32768, f32 and bf16) at its plan (splits combined by the last block)
    against the same kernel with its splits capped at a cluster's.  Each
@@ -459,40 +477,83 @@ def check_featurize(torch, x, lsh, f, table_size):
 
 
 def check_binning(torch, lay, beta, k):
-    """Fused matvec and blocked scatter on ``lay`` against their plain
-    versions, the scatter also bitwise across two launches; beta (n,) or
-    (n, k).  Returns (matvec err, scatter err, scatter's tables)."""
+    """Fused matvec (both output forms, beta in point order) and blocked
+    scatter on ``lay`` against their plain versions, each also bitwise
+    across two launches; beta (n,) or (n, k).  Returns (matvec err,
+    scatter err, scatter's tables, the matvec's run totals)."""
     from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                              bin_scatter_blocked_cuda,
                                              fused_matvec_ref,
+                                             fused_matvec_src_ref,
                                              scatter_blocked_ref)
     from repro_torch.kernels.binning.ops import _beta_to_layout
     width = lay.num_tiles * lay.block_t
     beta_lay = _beta_to_layout(lay, beta)
-    got = bin_fused_matvec_cuda(lay.blk_start, lay.slot_lay, lay.coeff_lay,
-                                beta_lay, block_n=lay.block_n,
-                                block_t=lay.block_t)
-    want = fused_matvec_ref(lay.slot_lay, lay.coeff_lay, beta_lay,
-                            width=width)
-    e_mv = max_err(got, want)
-    lim = 1e-5 * float(want.abs().max())
-    del got, want
-    if e_mv > lim:
-        fail(f"fused matvec k={k}: err {e_mv} > {lim}")
+    e_mv = 0.0
+    for totals in (False, True):
+        run = lambda: bin_fused_matvec_cuda(lay.slot_lay, lay.coeff_lay,
+                                            lay.src, beta, totals=totals)
+        got = run()
+        if not torch.equal(got.view(torch.int32), run().view(torch.int32)):
+            fail(f"fused matvec k={k} totals={totals}: two launches differ")
+        want = (fused_matvec_src_ref(lay.slot_lay, lay.coeff_lay, lay.src,
+                                     beta, totals=True) if totals else
+                fused_matvec_ref(lay.slot_lay, lay.coeff_lay, beta_lay,
+                                 width=width))
+        err = max_err(got, want)
+        lim = 1e-5 * float(want.abs().max())
+        del want
+        if err > lim:
+            fail(f"fused matvec k={k} totals={totals}: err {err} > {lim}")
+        e_mv = max(e_mv, err)
     coeff = lay.coeff_lay if beta.ndim == 1 else lay.coeff_lay[:, None, :]
     contrib = coeff * beta_lay
     run = lambda: bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay,
                                            contrib, block_n=lay.block_n,
                                            block_t=lay.block_t)
-    got = run()
-    if not torch.equal(got, run()):
+    tables = run()
+    if not torch.equal(tables, run()):
         fail(f"blocked scatter k={k}: two launches differ")
     want = scatter_blocked_ref(lay.slot_lay, contrib, width=width)
-    e_sc = max_err(got, want)
+    e_sc = max_err(tables, want)
     lim = 1e-5 * float(want.abs().max())
     if e_sc > lim:
         fail(f"blocked scatter k={k}: err {e_sc} > {lim}")
-    return e_mv, e_sc, got
+    return e_mv, e_sc, tables, got
+
+
+def check_matvec_model(torch, slot, coeff, table_size, k, what):
+    """B2 on the layout of (slot, coeff), both output forms, bit for bit
+    the numpy model of its sum order (repro_torch.testing.matvec_model),
+    the same bits in two launches, and its plain version within phase 9's
+    limit for kernels that sum (``plain_err``: one run holds all n points
+    here); float beta (n,) or (n, k).  Returns the largest share of that
+    limit."""
+    from repro_torch.core.wlsh import build_blocked_layout
+    from repro_torch.kernels.binning import bin_fused_matvec_cuda
+    from repro_torch.testing.matvec_model import fused_matvec_model
+    lay = build_blocked_layout(slot, coeff, table_size)
+    n = slot.shape[1]
+    beta = torch.randn((n,) if k == 1 else (n, k), device=slot.device)
+    host = [t.cpu() for t in (lay.slot_lay, lay.coeff_lay, lay.src)]
+    worst = 0.0
+    for totals in (False, True):
+        run = lambda: bin_fused_matvec_cuda(lay.slot_lay, lay.coeff_lay,
+                                            lay.src, beta, totals=totals)
+        got = run().view(torch.int32)
+        if not torch.equal(got, run().view(torch.int32)):
+            fail(f"fused matvec {what} k={k}: two launches differ")
+        model = fused_matvec_model(*host, beta.cpu().numpy(), totals=totals)
+        off = int((got.cpu().numpy() != model.view(np.int32)).sum())
+        if off:
+            fail(f"fused matvec {what} k={k} totals={totals}: not bitwise "
+                 f"the model in {off} places")
+        res = plain_err(torch, "bin_fused_matvec", dict(
+            slot_lay=lay.slot_lay, coeff_lay=lay.coeff_lay, src=lay.src,
+            beta=beta, totals=totals), got.view(torch.float32),
+            f"{what} k={k} totals={totals}")
+        worst = max(worst, res["share"])
+    return worst
 
 
 def check_gather(torch, slot, tables):
@@ -716,9 +777,17 @@ def phase_parity(torch, x, xq, seed):
         del feats
         lay = build_blocked_layout(slot, coeff, table_size)
         beta = torch.randn(n, device=x.device)
-        e_mv, e_sc, tables = check_binning(torch, lay, beta, 1)
-        say(f"  n={n} k=1 fused matvec err {e_mv:.3g}, blocked scatter "
-            f"err {e_sc:.3g} (limit 1e-5 of max|out|)")
+        e_mv, e_sc, tables, totals = check_binning(torch, lay, beta, 1)
+        say(f"  n={n} k=1 fused matvec err {e_mv:.3g} (contract form and "
+            f"run totals), blocked scatter err {e_sc:.3g} (limit 1e-5 of "
+            f"max|out|), each bitwise across two launches")
+        # the readout as the fused matvec op runs it: the run totals read
+        # through inv_pos (B = L)
+        e_rl = check_readout(torch, lay.inv_pos, coeff, totals)
+        del totals
+        say(f"  n={n} readout of the run totals over inv_pos (B = L = "
+            f"{lay.slot_lay.shape[1]}): err {e_rl:.3g} (mean and sum), "
+            f"bitwise at 1 and {MAIN['m']} instances a launch")
         qf = featurize_cuda(xq[:MAIN["batch"]], *lsh, f=T.RECT,
                             table_size=table_size)
         q_slot, q_coeff = qf[4], qf[5]
@@ -739,11 +808,11 @@ def phase_parity(torch, x, xq, seed):
         if n == MAIN["n"]:
             errs.update(featurize=max(e_f, e_fb), bin_fused_matvec=e_mv,
                         bin_scatter_blocked=e_sc,
-                        bin_readout=max(e_ro, e_rb))
+                        bin_readout=max(e_ro, e_rb, e_rl))
         del t1
         if n != MAIN["n"]:
             beta4 = torch.randn(n, 4, device=x.device)
-            e_mv, e_sc, tables4 = check_binning(torch, lay, beta4, 4)
+            e_mv, e_sc, tables4, _ = check_binning(torch, lay, beta4, 4)
             say(f"  n={n} k=4 fused matvec err {e_mv:.3g}, blocked "
                 f"scatter err {e_sc:.3g}")
             t4 = tables4[..., :table_size].transpose(1, 2).contiguous()
@@ -765,7 +834,7 @@ def phase_parity(torch, x, xq, seed):
                 for r in routes))
         for k in ((1,) if full else (1, 4)):
             b = beta if k == 1 else torch.randn(n, k, device=x.device)
-            e_mv, e_sc, _ = check_binning(torch, lay, b, k)
+            e_mv, e_sc, _, _ = check_binning(torch, lay, b, k)
             e5 = check_dist_kernels(torch, slot, coeff, lay, routes, b,
                                     table_size)
             say(f"  n={n} k={k} split geometry (block_n={lay.block_n}): "
@@ -791,6 +860,25 @@ def phase_parity(torch, x, xq, seed):
                     f"slot: point scatter err {e5:.3g}; route pack (1 and "
                     f"2 owners, f32 and bf16 out) and unpack bitwise")
             del lay, routes, heavy
+            # B2 on the trap layout: one slot holding every point, two
+            # slots splitting n, runs of a chunk's length and one less and
+            # one more, a run ending on a chunk's last position, zero
+            # coefficients; then the random instances
+            from repro_torch.testing.matvec_model import (TRAPS,
+                                                          trap_layout)
+            t_slot, t_coeff = trap_layout(np.random.default_rng(seed + 5),
+                                          m=MAIN["m"], n=n,
+                                          table_size=table_size,
+                                          device=x.device)
+            for k in (1, 4):
+                e2 = check_matvec_model(torch, t_slot, t_coeff, table_size,
+                                        k, "trap layout")
+                say(f"  n={n} k={k} fused matvec on the trap layout "
+                    f"({', '.join(TRAPS)}, then random): both forms "
+                    f"bitwise the numpy model and across two launches; "
+                    f"{e2:.3g} of phase 9's limit against the plain "
+                    f"version")
+            del t_slot, t_coeff
         del slot, coeff
         torch.cuda.empty_cache()
     return errs
@@ -1619,6 +1707,77 @@ def b3_times(torch, lay, contrib, label):
     return (ms, plain, b, lib), dict(ms=ms, bound_ms=b[0])
 
 
+def matvec_times(torch, idx, beta, label):
+    """B2 as the matvec op runs it (the run totals of beta (n,) in point
+    order) on idx's layout, in turns with its first design on beta laid
+    out beforehand (new, first, first, new); its plain version and bound;
+    beta gathered through src alone (index_select, a yardstick of the
+    random reads); the whole op (B2, then the readout over inv_pos) in
+    turns with the parent's op (beta laid out, the first design, the map
+    back through inv_pos, the mean), and its peak extra allocation.
+    Returns the kernel table row, B2's run totals and the times."""
+    from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
+                                             bin_fused_matvec_op,
+                                             fused_matvec_src_ref)
+    from repro_torch.kernels.binning.ops import (_beta_to_layout,
+                                                 _layout_to_points)
+    from repro_torch.kernels.binning.variants import fused_matvec_v1_cuda
+    lay = idx.blocked
+    (m, L), n = lay.slot_lay.shape, beta.shape[0]
+    a = dict(slot_lay=lay.slot_lay, coeff_lay=lay.coeff_lay, src=lay.src,
+             beta=beta, totals=True)
+    run = lambda: bin_fused_matvec_cuda(**a)
+    out = run()
+    beta_lay = _beta_to_layout(lay, beta)
+    first = lambda: fused_matvec_v1_cuda(
+        lay.blk_start, lay.slot_lay, lay.coeff_lay, beta_lay,
+        block_n=lay.block_n, block_t=lay.block_t)
+    ts = [time_ms(torch, f) for f in (run, first, first, run)]
+    ms, v1 = (ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2
+    plain = time_ms(torch, lambda: fused_matvec_src_ref(**a), reps=1,
+                    warmup=False)
+    b = b2_bound(a, out)
+    padded = torch.cat([beta, beta.new_zeros(1)])
+    gather = time_ms(torch, lambda: padded.index_select(0, lay.src.view(-1)))
+    del padded
+
+    def parent_op():
+        vals = _layout_to_points(lay, fused_matvec_v1_cuda(
+            lay.blk_start, lay.slot_lay, lay.coeff_lay,
+            _beta_to_layout(lay, beta), block_n=lay.block_n,
+            block_t=lay.block_t))
+        return vals.mean(0)
+    op = lambda: bin_fused_matvec_op(idx, beta)
+    del beta_lay
+    ots = [time_ms(torch, f) for f in (op, parent_op, parent_op, op)]
+    op_ms, op_v1 = (ots[0] + ots[3]) / 2, (ots[1] + ots[2]) / 2
+    peaks = []
+    for f in (op, parent_op):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        f()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    op_b, _ = bound(nbytes(idx.slot, idx.coeff, beta, beta))
+    ro_b, _ = bound(nbytes(lay.inv_pos, idx.coeff, beta) + 4 * m * n)
+    say(f"  B2 {label} (m={m}, L={L}, n={n}; {card_line()}): {ms:.4f} ms "
+        f"(turns {ts[0]:.4f}, {ts[3]:.4f}); bound {b[0]:.4f} ms by {b[1]} "
+        f"({b[0] / ms:.1%} of it); first design {v1:.4f} ms ({ts[1]:.4f}, "
+        f"{ts[2]:.4f}; beta laid out beforehand); plain {plain:.4f} ms; "
+        f"beta gathered through src alone (index_select) {gather:.4f} ms")
+    say(f"  matvec op {label}: {op_ms:.4f} ms (turns {ots[0]:.4f}, "
+        f"{ots[3]:.4f}) against the parent's {op_v1:.4f} ms ({ots[1]:.4f}, "
+        f"{ots[2]:.4f}); bound {op_b:.4f} ms for its point-order inputs "
+        f"(slot, coeff, beta) and output, {b[0] + ro_b:.4f} ms for B2's and "
+        f"the readout's bytes; peak extra allocation {peaks[0] / 2**30:.3f} "
+        f"GiB against the parent's {peaks[1] / 2**30:.3f} GiB")
+    return (ms, plain, b, None), out, dict(
+        first_design_ms=v1, gather_ms=gather, op_ms=op_ms,
+        parent_op_ms=op_v1, op_bound_ms=op_b, op_peak_bytes=peaks[0],
+        parent_op_peak_bytes=peaks[1])
+
+
 def readout_times(torch, slot, coeff, tables, average):
     """The readout at (m, n, B, k = 1): its default grouping of the
     instances in turns against its first design (B4's gather kernel, then
@@ -2002,6 +2161,10 @@ TABLE1 = dict(n_train=3000, n_test=1000, dims=(5, 30), noise=0.05, lam=0.05,
 TABLE2 = (("wine", 450, 1024), ("insurance", 250, 1024),
           ("ct_slices", 64, 512), ("forest", 64, 256))
 TABLE2_LAM = 0.5
+# the Table 2 dataset whose layout phase 5 times B2 and the matvec op at:
+# forest's, where a few slots hold most of an instance's 500k points
+# (phase 9 prints the skew)
+KEEP_LAYOUT = "forest"
 # the memory exact KRR may take when phase 9 runs on the CPU (a rehearsal);
 # on the card it is the free device memory
 CPU_EXACT_BYTES = 4 << 30
@@ -2037,16 +2200,17 @@ def plain_err(torch, name, a, got, what) -> dict:
     order lies from it (``spread``), and whether the comparison could see
     a fault (``seen``: an output of zeros, as a solve's first residual
     from x0 = 0 gives, cannot)."""
-    from repro_torch.kernels.binning import (fused_matvec_ref, readout_ref,
+    from repro_torch.kernels.binning import (fused_matvec_src_ref,
+                                             readout_ref,
                                              scatter_blocked_ref, scatter_ref)
     from repro_torch.kernels.featurize import featurize_ref
     if name == "featurize":
         err = compare_featurize(torch, got, featurize_ref(**a), what)
         return dict(err=err, share=err / 2e-6, seen=True)
     if name == "bin_fused_matvec":
-        width = (a["blk_start"].shape[1] - 1) * a["block_t"]
-        plain = lambda f: fused_matvec_ref(a["slot_lay"], f(a["coeff_lay"]),
-                                           f(a["beta_lay"]), width=width)
+        plain = lambda f: fused_matvec_src_ref(
+            a["slot_lay"], f(a["coeff_lay"]), a["src"], f(a["beta"]),
+            totals=a["totals"])
     elif name == "bin_scatter_blocked":
         plain = lambda f: scatter_blocked_ref(
             a["slot_lay"], f(a["contrib_lay"]), width=got.shape[-1])
@@ -2302,11 +2466,36 @@ def table2_rows(torch, dev, seed, grid=TABLE2, scale=1.0):
         row["wlsh_s"] = sync_clock(torch) - t0
         row["wlsh_rmse"] = rmse(torch, T.wlsh_krr_predict(wmod, xte), yte)
         row["wlsh_iters"] = wmod.telemetry["iters"]
+        if name == KEEP_LAYOUT:
+            row["keep"] = (wmod, xtr)     # for phase 5: B2 at this layout
         rows.append(row)
         del wmod, rmod, xtr, ytr, xte, yte
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return rows
+
+
+def skew_stats(torch, slot) -> dict:
+    """Per instance of slot (m, n): its distinct slots and the points on
+    its most popular one; min, median and max of each over the
+    instances."""
+    distinct, largest = [], []
+    for row in slot:
+        _, counts = torch.unique(row, return_counts=True)
+        distinct.append(counts.numel())
+        largest.append(int(counts.max()))
+    return {name: (min(v), int(np.median(v)), max(v))
+            for name, v in (("distinct", distinct), ("largest", largest))}
+
+
+def kept_layout(keep):
+    """The slot-blocked index of a Table 2 fit's training points, built as
+    its fit built it (outside the counted runs), and its beta."""
+    import repro_torch.core as T
+    wmod, xtr = keep
+    op = T.model_operator(wmod)
+    idx = op.build_index(op.featurize(xtr), blocked=True)
+    return idx, wmod.beta
 
 
 def exact_at_main(torch, data, model):
@@ -2342,7 +2531,8 @@ def phase_tables(torch, data, model, seed, cfg=TABLE1, grid=TABLE2,
     every kernel launch held to its plain version at each new shape, then
     the exact estimator at the main config.  Returns the launches of (a)
     and (b), the counted runs, summed; the ``HeldToPlain`` with the
-    largest shapes' inputs; and (c)'s times."""
+    largest shapes' inputs; (c)'s times; and KEEP_LAYOUT's index, beta,
+    name and skew (phase 5 times B2 and the matvec op there)."""
     import repro_torch.core as T
     from repro_torch.kernels import launch_counts, reset_launch_counts
     say("== phase 9: the paper's Table 1 (GP RMSE by kernel) and Table 2 "
@@ -2430,6 +2620,16 @@ def phase_tables(torch, data, model, seed, cfg=TABLE1, grid=TABLE2,
         if not all(np.isfinite(vals)) or not ratio < 1.0:
             bad.append(r["dataset"])
     say(f"  (b) launches {counts_b}")
+    kept = None
+    for r in rows2:
+        if "keep" in r:
+            kept = kept_layout(r.pop("keep"))
+            sk = skew_stats(torch, kept[0].slot)
+            say(f"  {r['dataset']}'s layout (m {r['m']}, n {r['n']}, L "
+                f"{kept[0].blocked.slot_lay.shape[1]}): distinct slots an "
+                f"instance min/median/max {sk['distinct']}, points on its "
+                f"largest slot {sk['largest']}")
+            kept = kept + (r["dataset"], sk)
     missing = [k for k in MAIN_KERNELS if counts_b[k] <= 0]
     if missing:
         fail(f"phase 9 (b): kernels not launched: {missing}")
@@ -2448,7 +2648,15 @@ def phase_tables(torch, data, model, seed, cfg=TABLE1, grid=TABLE2,
         f"it in phase 5")
     say(f"  phase 9 {sync_clock(torch) - t_start:.1f} s")
     counts = {k: counts_a.get(k, 0) + counts_b.get(k, 0) for k in KERNELS}
-    return counts, held, ex
+    return counts, held, ex, kept
+
+
+def b2_bound(a, out):
+    """B2's bound on its arguments ``a``: slot, coeff and src read once,
+    beta once and the output written once, and a multiply and an add a
+    position and column."""
+    return bound(nbytes(a["slot_lay"], a["coeff_lay"], a["src"], a["beta"],
+                        out), 2.0 * out.numel())
 
 
 def held_bound(name, a, out):
@@ -2461,8 +2669,7 @@ def held_bound(name, a, out):
         return bound(nbytes(a["x"], a["w"], a["z"], a["r1"], a["r2"], *out),
                      5.0 * m * n * d)
     if name == "bin_fused_matvec":
-        return bound(nbytes(a["blk_start"], a["slot_lay"], a["coeff_lay"],
-                            a["beta_lay"], out), 3.0 * out.numel())
+        return b2_bound(a, out)
     if name == "bin_scatter_blocked":
         c = a["contrib_lay"]
         k = c.shape[1] if c.ndim == 3 else 1
@@ -2498,16 +2705,13 @@ def held_times(torch, held):
 def phase_times(torch, data, model, main_counts, errs, dist_state,
                 lm_counts, serving, tables, seed):
     import repro_torch.core as T
-    from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
-                                             bin_readout_cuda,
-                                             fused_matvec_ref)
-    from repro_torch.kernels.binning.ops import (_beta_to_layout,
-                                                 bin_fused_matvec_op)
+    from repro_torch.kernels.binning import bin_readout_cuda
+    from repro_torch.kernels.binning.ops import _beta_to_layout
     from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
     from repro_torch.core.wlsh import TableIndex, build_blocked_layout
     say("== phase 5: times at the counted runs' shapes")
     # phase 9's launches, its HeldToPlain, (c)'s times; phase 3's layout s
-    tables_counts, held, ex, layout_s = tables
+    tables_counts, held, ex, kept, layout_s = tables
     x, _, xq = data
     lsh, ts = model.lsh, model.table_size
     n, d, m = x.shape[0], x.shape[1], lsh.m
@@ -2568,39 +2772,37 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     slot, coeff = feats[4], feats[5]
     del feats
     lay = build_blocked_layout(slot, coeff, ts)
-    width = lay.num_tiles * lay.block_t
-    beta_lay = _beta_to_layout(lay, model.beta)
-    args = (lay.blk_start, lay.slot_lay, lay.coeff_lay, beta_lay)
-    run = lambda: bin_fused_matvec_cuda(*args, block_n=lay.block_n,
-                                        block_t=lay.block_t)
-    out = run()
-    ms = time_ms(torch, run)
-    plain = time_ms(torch, lambda: fused_matvec_ref(
-        lay.slot_lay, lay.coeff_lay, beta_lay, width=width), reps=1,
-        warmup=False)
-    rows["bin_fused_matvec"] = (ms, plain, bound(nbytes(*args, out),
-                                                 3.0 * out.numel()), None)
-    del out
-    # the whole matvec op of a PCG iteration: beta into the layout, the
-    # kernel, the map back through inv_pos and the mean over instances
     idx = TableIndex(slot=slot, sign=coeff, weight=coeff, coeff=coeff,
                      table_size=ts, blocked=lay)
-    op_ms = time_ms(torch, lambda: bin_fused_matvec_op(idx, model.beta))
-    op_bound, _ = bound(nbytes(slot, coeff, model.beta, model.beta))
-    say(f"  whole matvec op: {op_ms:.4f} ms against {op_bound:.4f} ms for "
-        f"its point-order inputs (slot, coeff, beta) and output")
+    row, totals, b2 = matvec_times(torch, idx, model.beta,
+                                   "at phase 3's layout")
+    rows["bin_fused_matvec"] = row
+    extra_b2 = dict(b2)
+    if kept is not None:
+        kept_idx, kept_beta, kept_name, kept_skew = kept
+        row_kept, _, b2_kept = matvec_times(torch, kept_idx, kept_beta,
+                                            f"at {kept_name}'s layout")
+        b2_kept.update(ms=row_kept[0], bound_ms=row_kept[2][0])
+        say(f"  {kept_name}'s skew (phase 9): distinct slots an instance "
+            f"min/median/max {kept_skew['distinct']}, points on its "
+            f"largest slot {kept_skew['largest']}")
+        extra_b2.update({f"{kept_name}_{k}": v for k, v in b2_kept.items()})
+        extra_b2.update({f"{kept_name}_skew_{k}": v
+                         for k, v in kept_skew.items()})
+        del kept_idx, kept_beta
+    del kept
     say(f"  the exact estimator at these points (phase 9 (c); "
         f"{card_line()}): exact_matvec {ex['exact_ms']:.4f} ms beside the "
-        f"whole table matvec op {op_ms:.4f} ms and B2 {ms:.4f} ms; "
-        f"build_exact_index {ex['index_ms']:.4f} ms beside the table "
-        f"index's layout {1e3 * layout_s:.4f} ms (phase 3)")
-    del idx
+        f"whole table matvec op {b2['op_ms']:.4f} ms and B2 "
+        f"{row[0]:.4f} ms; build_exact_index {ex['index_ms']:.4f} ms beside "
+        f"the table index's layout {1e3 * layout_s:.4f} ms (phase 3)")
+    beta_lay = _beta_to_layout(lay, model.beta)
     b3_timed = {}
     row, b3 = b3_times(torch, lay, lay.coeff_lay * beta_lay,
                        "at phase 3's shape")
     rows["bin_scatter_blocked"] = row
     b3_timed[tuple(lay.slot_lay.shape) + (1,)] = b3
-    del beta_lay, lay
+    del beta_lay
     torch.cuda.empty_cache()
 
     # the readout at every shape the counted runs launched it at: predict's
@@ -2608,6 +2810,11 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     ro_timed = {}
     for key in sorted(tally["bin_readout"]):
         km, kn, kb, kk = key
+        if key == (m, n, totals.shape[1], 1):
+            # the matvec op's: B2's run totals read through inv_pos
+            _, ro_timed[key] = readout_times(torch, lay.inv_pos, coeff,
+                                             totals, True)
+            continue
         if (km, kb, kk) != (m, ts, 1) or (
                 kn != n and not 1 <= kn <= xq.shape[0]):
             fail(f"readout launched at (m, n, B, k) = {key}, not a shape "
@@ -2635,11 +2842,12 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     by_shape["bin_readout"] = by_shape_entries(
         tally["bin_readout"], ro_timed,
         lambda k: f"m={k[0]} n={k[1]} B={k[2]} k={k[3]}")
-    del slot, coeff
+    del slot, coeff, lay, idx, totals
     torch.cuda.empty_cache()
 
     dist_rows, pack_timed, b3_split, extra = dist_times(torch, x, lsh_d,
                                                         beta_d, ts)
+    extra.setdefault("bin_fused_matvec", {}).update(extra_b2)
     rows.update(dist_rows)
     b3_timed.update(b3_split)
     by_shape["bin_scatter_blocked"] = by_shape_entries(

@@ -9,20 +9,18 @@
 // [blk_start[s,t]*bn, blk_start[s,t+1]*bn); its points come first, then
 // padding positions (slot 0, coeff 0).  Positions from blk_start[s,T]*bn to
 // L are padding.  The Pallas kernels walk this layout through visit lists
-// because a TPU grid runs in order on one core; here a tile is found
-// through blk_start and the tiles run in parallel: each its own CTA in the
-// fused matvec, each a warp's turn in the blocked scatter.
+// because a TPU grid runs in order on one core.  Here the blocked scatter
+// finds a tile through blk_start and gives each tile a warp's turn; the
+// fused matvec needs no tiles: it cuts each instance's layout into chunks
+// of equal length and sums the runs of equal slots across them.
 //
-// Multi-RHS in the fused matvec: a (m, k, L) block shares the CTA's
-// slot/coeff loads; columns run in chunks of kc, so the shared tile
-// (kc * bt floats) stays within the 48 KB a block gets without opting in.
-//
-// B2 and B5 sum with shared-memory float atomics (compare-and-swap loops on
-// sm_90a), so their order changes from run to run: results agree with the
-// plain versions to rounding, stated relative to the output norm.  B3 sums
-// each run of equal slots in registers in a fixed order, and the readout
-// sums the instances in a fixed order: both are the same bits from launch
-// to launch.
+// B2 sums each run of equal slots over fixed-size chunks of the layout,
+// whatever the tiles, and B3 each tile's runs in registers: both in a fixed
+// order, and the readout sums the instances in a fixed order, so all three
+// give the same bits from launch to launch.  B5 sums with shared-memory
+// float atomics (compare-and-swap loops on sm_90a), so its order changes
+// from run to run: it agrees with its plain version to rounding, stated
+// relative to the output norm.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -33,57 +31,371 @@ constexpr int THREADS = 256;
 // ---------------------------------------------------------------------------
 // bin_fused_matvec: replaces `bin_fused_matvec_pallas`
 // (src/repro/kernels/binning/kernel.py, `_fused_body`/`_fused_body_mrhs`).
-//   out[s,j,p] = coeff[s,p] * sum_{q: slot[s,q] = slot[s,p]} coeff[s,q] *
-//                beta[s,j,q]
-// Bound: device-memory bytes (slot, coeff, beta read once, out written once:
-// 16 B per layout position and column pair, 6.4 GB at m = 64, L = 6.3M).
-// Design: one CTA per (instance, tile); the tile lives only in shared
-// memory, filled by atomics from the tile's range, then read back for the
-// same range.  The (m, B) table never exists in device memory.  CTA index T
-// (one past the last tile) writes zeros over the all-padding tail.
+//   T[s,p,j] = sum over the run of p of coeff[s,q] * beta[src[s,q], j]
+// where a run is a maximal stretch of equal slots along instance s's
+// layout.  The layout is sorted by slot within an instance (tiles ascend,
+// each tile's points by slot, then its padding), so a run holds exactly the
+// points of one slot and T is the table entry of p's slot.  Padding
+// (src = n, coeff 0) is a run of one position of its own and comes out 0.
+// Written as T (m, L, k) for the readout, or in the contract form
+// out[s,j,p] = coeff[s,p] * T[s,p,j], (m, k, L).  beta (n, k) is read in
+// point order through src.
+// Bound: device-memory bytes: slot, coeff and src read once, beta once and
+// the output written once (16 B a layout position at k = 1).
+// Design: the work is cut by positions, not by tiles, so a slot that holds
+// most of an instance's points (skewed data: at Table 2's forest layout
+// one slot holds from 10k to all of an instance's 500k points) is spread
+// over the card like any other.  Three kernels:
+//   1. mv_chunk: a block per chunk of MV_CHUNK = 1024 positions (MV_PER =
+//      4 a thread: one 16-byte load each of slot, src and coeff, few
+//      registers, many blocks in flight for the random reads of beta).  Each thread sums the runs among its positions, a
+//      segmented scan by shuffles carries the sums across lanes, and the
+//      warps' last sums are carried across warps in warp order through
+//      shared memory.  A reverse scan (copies, no sums) hands every
+//      position the sum at its run's last position.  Positions whose run
+//      begins and ends inside the chunk are written now.  The chunk's run
+//      that comes in from the left and the one that goes on to the right
+//      are not: the chunk records their partial sums (pre, suf), its flags
+//      and their extents (meta).
+//   2. mv_walk: a thread per chunk whose last run starts in it and goes on
+//      to the right adds the partial sums of the chunks that run covers, in
+//      chunk order, and stores the total at each boundary it crosses (tot).
+//   3. mv_fix: a block per MV_FIX_GROUP chunks writes the totals over the
+//      positions of the runs that cross a chunk's edges.
+// Every sum is taken in an order fixed by the layout and the chunking
+// (float adds and multiplies rounded as written, never contracted into an
+// fma), so the result is the same bits from launch to launch and equals the
+// numpy model in repro_torch/testing/matvec_model.py bit for bit.
 // ---------------------------------------------------------------------------
-__global__ void fused_matvec_kernel(
-    const int32_t* __restrict__ blk_start, const int32_t* __restrict__ slot,
-    const float* __restrict__ coeff, const float* __restrict__ beta,
-    float* __restrict__ out, int num_tiles, int bn, int bt, long long L,
-    int k, int kc) {
-  extern __shared__ float tab[];
-  const int t = blockIdx.x, s = blockIdx.y;
-  const int32_t* bs = blk_start + (long long)s * (num_tiles + 1);
-  const float* bsrc = beta + (long long)s * k * L;
-  float* osrc = out + (long long)s * k * L;
-  if (t == num_tiles) {  // padding tail: written, never accumulated
-    const long long p0 = (long long)bs[num_tiles] * bn;
-    for (int j = 0; j < k; ++j)
-      for (long long p = p0 + threadIdx.x; p < L; p += blockDim.x)
-        osrc[j * L + p] = 0.0f;
-    return;
+constexpr int MV_THREADS = 256;
+constexpr int MV_WARPS = MV_THREADS / 32;
+constexpr int MV_PER = 4;                   // positions a thread
+constexpr int MV_CHUNK = MV_THREADS * MV_PER;
+constexpr int MV_FIX_GROUP = 32;            // chunks a block of mv_fix
+constexpr int CROSS_L = 1;   // the chunk's first run comes in from the left
+constexpr int CROSS_R = 2;   // its last run goes on to the right
+constexpr int HAS_HEAD = 4;  // a run starts inside the chunk
+constexpr int PAD_KEY = -1;  // the key of a padding position
+constexpr int ROW_EDGE = -3; // the key before a row's first position and
+                             // after its last
+constexpr unsigned MV_FULL = 0xffffffffu;
+
+struct MvArgs {
+  const int32_t* slot;  // (m, L)
+  const float* coeff;   // (m, L)
+  const int32_t* src;   // (m, L), n at padding
+  const float* beta;    // (n, k)
+  float* out;           // (m, L, k) totals, else (m, k, L)
+  int4* meta;           // (m, C): flags, first end, last head, length
+  float* pre;           // (m, C, k) partial sum of the first run
+  float* suf;           // (m, C, k) partial sum of the last run
+  float* tot;           // (m, C, k) total of the run crossing into chunk c
+  long long L;
+  int n, k, C;
+  bool totals;
+};
+
+__device__ __forceinline__ int mv_key(const MvArgs& a, long long at) {
+  return (unsigned)a.src[at] < (unsigned)a.n ? a.slot[at] : PAD_KEY;
+}
+
+__device__ __forceinline__ long long mv_out(const MvArgs& a, int s,
+                                            long long p, int j) {
+  return a.totals ? ((long long)s * a.L + p) * a.k + j
+                  : ((long long)s * a.k + j) * a.L + p;
+}
+
+// six blocks an SM (at most 40 registers a thread): more of the random
+// reads of beta in flight
+__global__ void __launch_bounds__(MV_THREADS, 6)
+mv_chunk_kernel(MvArgs a) {
+  // per warp, two buffers (columns alternate): the forward scan's last
+  // lane (sum, head seen) and the reverse scan's lane 0 (value, end seen)
+  __shared__ float fx[2][MV_WARPS], rx[2][MV_WARPS];
+  __shared__ int ff[2][MV_WARPS], rf[2][MV_WARPS];
+  __shared__ int w_end[MV_WARPS], w_head[MV_WARPS], w_any[MV_WARPS];
+  __shared__ int edge_l, edge_r;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int c = blockIdx.x, s = blockIdx.y;
+  const long long L = a.L, row = (long long)s * L;
+  const long long c0 = (long long)c * MV_CHUNK;
+  const int len = (int)min((long long)MV_CHUNK, L - c0);
+  const int o0 = MV_PER * t;      // the thread's first offset in the chunk
+  const long long p0 = c0 + o0;
+  int key[MV_PER], sr[MV_PER];
+  float cf[MV_PER];
+#pragma unroll
+  for (int h = 0; h < MV_PER / 4; ++h) {
+    // len and c0 are multiples of 4: a group of 4 is in or out whole
+    if (o0 + 4 * h < len) {
+      const long long at = row + p0 + 4 * h;
+      // streamed past L2 (evict-first), so beta's lines stay there
+      const int4 s4 = __ldcs(reinterpret_cast<const int4*>(a.slot + at));
+      const int4 q4 = __ldcs(reinterpret_cast<const int4*>(a.src + at));
+      const float4 c4 = __ldcs(reinterpret_cast<const float4*>(a.coeff + at));
+      const int sl[4] = {s4.x, s4.y, s4.z, s4.w};
+      const int q[4] = {q4.x, q4.y, q4.z, q4.w};
+      const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sr[4 * h + i] = q[i];
+        cf[4 * h + i] = cc[i];
+        key[4 * h + i] = (unsigned)q[i] < (unsigned)a.n ? sl[i] : PAD_KEY;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sr[4 * h + i] = a.n;
+        cf[4 * h + i] = 0.0f;
+        key[4 * h + i] = PAD_KEY;
+      }
+    }
   }
-  const long long p0 = (long long)bs[t] * bn, p1 = (long long)bs[t + 1] * bn;
-  if (p0 == p1) return;  // tile without points owns no layout positions
-  const int32_t* srow = slot + (long long)s * L;
-  const float* crow = coeff + (long long)s * L;
-  const int lo = t * bt;
-  for (int j0 = 0; j0 < k; j0 += kc) {
-    const int jn = min(kc, k - j0);
-    for (int e = threadIdx.x; e < jn * bt; e += blockDim.x) tab[e] = 0.0f;
-    __syncthreads();
-    for (long long p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-      const unsigned b = (unsigned)(srow[p] - lo);
-      if (b >= (unsigned)bt) continue;  // padding with slot outside the tile
-      const float c = crow[p];
-      for (int j = 0; j < jn; ++j)
-        atomicAdd(&tab[j * bt + b], c * bsrc[(j0 + j) * L + p]);
+  const bool live = o0 < len;
+  // the keys just before and after the thread's positions: a neighbour
+  // lane's, or at a warp's edge from memory
+  int before = __shfl_up_sync(MV_FULL, key[MV_PER - 1], 1);
+  int after = __shfl_down_sync(MV_FULL, key[0], 1);
+  if (lane == 0)
+    before = (live && p0 > 0) ? mv_key(a, row + p0 - 1) : ROW_EDGE;
+  if (lane == 31 || !live || p0 + MV_PER >= L)
+    after = (live && p0 + MV_PER < L) ? mv_key(a, row + p0 + MV_PER)
+                                      : ROW_EDGE;
+  // run heads and ends among the thread's positions, as bits
+  unsigned hd = 0, en = 0;
+#pragma unroll
+  for (int i = 0; i < MV_PER; ++i) {
+    const int prev = i ? key[i - 1] : before;
+    const int next = i < MV_PER - 1 ? key[i + 1] : after;
+    if (o0 + i < len) {
+      if (key[i] == PAD_KEY || key[i] != prev) hd |= 1u << i;
+      if (key[i] == PAD_KEY || key[i] != next) en |= 1u << i;
+    }
+  }
+  {
+    const int fe = en ? o0 + __ffs(en) - 1 : MV_CHUNK;
+    const int lh = hd ? o0 + 31 - __clz(hd) : -1;
+    const int wfe = __reduce_min_sync(MV_FULL, fe);
+    const int wlh = __reduce_max_sync(MV_FULL, lh);
+    const unsigned any = __ballot_sync(MV_FULL, hd != 0);
+    if (lane == 0) {
+      w_end[warp] = wfe;
+      w_head[warp] = wlh;
+      w_any[warp] = any != 0;
+    }
+    if (t == 0) edge_l = !(hd & 1u);                 // c0 is no run head
+    if (live && len - 1 < o0 + MV_PER)
+      edge_r = !((en >> (len - 1 - o0)) & 1u);       // c1 - 1 is no run end
+  }
+  __syncthreads();
+  int first_end = len - 1, last_head = 0;
+  bool any_head = false, heads_before = false, ends_after = false;
+#pragma unroll
+  for (int w = 0; w < MV_WARPS; ++w) {
+    first_end = min(first_end, w_end[w]);
+    last_head = max(last_head, w_head[w]);
+    any_head = any_head || w_any[w];
+    if (w < warp) heads_before = heads_before || w_any[w];
+    if (w > warp) ends_after = ends_after || w_end[w] < MV_CHUNK;
+  }
+  {
+    const unsigned hb = __ballot_sync(MV_FULL, hd != 0);
+    const unsigned eb = __ballot_sync(MV_FULL, en != 0);
+    heads_before = heads_before || (hb & ((1u << lane) - 1u));
+    ends_after = ends_after || (lane < 31 && (eb >> (lane + 1)));
+  }
+  const bool cross_l = edge_l, cross_r = edge_r;
+  const long long g = (long long)s * a.C + c;
+  if (t == 0)
+    a.meta[g] = make_int4((cross_l ? CROSS_L : 0) | (cross_r ? CROSS_R : 0) |
+                              (any_head ? HAS_HEAD : 0),
+                          first_end, last_head, len);
+  // which positions this pass writes: not the first run when it comes in
+  // from the left, not the last run when it goes on to the right
+  unsigned wr = 0;
+#pragma unroll
+  for (int i = 0; i < MV_PER; ++i) {
+    const bool seen = heads_before || (hd & ((2u << i) - 1u));
+    const bool ended = ends_after || (en >> i);
+    if (o0 + i < len && ended && !(cross_l && !seen)) wr |= 1u << i;
+  }
+  for (int j = 0; j < a.k; ++j) {
+    const int buf = j & 1;
+    float acc[MV_PER];
+#pragma unroll
+    for (int i = 0; i < MV_PER; ++i) {
+      // random 4-byte reads, served by L2 (beta stays there): __ldcg keeps
+      // them out of L1, where no line of them is read again soon
+      const float b = (unsigned)sr[i] < (unsigned)a.n
+                          ? __ldcg(a.beta + (long long)sr[i] * a.k + j)
+                          : 0.0f;
+      const float v = __fmul_rn(cf[i], b);
+      acc[i] = (i == 0 || ((hd >> i) & 1u))
+                   ? v : __fadd_rn(acc[i > 0 ? i - 1 : 0], v);
+    }
+    // segmented inclusive scan of the lanes' last sums
+    float x = acc[MV_PER - 1];
+    bool f = hd != 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(MV_FULL, x, o);
+      const bool gf = __shfl_up_sync(MV_FULL, (int)f, o);
+      if (lane >= o) {
+        if (!f) x = __fadd_rn(y, x);
+        f = f || gf;
+      }
+    }
+    if (lane == 31) {
+      fx[buf][warp] = x;
+      ff[buf][warp] = f;
     }
     __syncthreads();
-    for (long long p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-      const unsigned b = (unsigned)(srow[p] - lo);
-      const bool in = b < (unsigned)bt;
-      const float c = crow[p];
-      for (int j = 0; j < jn; ++j)
-        osrc[(j0 + j) * L + p] = in ? c * tab[j * bt + b] : 0.0f;
+    // the sum carried into this warp: the warps before it, in order
+    float carry = 0.0f;
+    if (warp > 0) {
+      carry = fx[buf][0];
+      for (int u = 1; u < warp; ++u)
+        carry = ff[buf][u] ? fx[buf][u] : __fadd_rn(carry, fx[buf][u]);
+      if (!f) x = __fadd_rn(carry, x);
+    }
+    float ex = __shfl_up_sync(MV_FULL, x, 1);
+    if (lane == 0) ex = carry;
+    if (lane > 0 || warp > 0) {
+#pragma unroll
+      for (int i = 0; i < MV_PER; ++i)
+        if (!(hd & ((2u << i) - 1u))) acc[i] = __fadd_rn(ex, acc[i]);
+    }
+    // reverse scan: the sum at the nearest run end at or after the thread
+    float rv = 0.0f;
+#pragma unroll
+    for (int i = MV_PER - 1; i >= 0; --i)
+      if ((en >> i) & 1u) rv = acc[i];
+    int rh = en != 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_down_sync(MV_FULL, rv, o);
+      const int gh = __shfl_down_sync(MV_FULL, rh, o);
+      if (lane + o < 32 && !rh) {
+        rv = y;
+        rh = gh;
+      }
+    }
+    if (lane == 0) {
+      rx[buf][warp] = rv;
+      rf[buf][warp] = rh;
     }
     __syncthreads();
+    // from the next lane, or where no end follows in the warp, from the
+    // nearest later warp that has one
+    float later = 0.0f;
+#pragma unroll
+    for (int u = MV_WARPS - 1; u > 0; --u)
+      if (u > warp && rf[buf][u]) later = rx[buf][u];
+    float r = __shfl_down_sync(MV_FULL, rv, 1);
+    const int rh_next = __shfl_down_sync(MV_FULL, rh, 1);
+    if (lane == 31 || !rh_next) r = later;
+    float val[MV_PER];
+#pragma unroll
+    for (int i = MV_PER - 1; i >= 0; --i) {
+      if ((en >> i) & 1u) r = acc[i];
+      val[i] = a.totals ? r : __fmul_rn(cf[i], r);
+    }
+    if (a.k == 1) {
+#pragma unroll
+      for (int h = 0; h < MV_PER / 4; ++h) {
+        const unsigned m4 = (wr >> (4 * h)) & 15u;
+        float* dst = a.out + row + p0 + 4 * h;
+        if (m4 == 15u) {
+          __stcs(reinterpret_cast<float4*>(dst),
+                 make_float4(val[4 * h], val[4 * h + 1], val[4 * h + 2],
+                             val[4 * h + 3]));
+        } else if (m4) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if ((m4 >> i) & 1u) dst[i] = val[4 * h + i];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < MV_PER; ++i)
+        if ((wr >> i) & 1u) a.out[mv_out(a, s, p0 + i, j)] = val[i];
+    }
+    // the chunk's partial sums of its first and last runs
+#pragma unroll
+    for (int i = 0; i < MV_PER; ++i) {
+      if (o0 + i == first_end) a.pre[g * a.k + j] = acc[i];
+      if (o0 + i == len - 1) a.suf[g * a.k + j] = acc[i];
+    }
+  }
+}
+
+__global__ void mv_walk_kernel(MvArgs a, long long chunks) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= chunks) return;
+  if ((a.meta[g].x & (CROSS_R | HAS_HEAD)) != (CROSS_R | HAS_HEAD)) return;
+  // the run starts here and ends in chunk e: the first chunk after g that
+  // has a head or does not go on (a row's last chunk never goes on)
+  long long e = g + 1;
+  for (;; e += 8) {
+    int fl[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      fl[u] = e + u < chunks ? a.meta[e + u].x : HAS_HEAD;
+    int stop = 8;
+#pragma unroll
+    for (int u = 7; u >= 0; --u)
+      if ((fl[u] & HAS_HEAD) || !(fl[u] & CROSS_R)) stop = u;
+    if (stop < 8) {
+      e += stop;
+      break;
+    }
+  }
+  for (int j = 0; j < a.k; ++j) {
+    float sum = a.suf[g * a.k + j];
+#pragma unroll 8
+    for (long long d = g + 1; d <= e; ++d)
+      sum = __fadd_rn(sum, a.pre[d * a.k + j]);
+    for (long long d = g + 1; d <= e; ++d) a.tot[d * a.k + j] = sum;
+  }
+}
+
+// the run total of boundary b over chunk positions [lo, hi) of chunk g
+__device__ void mv_fill(const MvArgs& a, long long g, int lo, int hi,
+                        long long b) {
+  const int s = (int)(g / a.C);
+  const long long c0 = (g - (long long)s * a.C) * MV_CHUNK;
+  const float* tot = a.tot + b * a.k;
+  if (a.totals) {
+    float* dst = a.out + ((long long)s * a.L + c0 + lo) * a.k;
+    const int cnt = (hi - lo) * a.k;
+    for (int e = threadIdx.x; e < cnt; e += blockDim.x)
+      dst[e] = tot[a.k == 1 ? 0 : e % a.k];
+  } else {
+    const float* crow = a.coeff + (long long)s * a.L + c0;
+    for (int j = 0; j < a.k; ++j) {
+      float* dst = a.out + ((long long)s * a.k + j) * a.L + c0;
+      const float v = tot[j];
+      for (int o = lo + threadIdx.x; o < hi; o += blockDim.x)
+        dst[o] = __fmul_rn(crow[o], v);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(MV_THREADS)
+mv_fix_kernel(MvArgs a, long long chunks) {
+  __shared__ int4 gm[MV_FIX_GROUP];
+  const long long g0 = (long long)blockIdx.x * MV_FIX_GROUP;
+  if (threadIdx.x < MV_FIX_GROUP)
+    gm[threadIdx.x] = g0 + threadIdx.x < chunks ? a.meta[g0 + threadIdx.x]
+                                                : make_int4(0, 0, 0, 0);
+  __syncthreads();
+  for (int u = 0; u < MV_FIX_GROUP; ++u) {
+    const int4 me = gm[u];
+    const long long g = g0 + u;
+    if (me.x & CROSS_L)   // the run from the left: to the first end
+      mv_fill(a, g, 0, (me.x & HAS_HEAD) ? me.y + 1 : me.w, g);
+    if ((me.x & CROSS_R) && (me.x & HAS_HEAD))  // from the last head on
+      mv_fill(a, g, me.z, me.w, g + 1);
   }
 }
 
@@ -698,8 +1010,6 @@ bin_accumulate_kernel(PartArgs a) {
   }
 }
 
-int shared_bytes(int kc, int bt) { return kc * bt * (int)sizeof(float); }
-
 dim3 row_grid(long long work, int m) {
   const long long blocks = (work + THREADS - 1) / THREADS;
   return dim3((unsigned)(blocks < 65535 ? blocks : 65535), m);
@@ -707,14 +1017,40 @@ dim3 row_grid(long long work, int m) {
 
 }  // namespace
 
+// beta (n, k) f32 in point order; out (m, L, k) when `totals`, else
+// (m, k, L); L % 4 == 0 and 16-byte aligned slot, src, coeff and out rows.
+// Scratch: (m*C) int4 then 3 (m*C*k) f32, C = ceil(L / MV_CHUNK)
+// (bin_fused_matvec_scratch gives its bytes).
+extern "C" long long bin_fused_matvec_scratch(int m, long long L, int k) {
+  const long long chunks = (long long)m * ((L + MV_CHUNK - 1) / MV_CHUNK);
+  return chunks * (long long)(sizeof(int4) + 3 * sizeof(float) * k);
+}
+
 extern "C" int bin_fused_matvec_launch(
-    const int32_t* blk_start, const int32_t* slot, const float* coeff,
-    const float* beta, float* out, int m, int num_tiles, int bn, int bt,
-    long long L, int k, int kc, void* stream) {
-  dim3 grid(num_tiles + 1, m);
-  fused_matvec_kernel<<<grid, THREADS, shared_bytes(kc, bt),
-                        (cudaStream_t)stream>>>(
-      blk_start, slot, coeff, beta, out, num_tiles, bn, bt, L, k, kc);
+    const int32_t* slot, const float* coeff, const int32_t* src,
+    const float* beta, float* out, int m, long long L, int n, int k,
+    int totals, void* scratch, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m == 0 || L == 0 || k == 0) return (int)cudaGetLastError();
+  const long long C = (L + MV_CHUNK - 1) / MV_CHUNK;
+  if ((L & 3) || m > 65535 || C > 0x7fffffffLL || n < 0 ||
+      ((reinterpret_cast<uintptr_t>(slot) | reinterpret_cast<uintptr_t>(src) |
+        reinterpret_cast<uintptr_t>(coeff) | reinterpret_cast<uintptr_t>(out) |
+        reinterpret_cast<uintptr_t>(scratch)) & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long chunks = m * C;
+  MvArgs a;
+  a.slot = slot; a.coeff = coeff; a.src = src; a.beta = beta; a.out = out;
+  a.meta = static_cast<int4*>(scratch);
+  a.pre = reinterpret_cast<float*>(a.meta + chunks);
+  a.suf = a.pre + chunks * k;
+  a.tot = a.suf + chunks * k;
+  a.L = L; a.n = n; a.k = k; a.C = (int)C; a.totals = totals != 0;
+  mv_chunk_kernel<<<dim3((unsigned)C, m), MV_THREADS, 0, st>>>(a);
+  mv_walk_kernel<<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(a,
+                                                                   chunks);
+  mv_fix_kernel<<<(unsigned)((chunks + MV_FIX_GROUP - 1) / MV_FIX_GROUP),
+                  MV_THREADS, 0, st>>>(a, chunks);
   return (int)cudaGetLastError();
 }
 

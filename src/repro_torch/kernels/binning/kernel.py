@@ -26,8 +26,10 @@ _SMEM = 48 * 1024      # shared tile budget without an opt-in
 def _lib():
     lib = load("binning")
     if lib.bin_gather_launch.argtypes is None:
-        lib.bin_fused_matvec_launch.argtypes = [_P] * 5 + [_I] * 4 + [
-            _L, _I, _I, _P]
+        lib.bin_fused_matvec_launch.argtypes = [_P] * 5 + [
+            _I, _L, _I, _I, _I, _P, _P]
+        lib.bin_fused_matvec_scratch.argtypes = [_I, _L, _I]
+        lib.bin_fused_matvec_scratch.restype = _L
         lib.bin_scatter_blocked_launch.argtypes = [_P] * 4 + [_I] * 4 + [
             _L, _I, _P]
         lib.bin_gather_launch.argtypes = [_P] * 3 + [_I, _I, _L, _I, _P]
@@ -69,26 +71,42 @@ def _layout_args(blk_start, slot_lay, block_n, block_t, cols):
     return m, L, num_tiles, kc
 
 
-def bin_fused_matvec_cuda(blk_start, slot_lay, coeff_lay, beta_lay, *,
-                          block_n: int, block_t: int):
-    """out_lay[s, (j,) p] = coeff_lay[s, p] * table[s, (j,) slot_lay[s, p]]
-    with the table summed from coeff_lay * beta_lay over the layout;
-    beta_lay (m, L) or (m, k, L) f32.  Padding positions come out 0."""
-    k = beta_lay.shape[1] if beta_lay.ndim == 3 else 1
-    m, L, num_tiles, kc = _layout_args(blk_start, slot_lay, block_n,
-                                       block_t, k)
+def bin_fused_matvec_cuda(slot_lay, coeff_lay, src, beta, *,
+                          totals: bool = False):
+    """The CountSketch matvec over the slot-blocked layout, reading beta
+    (n,) or (n, k) f32 in point order through ``src`` (m, L) (n at
+    padding).  T[s, p(, j)] is the sum of coeff_lay[s, q] * beta[src[s, q]
+    (, j)] over the run of equal slots holding p (padding: 0).  Returns T,
+    (m, L) or (m, L, k), when ``totals`` (what the readout takes), else the
+    contract form coeff_lay * T, (m, L) or (m, k, L).  The runs are summed
+    over fixed-size chunks in a fixed order: the same bits from launch to
+    launch, equal to ``testing.matvec_model``'s."""
+    m, L = slot_lay.shape
+    _need(slot_lay, "slot_lay", torch.int32, (m, L))
     _need(coeff_lay, "coeff_lay", torch.float32, (m, L))
-    _need(beta_lay, "beta_lay", torch.float32,
-          (m, k, L) if beta_lay.ndim == 3 else (m, L))
-    out = torch.empty_like(beta_lay)
-    if m == 0 or L == 0 or k == 0:
+    _need(src, "src", torch.int32, (m, L))
+    _need(beta, "beta", torch.float32)
+    if beta.ndim not in (1, 2):
+        raise ValueError(f"beta must be (n,) or (n, k), got "
+                         f"{tuple(beta.shape)}")
+    n, k = beta.shape[0], beta.shape[1] if beta.ndim == 2 else 1
+    if L % 4 or m > 65535 or n >= 2 ** 31 or any(
+            t.data_ptr() % 16 for t in (slot_lay, coeff_lay, src)):
+        raise ValueError(f"fused matvec: needs L % 4 == 0 (L={L}), m <= "
+                         f"65535 (m={m}), n < 2^31 and 16-byte aligned rows")
+    tail = () if beta.ndim == 1 else (k,)
+    shape = ((m, L) + tail) if totals else ((m,) + tail + (L,))
+    out = torch.empty(shape, dtype=torch.float32, device=slot_lay.device)
+    if out.numel() == 0:
         return out
     lib = _lib()
-    count_launch(bin_fused_matvec_cuda, (m, L, k))
+    scratch = torch.empty(int(lib.bin_fused_matvec_scratch(m, L, k)),
+                          dtype=torch.uint8, device=slot_lay.device)
+    count_launch(bin_fused_matvec_cuda, (m, L, n, k, bool(totals)))
     rc = lib.bin_fused_matvec_launch(
-        blk_start.data_ptr(), slot_lay.data_ptr(), coeff_lay.data_ptr(),
-        beta_lay.data_ptr(), out.data_ptr(), m, num_tiles, block_n, block_t,
-        L, k, kc, stream_ptr(out.device))
+        slot_lay.data_ptr(), coeff_lay.data_ptr(), src.data_ptr(),
+        beta.data_ptr(), out.data_ptr(), m, L, n, k, int(bool(totals)),
+        scratch.data_ptr(), stream_ptr(out.device))
     check(rc, "bin_fused_matvec", lib.binning_error_string)
     return out
 

@@ -3,8 +3,12 @@ binning kernels, and the hash-join route pack/unpack, dispatched on the
 device of the index (the CUDA kernels on the card, their plain versions on
 the CPU).
 
-* ``bin_fused_matvec_op``  ~ ``table_matvec_fused`` — one kernel over the
-  slot-blocked layout; the (m, B) table exists only as shared-memory tiles.
+* ``bin_fused_matvec_op``  ~ ``table_matvec_fused`` — on the card two
+  kernels and no glue tensors: B2 reads beta in point order through the
+  layout's ``src`` and writes each layout position's run total (its slot's
+  table entry, (m, L[, k])), then the readout combines coeff times each
+  point's total over the instances in point order, through ``inv_pos``.
+  The (m, B) table never exists.
 * ``bin_loads_op``         ~ ``table_loads`` — the (m, B[, k]) psum-able
   tables: off the layout when the index has one (``bin_loads_blocked_op``),
   else the point scatter.
@@ -19,8 +23,10 @@ the CPU).
   cast to bf16 is fused into B7, rounded once after the f32 run sums),
   and zeroes only the unreached tail of each owner's cells.
 
-Around the kernels, beta is laid out through ``src`` and results map back
-through ``inv_pos`` with PyTorch indexing (int32 indices, no int64 copies).
+Around the other layout kernels (B3, B6), and on the CPU's plain path of
+the fused matvec, beta is laid out through ``src`` and results map back
+through ``inv_pos`` with PyTorch indexing (int32 indices, no int64
+copies).
 """
 from __future__ import annotations
 
@@ -100,17 +106,20 @@ def _layout_to_points(lay, out_lay: torch.Tensor) -> torch.Tensor:
 
 def bin_fused_matvec_op(index: TableIndex, beta: torch.Tensor, *,
                         average: bool = True) -> torch.Tensor:
-    """K~ beta off the slot-blocked layout; beta (n,) or (n, k)."""
+    """K~ beta off the slot-blocked layout; beta (n,) or (n, k).  On the
+    card: B2's run totals, then the readout over ``inv_pos`` (mean, or sum
+    when not ``average``).  On the CPU: beta laid out, the plain fused
+    matvec, mapped back and combined."""
     lay = _layout(index)
+    if on_card(beta, lay.slot_lay):
+        totals = bin_fused_matvec_cuda(
+            lay.slot_lay, lay.coeff_lay, lay.src,
+            beta.to(torch.float32).contiguous(), totals=True)
+        return bin_readout_cuda(lay.inv_pos, index.coeff.contiguous(),
+                                totals, average=average)
     beta_lay = _beta_to_layout(lay, beta)
-    if on_card(beta_lay, lay.slot_lay):
-        out_lay = bin_fused_matvec_cuda(lay.blk_start, lay.slot_lay,
-                                        lay.coeff_lay, beta_lay,
-                                        block_n=lay.block_n,
-                                        block_t=lay.block_t)
-    else:
-        out_lay = fused_matvec_ref(lay.slot_lay, lay.coeff_lay, beta_lay,
-                                   width=lay.num_tiles * lay.block_t)
+    out_lay = fused_matvec_ref(lay.slot_lay, lay.coeff_lay, beta_lay,
+                               width=lay.num_tiles * lay.block_t)
     vals = _layout_to_points(lay, out_lay)
     return vals.mean(0) if average else vals.sum(0)
 

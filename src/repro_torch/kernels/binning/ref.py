@@ -45,6 +45,33 @@ def fused_matvec_ref(slot_lay, coeff_lay, beta_lay, *, width: int):
     return coeff * (vals if multi else vals[:, 0])
 
 
+def fused_matvec_src_ref(slot_lay, coeff_lay, src, beta, *,
+                         totals: bool = False):
+    """The plain version of ``bin_fused_matvec_cuda``: beta (n,) or (n, k)
+    read in point order through src (m, L) (n at padding).  T[s, p(, j)] =
+    table[s, slot_lay[s, p](, j)] summed from coeff_lay * beta at the real
+    positions, 0 at padding; returns T, (m, L) or (m, L, k), when
+    ``totals``, else coeff_lay * T as (m, L) or (m, k, L)."""
+    m, L = slot_lay.shape
+    n, tail = beta.shape[0], tuple(beta.shape[1:])
+    pad = torch.zeros((1,) + tail, dtype=torch.float32, device=beta.device)
+    beta_lay = torch.cat([beta.to(torch.float32), pad]).index_select(
+        0, src.reshape(-1).long()).view((m, L) + tail)
+    coeff = coeff_lay if not tail else coeff_lay[..., None]
+    width = int(slot_lay.max()) + 1 if slot_lay.numel() else 1
+    flat = (slot_lay.long() + width * torch.arange(
+        m, device=slot_lay.device)[:, None]).view(-1)
+    tables = torch.zeros((m * width,) + tail, dtype=torch.float32,
+                         device=slot_lay.device)
+    tables.index_add_(0, flat, (coeff * beta_lay).reshape((-1,) + tail))
+    real = (src < n).view((m, L) + (1,) * len(tail))
+    t = torch.where(real, tables[flat].view((m, L) + tail), 0.0)
+    if totals:
+        return t
+    out = coeff * t
+    return out if not tail else out.transpose(1, 2).contiguous()
+
+
 def gather_ref(slot, tables):
     """out[s, i(, j)] = tables[s, slot[s, i](, j)] for tables (m, B[, k])."""
     rows = torch.arange(slot.shape[0], device=slot.device)[:, None]

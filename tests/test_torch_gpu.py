@@ -21,7 +21,8 @@ from repro_torch.kernels.binning import (bin_fused_matvec_cuda,
                                          bin_gather_blocked_cuda,
                                          bin_gather_cuda, bin_readout_cuda,
                                          bin_scatter_blocked_cuda,
-                                         bin_scatter_cuda, fused_matvec_ref,
+                                         bin_scatter_cuda,
+                                         fused_matvec_src_ref,
                                          gather_blocked_ref, gather_ref,
                                          readout_ref, route_pack_cuda,
                                          route_pack_ref, route_unpack_cuda,
@@ -32,6 +33,8 @@ from repro_torch.kernels.binning.kernel import (_bin_scatter, _readout_launch,
                                                scatter_plan)
 from repro_torch.kernels.binning.ops import layout_rows
 from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
+from repro_torch.testing.matvec_model import (fused_matvec_model,
+                                              skewed_points, trap_layout)
 from repro_torch.testing.scatter_model import (scatter_blocked_model,
                                                trap_layout_case)
 
@@ -92,28 +95,158 @@ def _layout(rng, m, n, table_size, device):
 
 @pytest.mark.parametrize("k", [0, 1, 4, 40])
 def test_fused_matvec_and_scatter_match_plain(cuda, k):
+    """B2 (both output forms, beta in point order) and B3 against their
+    plain versions within 1e-5 of max|out|, on a layout with a heavy
+    bucket."""
     rng = np.random.default_rng(k)
     m, n, table_size = 5, 3000, 1 << 13
     lay = _layout(rng, m, n, table_size, cuda)
-    shape = (m, lay.slot_lay.shape[1]) if k == 0 else \
-        (m, k, lay.slot_lay.shape[1])
-    beta = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                            ).to(cuda)
-    real = (lay.coeff_lay != 0).to(beta.dtype)       # padding reads beta 0
-    beta = beta * (real if k == 0 else real[:, None, :])
+    beta = torch.from_numpy(rng.standard_normal(
+        (n,) if k == 0 else (n, k), dtype=np.float32)).to(cuda)
+    for totals in (False, True):
+        got = bin_fused_matvec_cuda(lay.slot_lay, lay.coeff_lay, lay.src,
+                                    beta, totals=totals)
+        want = fused_matvec_src_ref(lay.slot_lay, lay.coeff_lay, lay.src,
+                                    beta, totals=totals)
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
+                                   rtol=1e-5)
     width = lay.num_tiles * lay.block_t
-    got = bin_fused_matvec_cuda(lay.blk_start, lay.slot_lay, lay.coeff_lay,
-                                beta, block_n=lay.block_n,
-                                block_t=lay.block_t)
-    want = fused_matvec_ref(lay.slot_lay, lay.coeff_lay, beta, width=width)
-    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max(),
-                               rtol=1e-5)
-    tables = bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay, beta,
+    contrib = layout_rows(lay, beta)
+    contrib = (lay.coeff_lay * contrib if k == 0 else
+               (lay.coeff_lay[..., None] * contrib).transpose(1, 2)
+               .contiguous())
+    tables = bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay, contrib,
                                       block_n=lay.block_n,
                                       block_t=lay.block_t)
-    ref = scatter_blocked_ref(lay.slot_lay, beta, width=width)
+    ref = scatter_blocked_ref(lay.slot_lay, contrib, width=width)
     torch.testing.assert_close(tables, ref, atol=1e-5 * ref.abs().max(),
                                rtol=1e-5)
+
+
+def _within_summed_limit(got, plain, divide=1):
+    """``got`` against ``plain(f)``, the plain version with f applied to
+    its coefficients and beta, within phase 9's limit for kernels that
+    sum: 1e-5 of max|out| plus 8 sqrt(terms) float32 roundings (2^-24) of
+    each output's absolute sum (f = abs; terms from f = ones_like), the
+    absolute sum divided by ``divide`` (m for a mean)."""
+    want = plain(lambda t: t)
+    abs_sum = plain(torch.abs).double() / divide
+    terms = plain(torch.ones_like).double()
+    lim = 1e-5 * float(want.abs().max()) + \
+        8.0 * 2.0 ** -24 * abs_sum * terms.sqrt()
+    assert got.shape == want.shape
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= lim).all()), float((err / lim).max())
+
+
+def _skewed_index(kind, k, device):
+    """(index with its layout, beta) for the B2 tests: the trap layout, or
+    forest's skew (a few slots holding most of 100000 points an
+    instance)."""
+    rng = np.random.default_rng(k + 17)
+    if kind == "trap":
+        table_size = 1 << 12
+        slot, coeff = trap_layout(rng, table_size=table_size, device=device)
+    else:
+        table_size = 1 << 18
+        slot, coeff = skewed_points(rng, m=6, n=100000,
+                                    table_size=table_size, device=device)
+    idx = T.TableIndex(slot=slot, sign=coeff, weight=coeff, coeff=coeff,
+                       table_size=table_size,
+                       blocked=T.build_blocked_layout(slot, coeff,
+                                                      table_size))
+    n = slot.shape[1]
+    beta = torch.from_numpy(rng.standard_normal(
+        (n,) if k == 0 else (n, k), dtype=np.float32)).to(device)
+    return idx, beta
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32).cpu().numpy()
+
+
+@pytest.mark.parametrize("totals", [False, True])
+@pytest.mark.parametrize("k", [0, 3])
+@pytest.mark.parametrize("kind", ["trap", "forest_skew"])
+def test_fused_matvec_is_deterministic_and_matches_model(cuda, kind, k,
+                                                         totals):
+    """B2 on the trap layout (one slot over several chunks followed by
+    tile 0's padding, two slots, runs of a chunk's length and one less and
+    one more, a run ending on a chunk's last position, zero coefficients)
+    and at forest's skew: the same bits in two launches, bit for bit the
+    numpy model of its sum order, and the plain version within phase 9's
+    limit (runs of up to 74000 terms); float inputs."""
+    idx, beta = _skewed_index(kind, k, cuda)
+    lay = idx.blocked
+    run = lambda: bin_fused_matvec_cuda(lay.slot_lay, lay.coeff_lay,
+                                        lay.src, beta, totals=totals)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(got), _bits(again))
+    model = fused_matvec_model(lay.slot_lay.cpu(), lay.coeff_lay.cpu(),
+                               lay.src.cpu(), beta.cpu().numpy(),
+                               totals=totals)
+    assert np.array_equal(_bits(got), model.view(np.int32))
+    _within_summed_limit(got, lambda f: fused_matvec_src_ref(
+        lay.slot_lay, f(lay.coeff_lay), lay.src, f(beta), totals=totals))
+
+
+def _on_cpu(idx):
+    """The index with the arrays the plain fused op reads on the CPU."""
+    lay = idx.blocked._replace(**{
+        f: getattr(idx.blocked, f).cpu()
+        for f in ("inv_pos", "src", "slot_lay", "coeff_lay", "blk_start")})
+    return idx._replace(slot=idx.slot.cpu(), coeff=idx.coeff.cpu(),
+                        blocked=lay)
+
+
+@pytest.mark.parametrize("average", [True, False])
+@pytest.mark.parametrize("k", [1, 4])
+def test_fused_matvec_op_on_card_matches_cpu(cuda, k, average):
+    """``bin_fused_matvec_op`` on the card (B2's run totals, then the
+    readout over inv_pos) against the same op on the CPU (plain path),
+    within phase 9's limit, at forest's skew and k columns."""
+    from repro_torch.kernels.binning import bin_fused_matvec_op
+    idx, b = _skewed_index("forest_skew", 0 if k == 1 else k, cuda)
+    got = bin_fused_matvec_op(idx, b, average=average)
+    cpu, bc = _on_cpu(idx), b.cpu()
+
+    def plain(f):
+        lay = cpu.blocked._replace(coeff_lay=f(cpu.blocked.coeff_lay))
+        return bin_fused_matvec_op(cpu._replace(coeff=f(cpu.coeff),
+                                                blocked=lay), f(bc),
+                                   average=average and f is not
+                                   torch.ones_like)
+    _within_summed_limit(got.cpu(), plain, 1)
+
+
+def test_fused_matvec_op_launches_b2_once_and_the_readout(cuda):
+    """One op call on the card counts one B2 launch and one readout launch
+    and no other kernel wrapper's; its device kernels are B2's three and
+    the readout's (torch.profiler): no PyTorch kernel lays beta out or maps
+    the result back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.binning import bin_fused_matvec_op
+    idx, b = _skewed_index("trap", 0, cuda)
+    bin_fused_matvec_op(idx, b)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bin_fused_matvec_op(idx, b)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["bin_fused_matvec"] == 1 and counts["bin_readout"] == 1
+    assert sum(counts.values()) == 2, counts
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    kinds = {next((k for k in ("mv_chunk_kernel", "mv_walk_kernel",
+                               "mv_fix_kernel", "readout_kernel")
+                   if k in name), name) for name in names}
+    assert kinds == {"mv_chunk_kernel", "mv_walk_kernel", "mv_fix_kernel",
+                     "readout_kernel"}, names
 
 
 @pytest.mark.parametrize("k", [0, 1, 3])
@@ -447,6 +580,16 @@ def test_bad_arguments_raise(cuda):
         route_pack_cuda(slot.int()[:, :8].contiguous(),
                         torch.zeros((2, 8), device=cuda), used, 4,
                         out_dtype=torch.float16)
+    lay9 = slot[:, :9].int().contiguous()
+    with pytest.raises(ValueError):   # L % 4 != 0
+        bin_fused_matvec_cuda(lay9, torch.zeros((2, 9), device=cuda), lay9,
+                              torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):   # beta of another dtype
+        bin_fused_matvec_cuda(lay9[:, :8].contiguous(),
+                              torch.zeros((2, 8), device=cuda),
+                              lay9[:, :8].contiguous(),
+                              torch.zeros(3, dtype=torch.float64,
+                                          device=cuda))
     with pytest.raises(ValueError):   # more shared memory than the card's
         _bin_scatter(slot.int(), torch.zeros((2, 10), device=cuda), 1 << 20,
                      scatter_plan(2, 10, 1 << 20, 1, tile_bytes=1 << 20))
