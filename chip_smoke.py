@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
-predict and the distributed step, LM serving, KRR serving, and the paper's
-Tables 1 and 2.
+predict and the distributed step, LM serving, KRR serving, the paper's
+Tables 1 and 2, and sharded KRR serving.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -154,6 +154,35 @@ non-zero:
    (distinct slots an instance and the points on its largest slot,
    min/median/max over the instances); phase 5 times B2 and the matvec op
    there.
+10. Sharded KRR serving of phase 3's model through ``repro_torch.serve.
+   ShardedPredictor`` (piece grids; rank 0 fronts, every rank its piece).
+   (a) A 1x1 grid (the 2 GiB export with 16 golden queries) on phase 6's
+   one-rank NCCL group (phase 6 keeps it; it is destroyed after this
+   phase), in each route (broadcast, then dedup): counts reset, then
+   load, warmup of the 11 buckets, a request at every bucket's size and
+   the golden block while ``HeldToPlain`` holds B1, the readout and B8
+   against their plain versions at each new shape, then phase 8's 8192
+   single-row requests through ``MicroBatcher``; counts read: B1 and the
+   readout must launch, B8 in the dedup route only.  Every answer must be
+   bitwise equal to phase 8's ``Predictor`` on the same rows, repeats
+   equal their first answer, the golden block within its tol.  By bucket
+   the sharded ``predict()`` µs beside phase 8's graph warm path and
+   eager path; at buckets 1 and 1024 its device busy time by kernel and
+   its host self time by operator (torch.profiler).  Then a lifecycle of
+   1x1 grids of phase 8's lifecycle models: v1 served, v2 with its piece
+   scaled on disk (canary reject), v3 pieces without a manifest
+   (invisible), v4 a piece of the previous export (refused at load), v5
+   swapped in, ``rollback()`` to v1, whose answers must be
+   ``wlsh_krr_predict``'s bits (counted apart).  (b) A 2x2 grid: the
+   model exported as four 512 MiB pieces, four processes spawned on the
+   one card over gloo (named: NCCL refuses two ranks on one device), each
+   loading its piece and holding its launches against the plain versions;
+   rank 0 serves a request at every bucket's size, the golden block and
+   2048 batcher requests, within 1e-5 of max|pred| of phase 8's
+   ``Predictor`` (repeats bitwise their first answer).  Its times are of
+   ranks sharing one card over host-staged collectives.  Each export's
+   directory goes when its part ends, after a check of free disk.  The
+   phase's launches join the ``kernels`` line's (``sharded_launches``).
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -180,8 +209,9 @@ non-zero:
    wrapper also counts its launches by input shape; a kernel's
    ``launches`` are summed over the counted runs (phase 3, phase 6 (a),
    (b) and (c), phase 7, phase 8 with its graphs' replays, phase 9 (a)
-   and (b)), and B1, B3, the readout, B7 and B9 are timed at every shape
-   the runs before phase 9 launched them at (for B1 and the readout also
+   and (b), phase 10 (a) and (b)), and B1, B3, the readout (phase 6 (c)'s
+   combine too), B7 and B9 are timed at every shape the runs before
+   phase 9 launched them at (for B1 and the readout also
    phase 8's eleven bucket shapes, where the kernel's own time comes from
    torch.profiler as ``device_ms``: events over launches back to back
    time the host there), listed with those launches as ``by_shape`` (B9's
@@ -334,6 +364,22 @@ def device_split(torch, fn, reps: int = 20) -> dict[str, float]:
             split[e.name] = split.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / reps
     return split
+
+
+def host_split(torch, fn, reps: int = 20, top: int = 8):
+    """The host's time in one fn() call by operator, in us: the ``top``
+    operators by self CPU time from torch.profiler over ``reps`` calls,
+    and the self CPU time of all of them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted(((e.key, e.self_cpu_time_total / reps)
+                  for e in prof.key_averages()), key=lambda kv: -kv[1])
+    return ops[:top], sum(t for _, t in ops)
 
 
 def kernel_name(name: str) -> str:
@@ -963,7 +1009,7 @@ def phase_small(torch, dev, seed):
     ys = np.stack([y] + [y + 0.1 * rng.standard_normal(n).astype(np.float32)
                          for _ in range(k - 1)], axis=1)
     lsh = T.sample_lsh_params(rng, MAIN["m"], MAIN["d"], T.GammaPDF(),
-                              SMALL["lengthscale"])
+                              SMALL["lengthscale"], device="cpu")
     spec = T.WLSHKernelSpec(bucket=T.RECT)
     for precond in ("jacobi", "nystrom"):
         kw = dict(lam=SMALL["lam"], tol=1e-6, maxiter=400, precond=precond,
@@ -1114,7 +1160,7 @@ def phase_distributed(torch, data, seed, main_pred):
     if not all(bool(torch.isfinite(t).all()) for t in
                (beta_a, beta_b, beta_c, pred_a, pred_hj[True])):
         fail("phase 6: non-finite betas or predictions")
-    dist.destroy_process_group()
+    # the group stays: phase 10 serves on it, then leaves it
     return lsh, beta_a, counts, shapes
 
 
@@ -1826,6 +1872,36 @@ def readout_times(torch, slot, coeff, tables, average):
         ms_by_group={str(g): t for g, t in by_group.items()})
 
 
+def combine_times(torch, coeff, vals):
+    """The readout without a slot (``bin_combine_op``: point i reads
+    column i of the (m, n) values, summed over the instances) at (m, n):
+    its time, the plain combine's, one PyTorch call for the same sum
+    (``torch.linalg.vecdot`` over the instances) and the bound: coeff and
+    vals read once, out written once, 2 m n operations.  Returns the
+    ``by_shape`` times."""
+    from repro_torch.kernels.binning import bin_readout_cuda
+    from repro_torch.kernels.binning.ref import combine_ref
+    m, n = coeff.shape
+    run = lambda: bin_readout_cuda(None, coeff, vals, average=False)
+    out = run()
+    lib_out = torch.linalg.vecdot(coeff, vals, dim=0)
+    err = max_err(out, lib_out)
+    if not err <= 1e-5 * float(lib_out.abs().max()):
+        fail(f"combine (m={m}, n={n}): off torch.linalg.vecdot by {err}")
+    del lib_out
+    ts = [time_ms(torch, f) for f in (
+        run, lambda: torch.linalg.vecdot(coeff, vals, dim=0), run)]
+    ms, lib = (ts[0] + ts[2]) / 2, ts[1]
+    plain = time_ms(torch, lambda: combine_ref(coeff, vals, False), reps=1,
+                    warmup=False)
+    b = bound(nbytes(coeff, vals, out), 2.0 * coeff.numel())
+    say(f"  combine (the readout without a slot; m={m}, n={n}, sum): "
+        f"{ms:.4f} ms (turns {ts[0]:.4f}, {ts[2]:.4f}); "
+        f"torch.linalg.vecdot {lib:.4f} ms (off by {err:.3g}); plain "
+        f"{plain:.4f} ms; bound {b[0]:.4f} ms ({b[0] / ms:.1%} of it)")
+    return dict(ms=ms, bound_ms=b[0], plain_ms=plain, library_ms=lib)
+
+
 # phase 8: KRR serving of phase 3's model (the artifact, the predictor's
 # graphs, the micro-batcher, the version lifecycle)
 SERVE = dict(max_batch=1024, cache_entries=65536, golden=16,
@@ -1881,7 +1957,8 @@ def serve_lifecycle(torch, dev, root, seed):
     rejected and once v4 is rolled away (their graphs and tables
     released).  A counted run of its own: counts reset before the fits and
     read after the last predict; B1, B2, B3 and the readout must launch.
-    Returns the steps and (counts, counts by shape)."""
+    Returns the steps, (counts, counts by shape), the two models and the
+    queries (phase 10 serves them again, sharded)."""
     import repro_torch.core as T
     from repro_torch.data import make_regression
     from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
@@ -1967,7 +2044,7 @@ def serve_lifecycle(torch, dev, root, seed):
     if not np.array_equal(served, want):
         fail("phase 8 lifecycle: v1 after rollback differs from "
              "wlsh_krr_predict")
-    return active, (counts, shapes)
+    return active, (counts, shapes), models, xq
 
 
 def phase_serving(torch, data, model, seed):
@@ -2114,10 +2191,11 @@ def phase_serving(torch, data, model, seed):
             f"copy out, sync) / predict() / eager wlsh_krr_predict: " +
             ", ".join(f"{b}: {t['warm_us']:.1f} / {t['predict_us']:.1f} / "
                       f"{t['eager_us']:.1f}" for b, t in warm.items()))
-        life, life_counts = serve_lifecycle(torch, dev, f"{tmp}/versions",
-                                            seed)
+        life, life_counts, life_models, life_xq = serve_lifecycle(
+            torch, dev, f"{tmp}/versions", seed)
     return dict(predictor=pred, counts=(counts, shapes), graphs=graphs,
-                warm=warm, lifecycle=life, lifecycle_counts=life_counts)
+                warm=warm, lifecycle=life, lifecycle_counts=life_counts,
+                life_models=life_models, life_xq=life_xq)
 
 
 def serve_graph_times(torch, serving):
@@ -2201,12 +2279,21 @@ def plain_err(torch, name, a, got, what) -> dict:
     a fault (``seen``: an output of zeros, as a solve's first residual
     from x0 = 0 gives, cannot)."""
     from repro_torch.kernels.binning import (fused_matvec_src_ref,
-                                             readout_ref,
+                                             readout_ref, route_unpack_ref,
                                              scatter_blocked_ref, scatter_ref)
+    from repro_torch.kernels.binning.ref import combine_ref
     from repro_torch.kernels.featurize import featurize_ref
     if name == "featurize":
         err = compare_featurize(torch, got, featurize_ref(**a), what)
         return dict(err=err, share=err / 2e-6, seen=True)
+    if name == "route_unpack":
+        # B8 multiplies each read once: the plain version's bits
+        err = max_err(got, route_unpack_ref(a["cell_lay"], a["coeff_lay"],
+                                            a["back"]))
+        if err != 0.0:
+            fail(f"route_unpack {what}: differs from its plain version by "
+                 f"{err}")
+        return dict(err=err, share=0.0, seen=True)
     if name == "bin_fused_matvec":
         plain = lambda f: fused_matvec_src_ref(
             a["slot_lay"], f(a["coeff_lay"]), a["src"], f(a["beta"]),
@@ -2217,6 +2304,10 @@ def plain_err(torch, name, a, got, what) -> dict:
     elif name == "bin_scatter":
         plain = lambda f: scatter_ref(a["slot"], f(a["contrib"]),
                                       table_size=a["table_size"])
+    elif a["slot"] is None:
+        # the readout without a slot: point i reads column i
+        plain = lambda f: combine_ref(f(a["coeff"]), f(a["tables"]),
+                                      a["average"])
     else:
         plain = lambda f: readout_ref(a["slot"], f(a["coeff"]),
                                       f(a["tables"]), a["average"])
@@ -2226,7 +2317,7 @@ def plain_err(torch, name, a, got, what) -> dict:
     diff = (got.double() - want.double()).abs()
     top = float(want.abs().max())
     abs_sum = plain(torch.abs).double()
-    terms = (a["slot"].shape[0] if name == "bin_readout"
+    terms = (a["coeff"].shape[0] if name == "bin_readout"
              else plain(torch.ones_like).double())
     lim = 1e-5 * top + ROUND_UNITS * 2.0 ** -24 * abs_sum * terms ** 0.5
     share = float((diff / lim).nan_to_num(0.0).max())
@@ -2252,18 +2343,19 @@ class HeldToPlain:
     Each kernel's inputs at its largest shape (by bytes) are kept, copied,
     for phase 5 to time."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, held=HELD):
         self.torch = torch
+        self.held = held
         # name: {shape: plain_err's result}
-        self.errs = {name: {} for name in HELD}
-        self.zeros = {name: set() for name in HELD}  # all-zero outputs
+        self.errs = {name: {} for name in held}
+        self.zeros = {name: set() for name in held}  # all-zero outputs
         # name: (bytes, shape, arguments, output not all zeros)
         self.largest = {}
 
     def __enter__(self):
         import importlib
         self.saved = []
-        for name, (module, attr) in HELD.items():
+        for name, (module, attr) in self.held.items():
             mod = importlib.import_module(module)
             self.saved.append((mod, attr, getattr(mod, attr)))
             setattr(mod, attr, self._held(name, getattr(mod, attr)))
@@ -2679,7 +2771,9 @@ def held_bound(name, a, out):
     if name == "bin_scatter":
         return bound(nbytes(a["slot"], a["contrib"], out))
     k = a["tables"].shape[2] if a["tables"].ndim == 3 else 1
-    pts = a["slot"].numel()
+    pts = a["coeff"].numel()
+    if a["slot"] is None:         # the combine: coeff and the values once
+        return bound(nbytes(a["coeff"], a["tables"], out), 2.0 * k * pts)
     return bound(nbytes(a["slot"], a["coeff"], out) + 4 * k * pts,
                  2.0 * k * pts)
 
@@ -2702,8 +2796,437 @@ def held_times(torch, held):
     return extra
 
 
+# ---------------------------------------------------------------------------
+# phase 10: sharded KRR serving of phase 3's model
+# ---------------------------------------------------------------------------
+
+# (a) a 1x1 grid on phase 6's NCCL group; (b) a 2x2 grid of four processes
+# sharing the one card over gloo (NCCL refuses two ranks on one device)
+SHARD = dict(grid=(2, 2), stream_b=2048, warm_reps=20, timeout_s=300.0)
+SHARD_DISK_GIB = 2.2      # one export of phase 3's model at a time, and room
+# the kernels of a sharded predict, each held against its plain version at
+# every new shape: B1, the readout's combine (B4) and, with dedup, B8
+SHARD_HELD = {"featurize": HELD["featurize"],
+              "bin_readout": HELD["bin_readout"],
+              "route_unpack": ("repro_torch.kernels.binning.ops",
+                               "route_unpack_cuda")}
+
+
+def check_disk(path, gib, what):
+    import shutil
+    free = shutil.disk_usage(path).free
+    if free < gib * 2**30:
+        fail(f"{what}: {free / 2**30:.2f} GiB free under {path}, the "
+             f"export needs {gib} GiB")
+
+
+def served_bitwise(what, got, want):
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"phase 10: {what} differs from phase 8's Predictor"
+             + (f" by {np.abs(got - want).max()}"
+                if got.shape == want.shape else f" in shape {got.shape}"))
+
+
+def served_close(what, got, want):
+    """Within 1e-5 of max|want| (the JAX package's 2x2 bound)."""
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    lim = 1e-5 * float(np.abs(want).max())
+    if not err <= lim:
+        fail(f"phase 10: {what} differs from phase 8's Predictor by {err} "
+             f"> {lim}")
+    return err
+
+
+def repeats_equal(what, stream, res):
+    first = {}
+    for i, r in enumerate(stream):
+        j = first.setdefault(r.tobytes(), i)
+        if not np.array_equal(res[i], res[j]):
+            fail(f"phase 10: {what}: repeat of request {j} served "
+                 f"differently")
+
+
+def mean_us(fn, reps):
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def sharded_1x1(torch, dev, data, model, serving, tmp, seed):
+    """(a): phase 3's model as a 1x1 piece grid on phase 6's NCCL group,
+    in both routes; then the lifecycle at phase 8's scale."""
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
+    from repro_torch.launch.krr_serve import _synthetic_stream, serve_stream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import (ShardedPredictor, bucket_sizes,
+                                   export_artifact_sharded)
+    import torch.distributed as dist
+    pred8 = serving["predictor"]
+    Path(tmp).mkdir(parents=True)
+    check_disk(tmp, SHARD_DISK_GIB, "phase 10 (a)")
+    art = f"{tmp}/grid1x1"
+    t0 = time.perf_counter()
+    export_artifact_sharded(art, model, mesh_shape=(1, 1),
+                            golden_queries=SERVE["golden"])
+    t_export = time.perf_counter() - t0
+    mesh = make_host_mesh(device=dev)
+    say(f"  (a) 1x1 grid on the {dist.get_backend()} group of "
+        f"{dist.get_world_size()} rank: export {t_export:.2f} s, "
+        f"{dir_bytes(art)} bytes")
+    buckets = bucket_sizes(SERVE["max_batch"])
+    rows = data[2][:SERVE["max_batch"]].cpu().numpy()
+    stream = _synthetic_stream(MAIN["d"], SERVE["stream"],
+                               SERVE["dup_frac"], seed)
+    out, counted, errs = {}, {}, {}
+    for dedup in (False, True):
+        route = "dedup" if dedup else "broadcast"
+        reset_launch_counts()
+        with HeldToPlain(torch, SHARD_HELD) as held:
+            pred = ShardedPredictor(mesh=mesh, max_batch=SERVE["max_batch"],
+                                    cache_entries=SERVE["cache_entries"],
+                                    dedup=dedup)
+            t0 = sync_clock(torch)
+            aid = pred.load(art)
+            t_load = sync_clock(torch) - t0
+            golden = pred._hosted(aid).manifest["golden"]
+            gx = np.asarray(golden["x"], np.float32)
+            t0 = time.perf_counter()
+            n_b = pred.warmup()
+            t_warm = time.perf_counter() - t0
+            if n_b != len(buckets):
+                fail(f"phase 10 (a) {route}: warmup ran {n_b} buckets, not "
+                     f"{len(buckets)}")
+            served = {b: pred.predict(rows[:b], use_cache=False)
+                      for b in buckets}
+            got_golden = pred.predict(gx, use_cache=False)
+        stats = serve_stream(pred, stream, max_batch=SERVE["batch"],
+                             max_wait_us=SERVE["wait_us"])
+        counts, shapes = launch_counts(), launch_counts_by_shape()
+        need = ("featurize", "bin_readout") + (
+            ("route_unpack",) if dedup else ())
+        missing = [k for k in need if counts[k] <= 0]
+        if missing:
+            fail(f"phase 10 (a) {route}: kernels not launched: {missing}")
+        if not dedup and counts["route_unpack"]:
+            fail("phase 10 (a) broadcast: B8 launched off its route")
+        counted[route] = (counts, shapes)
+        errs[route] = held.summary()
+        out[dedup] = dict(pred=pred, served=served, golden=got_golden,
+                          gold=golden, stats=stats,
+                          cache=pred.cache_stats(), load_s=t_load,
+                          warm_s=t_warm)
+        say(f"      {route}: load {t_load:.2f} s, warmup of {n_b} buckets "
+            f"{t_warm:.2f} s; launches (counted: warmup, a request at every "
+            f"bucket, the golden block, the stream) "
+            f"{ {k: v for k, v in counts.items() if v} }; held to plain: "
+            f"{errs[route]}")
+
+    # outside the counts: every answer against phase 8's Predictor, bitwise
+    for dedup, o in out.items():
+        route = "dedup" if dedup else "broadcast"
+        for b, got in o["served"].items():
+            served_bitwise(f"(a) {route}: a request of {b} rows", got,
+                           pred8.predict(rows[:b], use_cache=False))
+        served_bitwise(f"(a) {route}: the golden block", o["golden"],
+                       pred8.predict(np.asarray(o["gold"]["x"], np.float32),
+                                     use_cache=False))
+        gerr = float(np.abs(o["golden"] - np.asarray(o["gold"]["y"])).max())
+        if not gerr <= o["gold"]["tol"]:
+            fail(f"phase 10 (a) {route}: golden block off by {gerr}")
+        st = o["stats"]
+        if st["served"] != SERVE["stream"]:
+            fail(f"phase 10 (a) {route}: stream served {st['served']}")
+        served_bitwise(f"(a) {route}: the stream", st["results"],
+                       pred8.predict(stream, use_cache=False))
+        repeats_equal(f"(a) {route}", stream, st["results"])
+        say(f"      {route} stream: {st['served']} single-row requests "
+            f"(dup_frac {SERVE['dup_frac']}, max_batch {SERVE['batch']}, "
+            f"max_wait_us {SERVE['wait_us']}): p50 {st['p50_us']:.1f} us, "
+            f"p99 {st['p99_us']:.1f} us, {st['qps']:.0f} QPS, "
+            f"{st['batches']} batches of mean {st['mean_batch']:.2f} rows, "
+            f"cache hit rate {o['cache']['hit_rate']:.3f}")
+    say("      every answer (a request at each bucket, the golden block, "
+        "the stream) bitwise equal to phase 8's Predictor on its rows, in "
+        "both routes; repeats equal their first answer")
+    pred = out[False]["pred"]
+    warm = {}
+    for b in buckets:
+        x = rows[:b]
+        warm[b] = dict(
+            sharded_us=mean_us(lambda: pred.predict(x, use_cache=False),
+                               SHARD["warm_reps"]),
+            graph_us=serving["warm"][b]["warm_us"],
+            eager_us=serving["warm"][b]["eager_us"])
+    say(f"      by bucket, us (host clock; sharded predict(), mean of "
+        f"{SHARD['warm_reps']} / phase 8's graph warm path / phase 8's "
+        f"eager wlsh_krr_predict): " + ", ".join(
+            f"{b}: {t['sharded_us']:.1f} / {t['graph_us']:.1f} / "
+            f"{t['eager_us']:.1f}" for b, t in warm.items()))
+    for b in (1, SERVE["max_batch"]):
+        # the device's share of a sharded predict: its kernels (the
+        # collectives' included) by torch.profiler
+        split = device_split(torch, lambda: pred.predict(
+            rows[:b], use_cache=False), reps=SHARD["warm_reps"])
+        busy = sum(split.values()) * 1e3
+        warm[b]["busy_us"] = busy
+        top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+        say(f"      bucket {b}: device busy {busy:.1f} us a predict, "
+            f"{busy / warm[b]['sharded_us']:.1%} of its wall; by kernel "
+            f"(us): " + ", ".join(f"{kernel_name(k)[:48]} {v * 1e3:.1f}"
+                                   for k, v in top))
+        ops, host = host_split(torch, lambda: pred.predict(
+            rows[:b], use_cache=False), reps=SHARD["warm_reps"])
+        warm[b]["host_self_us"] = host
+        say(f"      bucket {b}: host self time {host:.1f} us a predict "
+            f"(torch.profiler, CPU); top operators (us): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in ops))
+    for o in out.values():
+        o["pred"].unload(aid)
+        o["pred"].stop()
+        del o["pred"]
+    life, life_counts = sharded_lifecycle(torch, mesh, serving,
+                                          f"{tmp}/versions")
+    return dict(counts=counted, lifecycle=life, lifecycle_counts=life_counts,
+                warm=warm, errs=errs,
+                stats={("dedup" if k else "broadcast"): dict(
+                    p50_us=o["stats"]["p50_us"], p99_us=o["stats"]["p99_us"],
+                    qps=o["stats"]["qps"],
+                    hit_rate=o["cache"]["hit_rate"])
+                    for k, o in out.items()})
+
+
+def sharded_lifecycle(torch, mesh, serving, root):
+    """ServingRuntime over a root of 1x1 piece grids of phase 8's
+    lifecycle models (n = 2^16, B = 2^18): v1 served; v2 with its piece
+    scaled on disk (the canary rejects it); v3 with its piece and no
+    manifest (invisible); v4 a mixed-generation grid (refused at load); v5
+    swapped in, then rollback() to v1, whose answers must be
+    wlsh_krr_predict's bits.  Counts reset before, read after."""
+    import repro_torch.core as T
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (LifecycleConfig, ServingRuntime,
+                                   ShardedPredictor, bucket_sizes,
+                                   discover_versions,
+                                   export_artifact_sharded, version_dir)
+    from repro_torch.testing.faults import (mixed_generation_publish,
+                                            poison_piece, torn_publish)
+    m0, m1 = serving["life_models"]
+    xq = serving["life_xq"]
+    shape = (1, 1)
+    reset_launch_counts()
+    pred = ShardedPredictor(mesh=mesh, max_batch=SERVE["max_batch"])
+    rt = ServingRuntime(root, predictor=pred, config=LifecycleConfig(
+        probation_s=0.0, retain=2, warm_sizes=bucket_sizes(SERVE["batch"])))
+    v = lambda n: version_dir(root, n)
+    steps = []
+
+    def step(label, publish):
+        publish()
+        r = rt.poll_once()
+        steps.append((label, r["action"], rt.active_version))
+
+    def poisoned():
+        export_artifact_sharded(v(2), m0, mesh_shape=shape)
+        poison_piece(v(2), (0, 0), scale=3.0)
+
+    step("v1", lambda: export_artifact_sharded(v(1), m0, mesh_shape=shape))
+    step("v2 poisoned piece", poisoned)
+    step("v3 pieces, no manifest", lambda: torn_publish(
+        v(3), m1, mesh_shape=shape, after_saves=1))
+    step("v4 mixed generations", lambda: mixed_generation_publish(
+        v(4), m1, mesh_shape=shape, stale=(0, 0)))
+    step("v5", lambda: export_artifact_sharded(v(5), m1, mesh_shape=shape))
+    ok = rt.rollback("chip_smoke: rollback to v1")
+    steps.append(("rollback()", "rollback" if ok else "refused",
+                  rt.active_version))
+    served = rt.predict(xq, use_cache=False)
+    counts = launch_counts()
+    pred.stop()
+    want = (("v1", "swap", 1), ("v2 poisoned piece", "canary_reject", 1),
+            ("v3 pieces, no manifest", "none", 1),
+            ("v4 mixed generations", "load_rejected", 1),
+            ("v5", "swap", 5), ("rollback()", "rollback", 1))
+    if tuple(steps) != want:
+        fail(f"phase 10 (a) lifecycle: {steps}")
+    if 3 in [n for n, _ in discover_versions(root, sharded=True)]:
+        fail("phase 10 (a) lifecycle: v3 without a manifest is visible")
+    served_bitwise("(a) lifecycle: v1 after rollback", served,
+                   T.wlsh_krr_predict(m0, xq).cpu().numpy())
+    missing = [k for k in ("featurize", "bin_readout") if counts[k] <= 0]
+    if missing:
+        fail(f"phase 10 (a) lifecycle: kernels not launched: {missing}")
+    say(f"      lifecycle (phase 8's models, n = 2^16, B = 2^18, 1x1 "
+        f"grids): " + "; ".join(f"{a}: {b} (active v{c})"
+                                 for a, b, c in steps)
+        + f"; v1 after rollback bitwise equal to wlsh_krr_predict; "
+        f"rejected {rt.health()['rejected_versions']}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return steps, counts
+
+
+def _grid_rank(rank, world, device, store, art, rows, stream, out_dir):
+    """One rank of (b), in its own process: a gloo group on ``device``
+    (four ranks share the card), its piece, the predictor; rank 0 serves
+    the requests and the batcher's stream, the others run the worker
+    loop.  Every B1, readout and B8 launch is held against its plain
+    version at each new shape.  Writes its record to out_dir."""
+    sys.path.insert(0, str(REPO / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.krr_serve import serve_stream
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.serve import ShardedPredictor, bucket_sizes
+    torch.set_num_threads(1)
+    dev = init_distributed(torch.device(device), backend="gloo",
+                           init_method=f"file://{store}", rank=rank,
+                           world_size=world, timeout_s=SHARD["timeout_s"])
+    mesh = make_host_mesh(SHARD["grid"][0], device=dev)
+    res = dict(rank=rank, model_rank=mesh.model_rank,
+               data_rank=mesh.data_rank, backend=dist.get_backend())
+    reset_launch_counts()
+    with HeldToPlain(torch, SHARD_HELD) as held:
+        pred = ShardedPredictor(mesh=mesh, max_batch=SERVE["max_batch"],
+                                cache_entries=SERVE["cache_entries"])
+        if pred.is_front:
+            try:
+                t0 = time.perf_counter()
+                aid = pred.load(art)
+                res["load_s"] = time.perf_counter() - t0
+                gold = pred._hosted(aid).manifest["golden"]
+                t0 = time.perf_counter()
+                pred.warmup()
+                res["warmup_s"] = time.perf_counter() - t0
+                buckets = bucket_sizes(SERVE["max_batch"])
+                res["served"] = {b: pred.predict(rows[:b], use_cache=False)
+                                 for b in buckets}
+                res["gold"] = gold
+                res["golden"] = pred.predict(
+                    np.asarray(gold["x"], np.float32), use_cache=False)
+                st = serve_stream(pred, stream, max_batch=SERVE["batch"],
+                                  max_wait_us=SERVE["wait_us"])
+                res["stream"] = {k: st[k] for k in (
+                    "served", "results", "p50_us", "p99_us", "qps",
+                    "batches", "mean_batch")}
+                res["cache"] = pred.cache_stats()
+                res["warm_us"] = {
+                    b: mean_us(lambda b=b: pred.predict(rows[:b],
+                                                        use_cache=False),
+                               SHARD["warm_reps"]) for b in buckets}
+            finally:
+                pred.stop()
+        else:
+            pred.serve_forever()
+        # every rank holds a piece of its own: 1/4 of the tables
+        share = pred._handles[0].share
+        res["piece_bytes"] = nbytes(share.table)
+    res["counts"] = launch_counts()
+    res["held"] = held.summary()
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sharded_2x2(torch, dev, data, model, serving, tmp, seed):
+    """(b): phase 3's model as a 2x2 piece grid, four processes on the one
+    card over gloo, each loading only its piece."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch.krr_serve import _synthetic_stream
+    from repro_torch.serve import bucket_sizes, export_artifact_sharded
+    pred8 = serving["predictor"]
+    check_disk(tmp, SHARD_DISK_GIB, "phase 10 (b)")
+    art = f"{tmp}/grid2x2"
+    t0 = time.perf_counter()
+    export_artifact_sharded(art, model, mesh_shape=SHARD["grid"],
+                            golden_queries=SERVE["golden"])
+    t_export = time.perf_counter() - t0
+    rows = data[2][:SERVE["max_batch"]].cpu().numpy()
+    stream = _synthetic_stream(MAIN["d"], SHARD["stream_b"],
+                               SERVE["dup_frac"], seed + 2)
+    world = SHARD["grid"][0] * SHARD["grid"][1]
+    out_dir = Path(tmp) / "ranks"
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    mp.spawn(_grid_rank, args=(world, str(dev), f"{tmp}/pg_store", art, rows,
+                               stream, str(out_dir)),
+             nprocs=world, join=True)
+    t_spawn = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    r0 = ranks[0]
+    err = 0.0
+    for b, got in r0["served"].items():
+        err = max(err, served_close(f"(b) a request of {b} rows", got,
+                                    pred8.predict(rows[:b], use_cache=False)))
+    gerr = float(np.abs(r0["golden"] - np.asarray(r0["gold"]["y"])).max())
+    if not gerr <= r0["gold"]["tol"]:
+        fail(f"phase 10 (b): golden block off by {gerr}")
+    st = r0["stream"]
+    if st["served"] != SHARD["stream_b"]:
+        fail(f"phase 10 (b): stream served {st['served']}")
+    err = max(err, served_close("(b) the stream", st["results"],
+                                pred8.predict(stream, use_cache=False)))
+    repeats_equal("(b)", stream, st["results"])
+    for r in ranks:
+        missing = [k for k in ("featurize", "bin_readout")
+                   if r["counts"][k] <= 0]
+        if missing:
+            fail(f"phase 10 (b): rank {r['rank']} launched no {missing}")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in KERNELS}
+    say(f"  (b) {SHARD['grid'][0]}x{SHARD['grid'][1]} grid: {world} "
+        f"processes sharing the one card over {r0['backend']} (host-staged "
+        f"collectives: these times are of ranks sharing one card, not of a "
+        f"sharded deployment); export {t_export:.2f} s, each rank loads "
+        f"its piece ({r0['piece_bytes']} bytes), rank 0's load "
+        f"{r0['load_s']:.2f} s, warmup {r0['warmup_s']:.2f} s, spawn to "
+        f"exit {t_spawn:.2f} s")
+    say(f"      every answer within {err:.3g} of phase 8's Predictor "
+        f"(limit 1e-5 of max|pred|), repeats equal their first answer, "
+        f"golden within {gerr:.3g}; launches over the ranks "
+        f"{ {k: v for k, v in counts.items() if v} }; held to plain, by "
+        f"rank: " + " | ".join(f"{r['rank']} (data {r['data_rank']}, model "
+                               f"{r['model_rank']}): {r['held']}"
+                               for r in ranks))
+    say(f"      stream: {st['served']} single-row requests: p50 "
+        f"{st['p50_us']:.1f} us, p99 {st['p99_us']:.1f} us, "
+        f"{st['qps']:.0f} QPS, {st['batches']} batches of mean "
+        f"{st['mean_batch']:.2f} rows, cache hit rate "
+        f"{r0['cache']['hit_rate']:.3f}; by bucket, sharded predict() us: "
+        + ", ".join(f"{b}: {t:.1f}" for b, t in r0["warm_us"].items()))
+    return dict(counts=counts, stream=dict(
+        p50_us=st["p50_us"], p99_us=st["p99_us"], qps=st["qps"],
+        hit_rate=r0["cache"]["hit_rate"]), warm_us=r0["warm_us"], err=err)
+
+
+def phase_sharded(torch, data, model, serving, seed):
+    """Phase 10: sharded KRR serving of phase 3's model through
+    ``repro_torch.serve.ShardedPredictor``: (a) a 1x1 grid on phase 6's
+    NCCL group, both routes, and the lifecycle; (b) a 2x2 grid of four
+    processes on the one card over gloo."""
+    import shutil
+    import tempfile
+    say("== phase 10: sharded KRR serving of phase 3's model (piece grids, "
+        "rank 0 fronts, every rank its piece)")
+    t_start = time.perf_counter()
+    dev = data[0].device
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        a = sharded_1x1(torch, dev, data, model, serving, f"{tmp}/a", seed)
+        shutil.rmtree(f"{tmp}/a")
+        torch.cuda.empty_cache()
+        b = sharded_2x2(torch, dev, data, model, serving, tmp, seed)
+    counts = {k: sum(c.get(k, 0) for c, _ in a["counts"].values())
+              + a["lifecycle_counts"].get(k, 0) + b["counts"].get(k, 0)
+              for k in KERNELS}
+    say(f"  phase 10 {time.perf_counter() - t_start:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return dict(a=a, b=b, counts=counts)
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
-                lm_counts, serving, tables, seed):
+                lm_counts, serving, tables, sharded, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import bin_readout_cuda
     from repro_torch.kernels.binning.ops import _beta_to_layout
@@ -2815,6 +3338,16 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
             _, ro_timed[key] = readout_times(torch, lay.inv_pos, coeff,
                                              totals, True)
             continue
+        if key == (m, xq.shape[0], xq.shape[0], 1):
+            # phase 6 (c)'s hash-join predictions: the combine of the
+            # exchanged values (the readout without a slot)
+            from repro_torch.kernels.binning import gather_ref
+            qf = featurize_cuda(xq, *lsh, f=T.RECT, table_size=ts)
+            ro_timed[key] = combine_times(
+                torch, qf[5], gather_ref(qf[4], model.tables).contiguous())
+            del qf
+            torch.cuda.empty_cache()
+            continue
         if (km, kb, kk) != (m, ts, 1) or (
                 kn != n and not 1 <= kn <= xq.shape[0]):
             fail(f"readout launched at (m, n, B, k) = {key}, not a shape "
@@ -2875,6 +3408,10 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         if k:
             launches[name] += k
             extra.setdefault(name, {})["tables_launches"] = k
+    for name, k in sharded["counts"].items():
+        if k:
+            launches[name] += k
+            extra.setdefault(name, {})["sharded_launches"] = k
     for name, times in held_times(torch, held).items():
         extra.setdefault(name, {}).update(times)
     entries = []
@@ -2933,8 +3470,11 @@ def main(argv=None) -> int:
     serving = phase_serving(torch, data, model, args.seed)
     tables = phase_tables(torch, data, model, args.seed) + (
         main_phases["layout"],)
+    sharded = phase_sharded(torch, data, model, serving, args.seed)
+    import torch.distributed as dist
+    dist.destroy_process_group()
     entries = phase_times(torch, data, model, counts, errs, dist_state,
-                          lm_counts, serving, tables, args.seed)
+                          lm_counts, serving, tables, sharded, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ latest-complete discovery, in the JAX package's on-disk format.
 Layout:  <dir>/step_<n>/arrays.npz + meta.json, written to step_<n>.tmp and
 atomically renamed: a crash mid-write never leaves a half checkpoint that
 ``restore_checkpoint`` would pick up.  Arrays are stored on the host,
-unsharded.
+unsharded; ``restore_resharded`` hands each rank of a (model, data) grid
+its slice of each leaf.
 
 The npz keys are the JAX package's ``jax.tree_util.keystr`` paths, written
 here without JAX: a dict entry is ``['name']`` (keys in sorted order), a
@@ -171,6 +172,73 @@ def restore_checkpoint(directory: str, template: Any, step: int | None = None):
         obs.counter("io_checkpoint_restores_total",
                     "checkpoints restored from disk").inc()
         return _unflatten(template, arrays), step, meta
+
+
+PLACEMENT_AXES = ("model", "data")
+
+
+def _map_leaves(tree: Any, fn, path: str = "") -> Any:
+    """``tree``'s structure with each leaf replaced by fn(keystr path,
+    leaf)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_map_leaves(getattr(tree, name), fn,
+                                        f"{path}.{name}")
+                            for name in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn, f"{path}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def restore_resharded(directory: str, template: Any, placement: dict,
+                      mesh, step: int | None = None):
+    """Elastic restore onto this rank of a (model, data) grid: every leaf
+    comes back as this rank's slice of it, on ``mesh.device``, whatever
+    grid (or single host) wrote the checkpoint.  ``placement`` maps a
+    leaf's keystr path (``"['tables']"``, ``".lsh.w"``) to its spec, one
+    entry per leading dimension: ``"model"`` (cut into ``mesh.model``
+    parts, mine at ``mesh.model_rank``), ``"data"`` (``mesh.data`` parts at
+    ``mesh.data_rank``) or None; a leaf it does not name is replicated.
+    The JAX package places leaves by JAX shardings; this is the same
+    P(model, data) cut, taken by each rank for itself.  Returns
+    (state, step, meta) with tensor leaves."""
+    paths = {p for p, _ in _walk(template, "")}
+    unknown = sorted(set(placement) - paths)
+    if unknown:
+        raise KeyError(f"placement names no leaf of the template: {unknown}")
+    state, step, meta = restore_checkpoint(directory, template, step)
+    parts = {"model": (mesh.model, mesh.model_rank),
+             "data": (mesh.data, mesh.data_rank)}
+
+    def place(path, arr):
+        arr = np.asarray(arr)
+        spec = tuple(placement.get(path) or ())
+        if len(spec) > arr.ndim:
+            raise ValueError(f"{path}: spec {spec} has more entries than "
+                             f"its {arr.ndim} dimensions")
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            if axis not in parts:
+                raise ValueError(f"{path}: unknown axis {axis!r}; expected "
+                                 f"one of {PLACEMENT_AXES} or None")
+            count, index = parts[axis]
+            size = arr.shape[dim]
+            if size % count:
+                raise ValueError(f"{path}: dimension {dim} of size {size} "
+                                 f"does not split into {count} {axis} "
+                                 f"shards")
+            step_ = size // count
+            arr = arr[(slice(None),) * dim
+                      + (slice(index * step_, (index + 1) * step_),)]
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(mesh.device)
+
+    return _map_leaves(state, place), step, meta
 
 
 class CheckpointManager:

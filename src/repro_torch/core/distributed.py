@@ -19,7 +19,11 @@ rank running one shard of its ``shard_map`` body:
   stay on the device.
 
 Every collective runs whatever the group's size: a group of one rank runs
-the same code path as a multi-card job.  The step functions take this
+the same code path as a multi-card job.  A multi-axis data grid (the JAX
+step's ``data_axes=("pod", "data")``) is one linear data axis here
+(``launch/mesh.py``): the data group spans pod x data in the JAX package's
+row-major order, so the steps run on it unchanged.  The step functions
+take this
 rank's shards (x, y by rows over data; LSH rows over model) and return this
 rank's shards of the results.
 """
@@ -37,12 +41,13 @@ import torch.distributed as dist
 from .. import obs
 from ..backend import as_tensor
 from ..errors import SolveDivergedError, WireOverflowError
-from ..kernels.binning.ops import (layout_rows, route_pack_op,
-                                   route_unpack_op, rows_to_points)
+from ..kernels.binning.ops import (bin_combine_op, layout_rows,
+                                   route_pack_op, route_unpack_op,
+                                   rows_to_points)
 from ..launch.mesh import Mesh
 from ..testing.faults import FaultPlan, apply_wire_fault, maybe_stall
 from .bucket_fns import BucketFn
-from .lsh import LSHParams
+from .lsh import LSHParams, sample_lsh_params
 from .operator import WLSHOperator
 from .precond import (DEFAULT_NYSTROM_RANK, PRECOND_NAMES, jacobi_precond,
                       nystrom_precond, table_diag)
@@ -487,34 +492,34 @@ def _hashjoin_loads(rt: _Routing, lay, beta_local: torch.Tensor,
     return table, nonfinite
 
 
-def _hashjoin_return(rt: _Routing, lay, served: torch.Tensor, mesh: Mesh,
-                     m_total: int, payload_dtype,
-                     plan: FaultPlan | None = None, sanitize: bool = False):
-    """all_to_all the served (NB[, k]) values back and unpack (B8):
-    out = reduce_model(sum_s coeff * back[cell]) / m.  ``sanitize`` zeroes
-    non-finite received cells (prediction: a fault degrades to dropped
-    mass); the CG matvec leaves them in, for the solver's sentinel."""
+def _hashjoin_back(rt: _Routing, served: torch.Tensor, mesh: Mesh,
+                   payload_dtype, plan: FaultPlan | None = None):
+    """all_to_all the served (NB[, k]) values back on the wire dtype:
+    (NB[, k]) f32, each point's value at its wire cell."""
     tail = tuple(served.shape[1:])
     nb = rt.recv_ids.shape[0]
-    n_shards = nb // rt.cap
-    wire = apply_wire_fault(
-        plan, served.to(payload_dtype).view((n_shards, rt.cap) + tail))
-    back = _a2a(wire, mesh.data_group).view((nb,) + tail).float()
-    if sanitize:
-        back = torch.where(torch.isfinite(back), back, 0.0)
-    out_lay = route_unpack_op(rt.cell_lay, lay.coeff_lay, back)
-    out = rows_to_points(lay, out_lay).sum(0)
-    return _all_reduce(out, mesh.model_group) / m_total
+    wire = apply_wire_fault(plan, served.to(payload_dtype).view(
+        (nb // rt.cap, rt.cap) + tail))
+    return _a2a(wire, mesh.data_group).view((nb,) + tail).float()
 
 
-def _hashjoin_readout(rt: _Routing, lay, table_flat: torch.Tensor,
-                      mesh: Mesh, m_total: int, payload_dtype,
-                      plan: FaultPlan | None = None):
+def _hashjoin_readout(rt: _Routing, lay, coeff: torch.Tensor,
+                      table_flat: torch.Tensor, mesh: Mesh, m_total: int,
+                      payload_dtype, plan: FaultPlan | None = None):
     """Serve the fixed slot requests from my table shard and return them
-    (prediction against a stored shard)."""
-    served = _take(table_flat, rt.recv_ids)
-    return _hashjoin_return(rt, lay, served, mesh, m_total, payload_dtype,
-                            plan, sanitize=True)
+    (prediction against a stored shard); a non-finite received cell is
+    zeroed (a fault degrades to dropped mass).  The unpack (B8) reads each
+    point's value unscaled (no coefficient), and the readout's combine
+    (``bin_combine_op``, B4) forms coeff x value and sums the instances,
+    so the prediction is the single-host readout's bits on one model rank
+    and the broadcast route's on any grid."""
+    back = _hashjoin_back(rt, _take(table_flat, rt.recv_ids), mesh,
+                          payload_dtype, plan)
+    back = torch.where(torch.isfinite(back), back, 0.0)
+    vals_lay = route_unpack_op(rt.cell_lay, None, back)
+    out = bin_combine_op(coeff, rows_to_points(lay, vals_lay),
+                         average=False)
+    return _all_reduce(out, mesh.model_group) / m_total
 
 
 def _hashjoin_matvec(rt: _Routing, lay, m_total: int, mesh: Mesh,
@@ -530,7 +535,12 @@ def _hashjoin_matvec(rt: _Routing, lay, m_total: int, mesh: Mesh,
     served = _take(recv, rt.serve_map[0])
     for r in range(1, rt.serve_map.shape[0]):
         served = served + _take(recv, rt.serve_map[r])
-    return _hashjoin_return(rt, lay, served, mesh, m_total, payload_dtype)
+    # unpack (B8): sum_s coeff * back[cell]; non-finite cells stay in, for
+    # the solver's sentinel
+    back = _hashjoin_back(rt, served, mesh, payload_dtype)
+    out_lay = route_unpack_op(rt.cell_lay, lay.coeff_lay, back)
+    out = rows_to_points(lay, out_lay).sum(0)
+    return _all_reduce(out, mesh.model_group) / m_total
 
 
 class StepStats(NamedTuple):
@@ -708,13 +718,16 @@ def _broadcast_readout(slot: torch.Tensor, coeff: torch.Tensor,
     """Route -> serve -> readout WITHOUT the dedup pack: every owner gets
     the raw (m_loc, n_loc) slot requests (one int32 all_to_all), serves
     the ones it owns (others read 0: each request has one owner), and the
-    value exchange sums over the owners.  No layout, no capacity, nothing
-    to overflow; the wire is O(n_shards * m_loc * n_loc)."""
+    value exchange sums over the owners, adding exact zeros.  No layout,
+    no capacity, nothing to overflow; the wire is O(n_shards * m_loc *
+    n_loc).  The combine runs through the readout (``bin_combine_op``,
+    B4), so on one model rank a prediction is the single-host readout's
+    bits."""
     m_loc, n_loc = slot.shape
     n_shards = mesh.data
     send = slot[None].expand(n_shards, m_loc, n_loc)
     recv = _a2a(send, mesh.data_group)
-    local = recv - dist.get_rank(mesh.data_group) * spp
+    local = recv - mesh.data_rank * spp
     inst = torch.arange(m_loc, dtype=torch.int32, device=slot.device)
     ids = torch.where((local >= 0) & (local < spp),
                       inst[None, :, None] * spp + local, m_loc * spp)
@@ -722,8 +735,8 @@ def _broadcast_readout(slot: torch.Tensor, coeff: torch.Tensor,
     back = _a2a(served.to(payload_dtype), mesh.data_group).float()
     back = torch.where(torch.isfinite(back), back, 0.0)
     vals = back.sum(0)                               # (m_loc, n_loc[, k])
-    contrib = coeff * vals if vals.ndim == 2 else coeff[..., None] * vals
-    return _all_reduce(contrib.sum(0), mesh.model_group) / m_total
+    out = bin_combine_op(coeff, vals, average=False)
+    return _all_reduce(out, mesh.model_group) / m_total
 
 
 def make_krr_predict_hashjoin(mesh: Mesh, cfg: KRRStepConfig, f: BucketFn,
@@ -745,13 +758,20 @@ def make_krr_predict_hashjoin(mesh: Mesh, cfg: KRRStepConfig, f: BucketFn,
         raise ValueError("hash-join needs table_size divisible by the data "
                          f"shard count ({cfg.table_size} % {n_shards})")
 
-    def predict(x_local, lsh_local, table_local):
+    def index(x_local, lsh_local):
+        """My rows' featurization and index (B1): local, no collective."""
         x, _, lsh = _shard_inputs(mesh, x_local, None, lsh_local)
         op = WLSHOperator(lsh=lsh, bucket=f, table_size=cfg.table_size,
                           fused=False)
+        if not dedup:
+            return op.build_index(op.featurize(x), blocked=False)
+        return op.build_index(op.featurize(x), blocked=True, parts="both")
+
+    def exchange(idx, table_local):
+        """The routing, the serve and the combine of an ``index`` result:
+        every collective of the predict."""
         table_flat = table_local.reshape((-1,) + tuple(table_local.shape[2:]))
         if not dedup:
-            idx = op.build_index(op.featurize(x), blocked=False)
             out = _broadcast_readout(idx.slot, idx.coeff, table_flat, mesh,
                                      cfg.table_size // n_shards, cfg.m,
                                      payload_dtype)
@@ -759,17 +779,28 @@ def make_krr_predict_hashjoin(mesh: Mesh, cfg: KRRStepConfig, f: BucketFn,
                 return out, torch.zeros((1,), dtype=torch.int32,
                                         device=out.device)
             return out
-        idx = op.build_index(op.featurize(x), blocked=True, parts="both")
         rt = _build_routing(idx.slot, idx.blocked, mesh, cfg.table_size,
                             cap_factor)
-        out = _hashjoin_readout(rt, idx.blocked, table_flat, mesh, cfg.m,
-                                payload_dtype, cfg.fault_plan)
+        out = _hashjoin_readout(rt, idx.blocked, idx.coeff, table_flat,
+                                mesh, cfg.m, payload_dtype, cfg.fault_plan)
         if with_stats:
             return out, _all_reduce(rt.dropped.clone(),
                                     mesh.model_group)[None]
         return out
 
+    def predict(x_local, lsh_local, table_local):
+        return exchange(index(x_local, lsh_local), table_local)
+
+    # the two halves apart, for a caller (the sharded predictor) that
+    # checks every rank's local half before any rank enters a collective
+    predict.index, predict.exchange = index, exchange
     return predict
+
+
+# The global LSH instances of a sharded step, drawn on the host (a numpy
+# draw; every rank draws the same rows from the same seed and keeps its
+# model shard with ``launch.mesh.local_lsh``): the JAX package's name.
+sample_sharded_lsh = sample_lsh_params
 
 
 def query_shard_touch(slots, table_size: int, n_shards: int):

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..backend import as_tensor
+from ..backend import as_tensor, resolve_device
 from .bucket_fns import BucketFn
 
 _MASK32 = 0xFFFF_FFFF
@@ -82,10 +82,12 @@ def lsh_params_from_numpy(w, z, r1, r2, device) -> LSHParams:
 
 def sample_lsh_params(rng: np.random.Generator, m: int, d: int,
                       pdf: GammaPDF, lengthscale: float = 1.0, *,
-                      device="cpu") -> LSHParams:
+                      device=None) -> LSHParams:
     """Draw m iid LSH instances on the host from ``rng`` (torch's Gamma
-    sampler takes no generator).  ``lengthscale`` folds into w, as hashing
+    sampler takes no generator) and put them on ``device`` (None: the
+    card, raising without one).  ``lengthscale`` folds into w, as hashing
     x/ell with widths w equals widths ell*w."""
+    device = resolve_device(device)
     w = (rng.gamma(pdf.shape, 1.0, (m, d)).astype(np.float32)
          * np.float32(pdf.scale) * np.float32(lengthscale))
     z = rng.random((m, d), dtype=np.float32) * w

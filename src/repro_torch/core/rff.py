@@ -31,9 +31,11 @@ def rff_features(w: torch.Tensor, b: torch.Tensor,
 
 def rff_draw(rng: np.random.Generator, d: int, n_features: int,
              lengthscale: float = 1.0, *,
-             device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """(W, b) on ``device``, drawn on the host from ``rng``: the spectral
-    density of exp(-||delta||^2 / ell^2) is N(0, 2 / ell^2)."""
+             device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(W, b) on ``device`` (None: the card, raising without one), drawn
+    on the host from ``rng``: the spectral density of
+    exp(-||delta||^2 / ell^2) is N(0, 2 / ell^2)."""
+    device = resolve_device(device)
     w = (rng.standard_normal((d, n_features), dtype=np.float32)
          * np.float32(np.sqrt(2.0) / lengthscale))
     b = rng.uniform(0.0, 2.0 * np.pi, n_features).astype(np.float32)

@@ -346,12 +346,30 @@ def table_loads(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
     return tables.reshape((m, b) + tail)
 
 
+def instance_sum_(vals: torch.Tensor) -> torch.Tensor:
+    """Sum over the instances (dim 0), in place in ``vals``, in a pairwise
+    order fixed by their count alone: row s plus row s + h, halving (an odd
+    last row carried to the next round) until one row is left.  A point's
+    sum is then the same bits whatever the other points are (a serving
+    bucket padded differently, a data shard of the batch), which ``sum(0)``
+    on the CPU does not promise: its order follows the shape."""
+    m = vals.shape[0]
+    while m > 1:
+        h = m // 2
+        vals[:h] += vals[h:2 * h]
+        if m % 2:
+            vals[h] = vals[2 * h]
+        m = h + m % 2
+    return vals[0]
+
+
 def combine_instances(coeff: torch.Tensor, vals: torch.Tensor,
                       average: bool = True) -> torch.Tensor:
     """The readout's combine: (1/m) sum_s coeff * vals (plain), or the plain
-    instance sum when not ``average``; vals (m, n) or (m, n, k)."""
-    vals = _rowwise(coeff, vals)
-    return vals.mean(0) if average else vals.sum(0)
+    instance sum when not ``average`` (``instance_sum_``'s order); vals
+    (m, n) or (m, n, k)."""
+    out = instance_sum_(_rowwise(coeff, vals))
+    return out / coeff.shape[0] if average else out
 
 
 def point_readout(slot: torch.Tensor, coeff: torch.Tensor,

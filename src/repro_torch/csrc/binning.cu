@@ -651,6 +651,9 @@ __global__ void gather_kernel(const int32_t* __restrict__ slot,
 // of instances (16: the fastest of 1, 4, 16 and 64 at predict's shape on
 // an H100, chip_smoke.py phase 5).  The wrapper picks the group from the
 // shape.
+// With no slot (a null pointer) point i reads column i of each table (B =
+// n): the combine alone, on values already read per point (the sharded
+// predict's exchanged values), in the same order and with the same bits.
 // ---------------------------------------------------------------------------
 constexpr int RU = 4;        // instances whose loads a thread has in flight
 constexpr int RO_THREADS = 256;
@@ -676,7 +679,9 @@ readout_kernel(const int32_t* __restrict__ slot,
         for (int u = 0; u < RU; ++u) {
           if (s + u < s1) {
             const long long at = (s + u) * n + i;
-            sl[u] = __ldcs(reinterpret_cast<const int4*>(slot + at));
+            sl[u] = slot ? __ldcs(reinterpret_cast<const int4*>(slot + at))
+                         : make_int4((int)i, (int)i + 1, (int)i + 2,
+                                     (int)i + 3);
             c[u] = __ldcs(reinterpret_cast<const float4*>(coeff + at));
           }
         }
@@ -713,7 +718,7 @@ readout_kernel(const int32_t* __restrict__ slot,
 #pragma unroll
         for (int u = 0; u < RU; ++u) {
           if (s + u < s1) {
-            sl[u] = __ldcs(slot + (s + u) * n + i);
+            sl[u] = slot ? __ldcs(slot + (s + u) * n + i) : (int)i;
             c[u] = __ldcs(coeff + (s + u) * n + i);
           }
         }

@@ -163,6 +163,8 @@ __global__ void route_pack_kernel(const int32_t* __restrict__ cell,
 // Design: one thread per (position, column), consecutive threads on
 // consecutive positions, so cell, coeff and out are coalesced; the back
 // reads follow the ascending cells of the layout.
+// With no coeff (a null pointer) each output is the value read, unscaled
+// (coefficient 1: the sharded predict, whose combine applies coeff).
 // ---------------------------------------------------------------------------
 __global__ void route_unpack_kernel(const int32_t* __restrict__ cell,
                                     const float* __restrict__ coeff,
@@ -171,7 +173,7 @@ __global__ void route_unpack_kernel(const int32_t* __restrict__ cell,
                                     unsigned long long num_cells, int k) {
   const long long s = blockIdx.y;
   const int32_t* crow = cell + s * L;
-  const float* frow = coeff + s * L;
+  const float* frow = coeff ? coeff + s * L : nullptr;
   float* orow = out + s * L * k;
   const long long lk = L * k;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -180,7 +182,7 @@ __global__ void route_unpack_kernel(const int32_t* __restrict__ cell,
     const int32_t c = crow[p];
     const bool real = (unsigned long long)(uint32_t)c < num_cells;
     const float v = real ? back[(long long)c * k + (e - p * k)] : 0.0f;
-    orow[e] = frow[p] * v;
+    orow[e] = frow ? frow[p] * v : v;
   }
 }
 

@@ -224,29 +224,42 @@ def bin_readout_cuda(slot, coeff, tables, *, average: bool = True):
     """out[i(, j)] = mean over s (sum when not ``average``) of coeff[s, i] *
     tables[s, slot[s, i](, j)]: the gather of ``bin_gather_cuda`` with the
     readout's combine fused in.  slot (m, n) int32 in [0, B), coeff (m, n)
-    f32, tables (m, B) or (m, B, k) f32 -> (n,) or (n, k).  The instances
-    are added in order, one fma each (the same bits from launch to launch),
-    ``readout_group``'s count of them a launch."""
-    m, n, B, k = _gather_args(slot, tables, "slot")
+    f32, tables (m, B) or (m, B, k) f32 -> (n,) or (n, k).  slot None
+    reads column i for point i (tables (m, n[, k]): the combine alone, on
+    values already read per point; no index is built or read).  The
+    instances are added in order, one fma each (the same bits from launch
+    to launch), ``readout_group``'s count of them a launch."""
+    if slot is None:
+        m, n = coeff.shape
+        _need(tables, "tables", torch.float32)
+        if tables.ndim not in (2, 3) or tuple(tables.shape[:2]) != (m, n):
+            raise ValueError(f"readout without slot: tables must be (m={m}, "
+                             f"n={n}[, k]), got {tuple(tables.shape)}")
+        B, k = n, tables.shape[2] if tables.ndim == 3 else 1
+        if m > 65535 or n * k >= 2 ** 31:
+            raise ValueError(f"readout: m={m}, n*k={n * k} out of range")
+    else:
+        m, n, B, k = _gather_args(slot, tables, "slot")
     _need(coeff, "coeff", torch.float32, (m, n))
     if m < 1:
         raise ValueError("readout: needs at least one instance")
     return _readout_launch(slot, coeff, tables, average, readout_group(
-        m, n, B, k, _l2_bytes(slot.device)))
+        m, n, B, k, _l2_bytes(coeff.device)))
 
 
 def _readout_launch(slot, coeff, tables, average: bool, group: int):
     """One launch of the readout on checked inputs, ``group`` instances
     added a launch (any grouping gives the same bits)."""
-    m, n = slot.shape
+    m, n = coeff.shape
     B, k = tables.shape[1], tables.shape[2] if tables.ndim == 3 else 1
     out = torch.empty((n,) + tuple(tables.shape[2:]), dtype=torch.float32,
-                      device=slot.device)
+                      device=coeff.device)
     if out.numel() == 0:
         return out
     lib = _lib()
     count_launch(bin_readout_cuda, (m, n, B, k))
-    rc = lib.bin_readout_launch(slot.data_ptr(), coeff.data_ptr(),
+    rc = lib.bin_readout_launch(None if slot is None else slot.data_ptr(),
+                                coeff.data_ptr(),
                                 tables.data_ptr(), out.data_ptr(), m, n, B, k,
                                 int(group), float(m if average else 1),
                                 stream_ptr(out.device))
@@ -449,10 +462,11 @@ def route_unpack_cuda(cell_lay, coeff_lay, back):
     """out_lay[s, p(, j)] = coeff_lay[s, p] * back[cell_lay[s, p](, j)],
     where a sentinel cell (>= len(back)) reads 0; cell_lay and coeff_lay
     (m, L), back (num_cells,) or (num_cells, k) f32 -> (m, L) or
-    (m, L, k)."""
+    (m, L, k).  coeff_lay None reads the values unscaled."""
     num_cells = back.shape[0]
     m, L = _cells(cell_lay, num_cells)
-    _need(coeff_lay, "coeff_lay", torch.float32, (m, L))
+    if coeff_lay is not None:
+        _need(coeff_lay, "coeff_lay", torch.float32, (m, L))
     _need(back, "back", torch.float32)
     if back.ndim not in (1, 2):
         raise ValueError(f"back must be (cells[, k]), got "
@@ -464,7 +478,9 @@ def route_unpack_cuda(cell_lay, coeff_lay, back):
         return out
     lib = _route_lib()
     count_launch(route_unpack_cuda, (m, L, num_cells, k))
-    rc = lib.route_unpack_launch(cell_lay.data_ptr(), coeff_lay.data_ptr(),
+    rc = lib.route_unpack_launch(cell_lay.data_ptr(),
+                                 None if coeff_lay is None
+                                 else coeff_lay.data_ptr(),
                                  back.data_ptr(), out.data_ptr(), m, L,
                                  num_cells, k, stream_ptr(out.device))
     check(rc, "route_unpack", lib.route_error_string)

@@ -16,6 +16,8 @@ the CPU).
   times its coefficients, combined over the instances: one kernel (the
   gather with the combine fused in), or over the layout when the index
   has one (``bin_readout_blocked_op``: gather, then combine).
+* ``bin_combine_op``       — the readout's combine alone, on values read
+  elsewhere (the sharded predict's exchanged values), through B4.
 * ``table_matvec_op`` — the split matvec, loads then readout (the tables
   round-trip through device memory: the psum-able path).
 * ``route_pack_op`` / ``route_unpack_op`` — the hash join's wire pack and
@@ -185,6 +187,22 @@ def bin_readout_op(index: TableIndex, tables: torch.Tensor, *,
     return readout_ref(index.slot, index.coeff, tables, average)
 
 
+def bin_combine_op(coeff: torch.Tensor, vals: torch.Tensor, *,
+                   average: bool = True) -> torch.Tensor:
+    """The readout's combine on values already read per point: vals
+    (m, n) or (m, n, k) -> mean (sum when not ``average``) over s of
+    coeff[s, i] * vals[s, i(, j)].  It runs through the readout (B4) with
+    vals as the table and each point reading its own column (no slot), so
+    the sum has the readout's order and its bits: a value exchanged by the
+    sharded predict combines exactly as the single-host readout combines
+    it (the plain readout is this combine on the values it gathers)."""
+    vals = vals.to(torch.float32).contiguous()
+    if on_card(coeff, vals):
+        return bin_readout_cuda(None, coeff.contiguous(), vals,
+                                average=average)
+    return combine_ref(coeff, vals, average)
+
+
 def table_matvec_op(index: TableIndex, beta: torch.Tensor, *,
                     average: bool = True) -> torch.Tensor:
     """The split matvec: tables from beta, then the readout."""
@@ -204,9 +222,10 @@ def route_pack_op(cell_lay: torch.Tensor, contrib_lay: torch.Tensor,
                           num_cells=used.shape[0] * cap).to(out_dtype)
 
 
-def route_unpack_op(cell_lay: torch.Tensor, coeff_lay: torch.Tensor,
+def route_unpack_op(cell_lay: torch.Tensor, coeff_lay: torch.Tensor | None,
                     back: torch.Tensor) -> torch.Tensor:
-    """Hash-join wire unpack (B8): (m, L[, k]) coeff-weighted reads."""
+    """Hash-join wire unpack (B8): (m, L[, k]) coeff-weighted reads
+    (coeff_lay None: the reads unscaled)."""
     if on_card(cell_lay, back):
         return route_unpack_cuda(cell_lay, coeff_lay, back.contiguous())
     return route_unpack_ref(cell_lay, coeff_lay, back)

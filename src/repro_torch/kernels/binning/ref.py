@@ -131,11 +131,14 @@ def route_pack_ref(cell_lay, contrib_lay, *, num_cells: int):
 
 def route_unpack_ref(cell_lay, coeff_lay, back):
     """out_lay[s, p(, j)] = coeff_lay[s, p] * back[cell_lay[s, p](, j)],
-    with sentinel cells (>= len(back)) reading 0."""
+    with sentinel cells (>= len(back)) reading 0; coeff_lay None reads the
+    values unscaled."""
     num_cells = back.shape[0]
     cell = cell_lay.long()
     idx = torch.where((cell >= 0) & (cell < num_cells), cell, num_cells)
     pad = torch.zeros((1,) + tuple(back.shape[1:]), dtype=back.dtype,
                       device=back.device)
     vals = torch.cat([back, pad])[idx]
+    if coeff_lay is None:
+        return vals
     return (coeff_lay if back.ndim == 1 else coeff_lay[..., None]) * vals

@@ -18,13 +18,22 @@ latency, QPS and cache stats.
     PYTHONPATH=src python -m repro_torch.launch.krr_serve --selftest \
         --device cpu --metrics-port 0 --metrics-dump metrics.jsonl
 
+    # SHARDED serving on a (model x data) grid of ranks, one process each
+    # (pieces of an export_artifact_sharded grid; rank 0 serves, the other
+    # ranks run the worker loop), here 4 gloo ranks on the CPU:
+    PYTHONPATH=src torchrun --nproc_per_node 4 -m \
+        repro_torch.launch.krr_serve --device cpu --selftest --mesh 2x2
+
 The flags are those of ``repro.launch.krr_serve`` with ``--device`` in place
-of ``--backend``; ``--mesh`` and ``--placement`` (sharded serving) are not
-ported yet.  The request stream is synthetic by default (uniform points in
-the training box, with ``--dup-frac`` of requests replaying earlier ones:
-the traffic the bucket-exact cache exists for) or read from an (n, d)
-``.npy`` (``--input``).  Every request goes through submit -> coalesce ->
-padded warm path (a CUDA graph replay on the card) or cache hit -> future.
+of ``--backend``.  With ``--mesh`` the process group comes from
+``torchrun``'s environment (a group of one without it), NCCL on the card
+and gloo on the CPU, and must have model x data ranks.  The request stream
+is synthetic by default (uniform points in the training box, with
+``--dup-frac`` of requests replaying earlier ones: the traffic the
+bucket-exact cache exists for) or read from an (n, d) ``.npy``
+(``--input``).  Every request goes through submit -> coalesce -> padded
+warm path (a CUDA graph replay on the card; the grid's command under
+``--mesh``) or cache hit -> future.
 """
 from __future__ import annotations
 
@@ -39,8 +48,9 @@ import numpy as np
 from .. import obs
 from ..backend import resolve_device
 from ..serve import (DeadlineExceeded, LifecycleConfig, MicroBatcher,
-                     Overloaded, Predictor, ServingRuntime, WorkerCrashed,
-                     bucket_sizes, version_dir)
+                     Overloaded, Predictor, ServingRuntime, ShardedPredictor,
+                     WorkerCrashed, bucket_sizes, parse_mesh_shape,
+                     version_dir)
 
 # series the live endpoint must expose once the selftest traffic has run —
 # the CI serving job scrapes /metrics and fails if any are absent
@@ -52,6 +62,9 @@ _REQUIRED_SERIES = (
     "serve_batcher_served_total", "serve_queue_wait_us", "serve_batch_size",
     "serve_batch_predict_us", "serve_queue_depth_hwm",
 )
+# extra series under --mesh (registered per shard at load, so an alerting
+# rule can tell "zero overflow" from "not sharded")
+_SHARDED_SERIES = ("serve_shard_overflow_dropped", "serve_shard_piece_version")
 # extra series under --watch: every lifecycle transition and breaker state
 # change must be scrapeable, or the self-healing loop is invisible to ops
 _LIFECYCLE_SERIES = (
@@ -65,7 +78,7 @@ _LIFECYCLE_SERIES = (
 )
 
 
-def _verify_metrics(url: str, predictor, *,
+def _verify_metrics(url: str, predictor, *, sharded: bool = False,
                     lifecycle: bool = False) -> str | None:
     """Scrape the live endpoint and check the contract: every required
     series present on /metrics, /healthz green with the predictor component.
@@ -77,7 +90,8 @@ def _verify_metrics(url: str, predictor, *,
     try:
         with urllib.request.urlopen(f"{url}/metrics", timeout=10) as resp:
             text = resp.read().decode()
-        need = _REQUIRED_SERIES + (_LIFECYCLE_SERIES if lifecycle else ())
+        need = (_REQUIRED_SERIES + (_SHARDED_SERIES if sharded else ())
+                + (_LIFECYCLE_SERIES if lifecycle else ()))
         missing = [n for n in need if f"# TYPE {n} " not in text]
         if missing:
             return f"/metrics missing series: {missing}"
@@ -181,16 +195,23 @@ def _fit(*, n: int = 1024, d: int = 8, m: int = 128, seed: int = 0,
     return model, x
 
 
-def _export(directory: str, model, *, artifact_id: str = "selftest") -> None:
-    from ..serve import export_artifact
+def _export(directory: str, model, *, artifact_id: str = "selftest",
+            mesh_shape: tuple[int, int] | None = None) -> None:
+    """Publish ``model`` flat or (``mesh_shape``) as a sharded piece grid."""
+    from ..serve import export_artifact, export_artifact_sharded
 
-    export_artifact(directory, model, artifact_id=artifact_id)
+    if mesh_shape is None:
+        export_artifact(directory, model, artifact_id=artifact_id)
+    else:
+        export_artifact_sharded(directory, model, mesh_shape=mesh_shape,
+                                artifact_id=artifact_id)
 
 
-def _fit_and_export(directory: str, *, device=None, **fit_kw):
+def _fit_and_export(directory: str, *, device=None,
+                    mesh_shape: tuple[int, int] | None = None, **fit_kw):
     """``_fit`` + ``_export`` in one call.  Returns (model, x_train)."""
     model, x = _fit(device=device, **fit_kw)
-    _export(directory, model)
+    _export(directory, model, mesh_shape=mesh_shape)
     return model, x
 
 
@@ -257,97 +278,172 @@ def selftest(metrics_url: str | None = None, device=None) -> int:
     return 0
 
 
-def selftest_lifecycle(metrics_url: str | None = None, device=None) -> int:
+def selftest_sharded(mesh_shape: tuple[int, int],
+                     metrics_url: str | None = None, device=None) -> int:
+    """Sharded-serving smoke, on rank 0 of a grid whose other ranks run
+    the worker loop: fit, export the piece grid, host it behind the
+    batcher, serve 100 queries and verify them against the single-host
+    ``Predictor`` on the same model (bitwise on one model rank, else within
+    1e-5), a bitwise stream replay, and no routing overflow."""
+    with tempfile.TemporaryDirectory() as tmp, ShardedPredictor(
+            mesh_shape=mesh_shape, device=device,
+            cache_entries=4096) as predictor:
+        model, xtr = _fit_and_export(tmp + "/sharded", device=device,
+                                     mesh_shape=mesh_shape)
+        _export(tmp + "/single", model)
+        single = Predictor(device=device, cache_entries=4096)
+        single.load(tmp + "/single")
+        predictor.load(tmp + "/sharded")
+        n_buckets = predictor.warmup(sizes=bucket_sizes(16))
+        stream = _synthetic_stream(xtr.shape[1], 100, dup_frac=0.3, seed=1)
+        stats = serve_stream(predictor, stream, max_batch=16,
+                             max_wait_us=1000)
+        if stats["served"] != 100:
+            print(f"[krr_serve] SELFTEST FAIL: served {stats['served']}/100")
+            return 1
+        expect = single.predict(stream, use_cache=False)
+        err = float(np.abs(stats["results"] - expect).max())
+        one_model_rank = mesh_shape[0] == 1
+        if (not np.array_equal(stats["results"], expect) if one_model_rank
+                else not err <= 1e-5 * float(np.abs(expect).max())):
+            print(f"[krr_serve] SELFTEST FAIL: sharded serving off the "
+                  f"single-host path by {err:.2e} ("
+                  + ("not bitwise on one model rank" if one_model_rank
+                     else "> 1e-5 of max|pred|") + ")")
+            return 1
+        replay = serve_stream(predictor, stream, max_batch=16,
+                              max_wait_us=1000)
+        if not np.array_equal(replay["results"], stats["results"]):
+            print("[krr_serve] SELFTEST FAIL: replayed stream not bitwise "
+                  "reproducible")
+            return 1
+        overflow = predictor.health()["shards"]["selftest"]["overflow"]
+        if any(overflow):
+            print(f"[krr_serve] SELFTEST FAIL: routing overflow dropped "
+                  f"buckets: {overflow}")
+            return 1
+        if metrics_url is not None:
+            merr = _verify_metrics(metrics_url, predictor, sharded=True)
+            if merr is not None:
+                print(f"[krr_serve] SELFTEST FAIL: {merr}")
+                return 1
+        cache = predictor.cache_stats()
+        print(f"[krr_serve] sharded selftest ok (mesh {mesh_shape[0]}x"
+              f"{mesh_shape[1]} on {predictor.device}): 100/100 "
+              + ("bitwise equal to" if one_model_rank else
+                 f"within {err:.1e} of")
+              + f" the single-host Predictor (replay bitwise, overflow 0); "
+              f"{n_buckets} buckets warmed, {stats['batches']} batches, "
+              f"p50 {stats['p50_us']:.0f}us p99 {stats['p99_us']:.0f}us, "
+              f"cache hit rate {cache['hit_rate']:.2f}")
+    return 0
+
+
+def selftest_lifecycle(metrics_url: str | None = None, device=None,
+                       mesh_shape: tuple[int, int] | None = None) -> int:
     """Self-healing smoke (--selftest --watch) against a real version root:
     v1 serves a stream clean; a POISONED v2 (tables corrupted on disk after
     export) is canary-rejected with zero failed requests on v1; a good v3
     swaps in mid-stream with no dropped request and no new graph on the
     warm buckets; a forced post-swap health regression auto-rolls back to
-    v1; and a crashed batcher worker recovers through the breaker's
-    half-open probe.  With ``metrics_url`` the lifecycle_*/breaker_* series
-    are asserted on the live endpoint."""
+    v1 (with ``mesh_shape``, on rank 0 of the grid: sharded versions and an
+    operator rollback, the sharded predictor having no fault plan); and a
+    crashed batcher worker recovers through the breaker's half-open probe.
+    With ``metrics_url`` the lifecycle_*/breaker_* series are asserted on
+    the live endpoint."""
+    cfg = LifecycleConfig(probation_s=30.0, probation_min_requests=20,
+                          probation_max_error_rate=0.1, retain=2,
+                          load_retries=2, warm_sizes=bucket_sizes(16))
+    rt = ServingRuntime(tempfile.mkdtemp(prefix="krr_serve_"),
+                        device=device, mesh_shape=mesh_shape,
+                        cache_entries=4096, config=cfg)
+    try:
+        return _lifecycle_checks(rt, cfg, device, mesh_shape, metrics_url)
+    finally:
+        import shutil
+        if rt.sharded:
+            rt.predictor.stop()
+        shutil.rmtree(rt.root, ignore_errors=True)
+
+
+def _lifecycle_checks(rt, cfg, device, mesh_shape, metrics_url) -> int:
     import threading
 
     from ..errors import CircuitOpen, FaultInjected
     from ..testing.faults import (FaultPlan, crash_supervised_workers,
                                   poison_artifact_tables)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = tmp + "/versions"
-        model, xtr = _fit(device=device)
-        d = xtr.shape[1]
-        _export(version_dir(root, 1), model)
-        cfg = LifecycleConfig(probation_s=30.0, probation_min_requests=20,
-                              probation_max_error_rate=0.1, retain=2,
-                              load_retries=2, warm_sizes=bucket_sizes(16))
-        rt = ServingRuntime(root, device=device, cache_entries=4096,
-                            config=cfg)
-        r = rt.poll_once()
-        if r["action"] != "swap" or rt.active_version != 1:
-            print(f"[krr_serve] SELFTEST FAIL: v1 not adopted: {r}")
-            return 1
-        stream = _synthetic_stream(d, 100, dup_frac=0.3, seed=1)
-        stats = serve_stream(rt.predictor, stream, max_batch=16,
-                             max_wait_us=1000, runtime=rt)
-        if stats["served"] != 100 or stats["rejected"] \
-                or stats["crashed_requests"]:
-            print(f"[krr_serve] SELFTEST FAIL: v1 stream "
-                  f"{stats['served']}/100 served, "
-                  f"{stats['rejected']} rejected")
-            return 1
-        base = stats["results"]
-        c0 = rt.compile_count()
+    root = rt.root
+    model, xtr = _fit(device=device)
+    d = xtr.shape[1]
+    _export(version_dir(root, 1), model, mesh_shape=mesh_shape)
+    r = rt.poll_once()
+    if r["action"] != "swap" or rt.active_version != 1:
+        print(f"[krr_serve] SELFTEST FAIL: v1 not adopted: {r}")
+        return 1
+    stream = _synthetic_stream(d, 100, dup_frac=0.3, seed=1)
+    stats = serve_stream(rt.predictor, stream, max_batch=16,
+                         max_wait_us=1000, runtime=rt)
+    if stats["served"] != 100 or stats["rejected"] \
+            or stats["crashed_requests"]:
+        print(f"[krr_serve] SELFTEST FAIL: v1 stream "
+              f"{stats['served']}/100 served, "
+              f"{stats['rejected']} rejected")
+        return 1
+    base = stats["results"]
+    c0 = rt.compile_count()
 
-        # poisoned v2: published complete, then corrupted on disk (the
-        # damage only the canary catches: validation passes)
-        _export(version_dir(root, 2), model)
-        poison_artifact_tables(version_dir(root, 2), scale=3.0)
-        r = rt.poll_once()
-        if r["action"] != "canary_reject" or rt.active_version != 1:
-            print(f"[krr_serve] SELFTEST FAIL: poisoned v2 not rejected: "
-                  f"{r}")
-            return 1
-        stats = serve_stream(rt.predictor, stream, max_batch=16,
-                             max_wait_us=1000, runtime=rt)
-        if stats["served"] != 100 or stats["rejected"] \
-                or stats["crashed_requests"] \
-                or not np.array_equal(stats["results"], base):
-            print("[krr_serve] SELFTEST FAIL: v1 service disturbed by the "
-                  "rejected candidate")
-            return 1
+    # poisoned v2: published complete, then corrupted on disk (the
+    # damage only the canary catches: validation passes)
+    _export(version_dir(root, 2), model, mesh_shape=mesh_shape)
+    poison_artifact_tables(version_dir(root, 2), scale=3.0)
+    r = rt.poll_once()
+    if r["action"] != "canary_reject" or rt.active_version != 1:
+        print(f"[krr_serve] SELFTEST FAIL: poisoned v2 not rejected: "
+              f"{r}")
+        return 1
+    stats = serve_stream(rt.predictor, stream, max_batch=16,
+                         max_wait_us=1000, runtime=rt)
+    if stats["served"] != 100 or stats["rejected"] \
+            or stats["crashed_requests"] \
+            or not np.array_equal(stats["results"], base):
+        print("[krr_serve] SELFTEST FAIL: v1 service disturbed by the "
+              "rejected candidate")
+        return 1
 
-        # good v3: swap mid-stream, no downtime, no new graph
-        _export(version_dir(root, 3), model)
-        swap_report = {}
+    # good v3: swap mid-stream, no downtime, no new graph
+    _export(version_dir(root, 3), model, mesh_shape=mesh_shape)
+    swap_report = {}
 
-        def mid_stream_poll():
-            time.sleep(0.01)
-            swap_report.update(rt.poll_once())
+    def mid_stream_poll():
+        time.sleep(0.01)
+        swap_report.update(rt.poll_once())
 
-        poller = threading.Thread(target=mid_stream_poll)
-        poller.start()
-        stats = serve_stream(rt.predictor, stream, max_batch=16,
-                             max_wait_us=1000, target_qps=2000.0, runtime=rt)
-        poller.join()
-        if swap_report.get("action") != "swap" or rt.active_version != 3:
-            print(f"[krr_serve] SELFTEST FAIL: v3 not swapped mid-stream: "
-                  f"{swap_report}")
-            return 1
-        if stats["served"] != 100 or stats["rejected"] \
-                or stats["crashed_requests"]:
-            print(f"[krr_serve] SELFTEST FAIL: swap dropped requests "
-                  f"({stats['served']}/100)")
-            return 1
-        if not _agrees(stats["results"], base, device):
-            print("[krr_serve] SELFTEST FAIL: post-swap results diverged")
-            return 1
-        c1 = rt.compile_count()
-        if c1 != c0:
-            print(f"[krr_serve] SELFTEST FAIL: graphs on the warm buckets "
-                  f"{c0} -> {c1} across the swap")
-            return 1
+    poller = threading.Thread(target=mid_stream_poll)
+    poller.start()
+    stats = serve_stream(rt.predictor, stream, max_batch=16,
+                         max_wait_us=1000, target_qps=2000.0, runtime=rt)
+    poller.join()
+    if swap_report.get("action") != "swap" or rt.active_version != 3:
+        print(f"[krr_serve] SELFTEST FAIL: v3 not swapped mid-stream: "
+              f"{swap_report}")
+        return 1
+    if stats["served"] != 100 or stats["rejected"] \
+            or stats["crashed_requests"]:
+        print(f"[krr_serve] SELFTEST FAIL: swap dropped requests "
+              f"({stats['served']}/100)")
+        return 1
+    if not _agrees(stats["results"], base, device):
+        print("[krr_serve] SELFTEST FAIL: post-swap results diverged")
+        return 1
+    c1 = rt.compile_count()
+    if c1 != c0:
+        print(f"[krr_serve] SELFTEST FAIL: graphs on the warm buckets "
+              f"{c0} -> {c1} across the swap")
+        return 1
 
-        # forced health regression inside the probation window -> rollback
+    # forced health regression inside the probation window -> rollback
+    if mesh_shape is None:
         rt.predictor.fault_plan = FaultPlan(serve_fail_every=1)
         probe = stream[:1]
         for _ in range(cfg.probation_min_requests * 3):
@@ -358,55 +454,63 @@ def selftest_lifecycle(metrics_url: str | None = None, device=None) -> int:
             if rt.active_version == 1:
                 break
         rt.predictor.fault_plan = None
-        if rt.active_version != 1:
-            print(f"[krr_serve] SELFTEST FAIL: no rollback to v1 "
-                  f"(active v{rt.active_version})")
-            return 1
-        out = rt.predict(np.asarray(stream[:4]), use_cache=False)
-        if not _agrees(out, base[:4], device):
-            print("[krr_serve] SELFTEST FAIL: rolled-back v1 not serving")
-            return 1
+        rolled = "auto"
+    else:
+        rt.rollback("forced regression (selftest)")
+        rolled = "operator"
+    if rt.active_version != 1:
+        print(f"[krr_serve] SELFTEST FAIL: no rollback to v1 "
+              f"(active v{rt.active_version})")
+        return 1
+    out = rt.predict(np.asarray(stream[:4]), use_cache=False)
+    if not _agrees(out, base[:4], device):
+        print("[krr_serve] SELFTEST FAIL: rolled-back v1 not serving")
+        return 1
 
-        # worker crash -> breaker opens -> half-open probe recovers
-        sup = rt.make_batcher(failure_threshold=1, cooldown_s=0.2,
-                              restart_backoff_s=0.01, max_batch=8,
-                              max_wait_us=500, dim=d)
+    # worker crash -> breaker opens -> half-open probe recovers
+    sup = rt.make_batcher(failure_threshold=1, cooldown_s=0.2,
+                          restart_backoff_s=0.01, max_batch=8,
+                          max_wait_us=500, dim=d)
+    try:
+        sup.predict(stream[0], timeout=30.0)
+        crash_supervised_workers(sup, crashes=1)
         try:
             sup.predict(stream[0], timeout=30.0)
-            crash_supervised_workers(sup, crashes=1)
-            try:
-                sup.predict(stream[0], timeout=30.0)
-                print("[krr_serve] SELFTEST FAIL: crashed worker answered")
-                return 1
-            except WorkerCrashed:
-                pass
-            try:
-                sup.predict(stream[0], timeout=30.0)
-                print("[krr_serve] SELFTEST FAIL: open breaker admitted")
-                return 1
-            except CircuitOpen:
-                pass
-            time.sleep(0.25)    # past the cooldown: half-open probe window
+            print("[krr_serve] SELFTEST FAIL: crashed worker answered")
+            return 1
+        except WorkerCrashed:
+            pass
+        try:
             sup.predict(stream[0], timeout=30.0)
-            st = sup.stats()
-            if st["breaker"]["state"] != "closed" or st["restarts"] != 1:
-                print(f"[krr_serve] SELFTEST FAIL: breaker not recovered: "
-                      f"{st['breaker']}, restarts {st['restarts']}")
-                return 1
-        finally:
-            sup.close()
-        if metrics_url is not None:
-            err = _verify_metrics(metrics_url, rt, lifecycle=True)
-            if err is not None:
-                print(f"[krr_serve] SELFTEST FAIL: {err}")
-                return 1
-        h = rt.health()
-        print(f"[krr_serve] lifecycle selftest ok on {rt.predictor.device}: "
-              f"poisoned v2 canary-rejected with zero failed requests, "
-              f"v3 swapped live (graphs {c0}->{c1}), auto rollback to v1, "
-              f"breaker reopened after worker crash; rejected versions "
-              f"{h['rejected_versions']}"
-              + ("; metrics endpoint verified" if metrics_url else ""))
+            print("[krr_serve] SELFTEST FAIL: open breaker admitted")
+            return 1
+        except CircuitOpen:
+            pass
+        time.sleep(0.25)    # past the cooldown: half-open probe window
+        sup.predict(stream[0], timeout=30.0)
+        st = sup.stats()
+        if st["breaker"]["state"] != "closed" or st["restarts"] != 1:
+            print(f"[krr_serve] SELFTEST FAIL: breaker not recovered: "
+                  f"{st['breaker']}, restarts {st['restarts']}")
+            return 1
+    finally:
+        sup.close()
+    if metrics_url is not None:
+        err = _verify_metrics(metrics_url, rt,
+                              sharded=mesh_shape is not None,
+                              lifecycle=True)
+        if err is not None:
+            print(f"[krr_serve] SELFTEST FAIL: {err}")
+            return 1
+    h = rt.health()
+    print(f"[krr_serve] lifecycle selftest ok on {rt.predictor.device}"
+          + (f" (mesh {mesh_shape[0]}x{mesh_shape[1]})"
+             if mesh_shape else "")
+          + f": poisoned v2 canary-rejected with zero failed requests, "
+          f"v3 swapped live (graphs {c0}->{c1}), {rolled} rollback to "
+          f"v1, breaker reopened after worker crash; rejected versions "
+          f"{h['rejected_versions']}"
+          + ("; metrics endpoint verified" if metrics_url else ""))
     return 0
 
 
@@ -460,6 +564,16 @@ def main(argv=None) -> int:
                          "(0 = no deadline)")
     ap.add_argument("--cache-entries", type=int, default=65536,
                     help="bucket-exact cache size; 0 disables")
+    ap.add_argument("--mesh", default=None, metavar="MxN",
+                    help="serve SHARDED on a (model_shards M x data_shards "
+                         "N) grid of ranks, e.g. --mesh 2x2 under torchrun "
+                         "with 4 processes; the artifact must be a "
+                         "matching export_artifact_sharded piece grid "
+                         "(omitted -> single-host Predictor)")
+    ap.add_argument("--placement", default=None, metavar="LO:HI",
+                    help="host the model on model-axis rows [LO, HI) of the "
+                         "--mesh so several models co-serve (default: the "
+                         "whole model axis)")
     ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
                     help="expose /metrics (Prometheus text) + /healthz on "
                          "127.0.0.1:PORT for the lifetime of the run "
@@ -468,14 +582,44 @@ def main(argv=None) -> int:
                     help="append a JSONL metrics snapshot to PATH on exit")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    mesh_shape = parse_mesh_shape(args.mesh) if args.mesh else None
+    if mesh_shape is not None:
+        return _grid_main(args, mesh_shape)
+    return _front_main(args, None)
 
+
+def _grid_main(args, mesh_shape) -> int:
+    """--mesh: join the process group (torchrun's, or a group of one), run
+    the front end on rank 0 and the worker loop on every other rank, and
+    leave a group this run created."""
+    import torch.distributed as dist
+
+    from .mesh import init_distributed
+
+    owns = not dist.is_initialized()
+    if owns:
+        init_distributed(args.device)
+    try:
+        if dist.get_rank() == 0:
+            return _front_main(args, mesh_shape)
+        # the same ShardedPredictor rank 0 builds, collectively; then the
+        # worker loop until rank 0 stops the grid
+        ShardedPredictor(mesh_shape=mesh_shape,
+                         device=args.device).serve_forever()
+        return 0
+    finally:
+        if owns:
+            dist.destroy_process_group()
+
+
+def _front_main(args, mesh_shape) -> int:
     server = None
     if args.metrics_port is not None:
         server = obs.serve_metrics(args.metrics_port)
         print(f"[krr_serve] metrics: {server.url}/metrics  "
               f"health: {server.url}/healthz")
     try:
-        rc = _dispatch(args, server)
+        rc = _dispatch(args, mesh_shape, server)
     finally:
         if args.metrics_dump:
             obs.REGISTRY.write_jsonl(args.metrics_dump,
@@ -486,29 +630,47 @@ def main(argv=None) -> int:
     return rc
 
 
-def _dispatch(args, server) -> int:
+def _dispatch(args, mesh_shape, server) -> int:
     if args.selftest:
         url = server.url if server is not None else None
         if args.watch:
-            return selftest_lifecycle(metrics_url=url, device=args.device)
+            return selftest_lifecycle(metrics_url=url, device=args.device,
+                                      mesh_shape=mesh_shape)
+        if mesh_shape is not None:
+            return selftest_sharded(mesh_shape, metrics_url=url,
+                                    device=args.device)
         return selftest(metrics_url=url, device=args.device)
     if args.watch:
-        return _watch_main(args, server)
-    predictor = Predictor(device=args.device,
-                          cache_entries=args.cache_entries)
-    if server is not None:
-        obs.add_health_provider("predictor", predictor.health)
+        return _watch_main(args, mesh_shape, server)
+    placement = None
+    if args.placement:
+        lo, hi = args.placement.split(":")
+        placement = (int(lo), int(hi))
     with contextlib.ExitStack() as stack:
+        if mesh_shape is not None:
+            predictor = stack.enter_context(ShardedPredictor(
+                mesh_shape=mesh_shape, device=args.device,
+                cache_entries=args.cache_entries))
+            load = lambda path: predictor.load(path, placement=placement)
+        else:
+            predictor = Predictor(device=args.device,
+                                  cache_entries=args.cache_entries)
+            load = predictor.load
+        if server is not None:
+            obs.add_health_provider("predictor", predictor.health)
         if args.artifact:
-            aid = predictor.load(args.artifact)
+            aid = load(args.artifact)
         else:
             # the demo artifact lives only for this run
             tmp = stack.enter_context(
                 tempfile.TemporaryDirectory(prefix="krr_serve_"))
             print(f"[krr_serve] no --artifact: fitting a demo model "
                   f"-> {tmp}/artifact")
-            _fit_and_export(tmp + "/artifact", device=args.device)
-            aid = predictor.load(tmp + "/artifact")
+            span = ((placement[1] - placement[0], mesh_shape[1])
+                    if mesh_shape and placement else mesh_shape)
+            _fit_and_export(tmp + "/artifact", device=args.device,
+                            mesh_shape=span)
+            aid = load(tmp + "/artifact")
         return _serve_main(predictor, aid, args)
 
 
@@ -529,7 +691,13 @@ def _deadline_us(args):
     return int(args.deadline_ms * 1000) if args.deadline_ms > 0 else None
 
 
-def _watch_main(args, server) -> int:
+def _model_dim(predictor, aid=None) -> int:
+    hosted = predictor._hosted(aid)
+    return (hosted.d if isinstance(predictor, ShardedPredictor)
+            else hosted.loaded.model.lsh.d)
+
+
+def _watch_main(args, mesh_shape, server) -> int:
     """--watch without --selftest: host a version root with the watcher
     running (reload/canary/rollback on a daemon thread), serve the stream
     through the supervised batcher, report lifecycle health.  Publish a new
@@ -548,9 +716,11 @@ def _watch_main(args, server) -> int:
             print(f"[krr_serve] no --artifact: fitting a demo model "
                   f"-> {version_dir(root, 1)}")
             model, _ = _fit(device=args.device)
-            _export(version_dir(root, 1), model)
-        rt = ServingRuntime(root, device=args.device,
+            _export(version_dir(root, 1), model, mesh_shape=mesh_shape)
+        rt = ServingRuntime(root, device=args.device, mesh_shape=mesh_shape,
                             cache_entries=args.cache_entries, config=cfg)
+        if rt.sharded:
+            stack.callback(rt.predictor.stop)
         if server is not None:
             obs.add_health_provider("lifecycle", rt.health)
             stack.callback(obs.remove_health_provider, "lifecycle")
@@ -562,7 +732,7 @@ def _watch_main(args, server) -> int:
             return 2
         rt.start()
         stack.callback(rt.stop)
-        d = rt._hosted().loaded.model.lsh.d
+        d = _model_dim(rt.predictor, f"v{rt.active_version}")
         print(f"[krr_serve] watching {root}: serving v{rt.active_version} "
               f"on {rt.predictor.device} (poll every "
               f"{cfg.poll_interval_s}s, canary "
@@ -588,14 +758,20 @@ def _watch_main(args, server) -> int:
         return 0
 
 
-def _serve_main(predictor: Predictor, aid: str, args) -> int:
-    d = predictor._hosted(aid).loaded.model.lsh.d
+def _serve_main(predictor, aid: str, args) -> int:
+    d = _model_dim(predictor, aid)
     n_graphs = predictor.warmup(artifact_id=aid,
                                 sizes=bucket_sizes(args.max_batch))
-    meta = predictor._hosted(aid).loaded.meta
+    hosted = predictor._hosted(aid)
+    sharded = isinstance(predictor, ShardedPredictor)
+    meta = hosted.manifest if sharded else hosted.loaded.meta
     print(f"[krr_serve] hosting {aid!r} (d={d}, exported by "
           f"{meta.get('framework', 'jax')}, backend {meta.get('backend')}) "
-          f"on {predictor.device}; {n_graphs} padding-bucket graphs")
+          f"on {predictor.device}"
+          + (f", grid {predictor.mesh_shape[0]}x{predictor.mesh_shape[1]}"
+             f" placement {list(hosted.placement)}; {n_graphs} padding "
+             f"buckets run" if sharded else
+             f"; {n_graphs} padding-bucket graphs"))
     stream = _stream(args, d)
     if stream is None:
         return 2

@@ -128,7 +128,7 @@ def main(argv=None) -> int:
     f = get_bucket_fn(args.bucket)
     lsh = local_lsh(mesh, sample_lsh_params(
         np.random.default_rng(args.seed + 1), args.m, d, GammaPDF(2.0, 1.0),
-        args.lengthscale))
+        args.lengthscale, device="cpu"))
     x, y, xq = (local_tensor(mesh, a) for a in (xtr, ytr, xte_p))
 
     if args.trace_dir and not obs.start_trace(args.trace_dir) and lead:

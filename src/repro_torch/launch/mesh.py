@@ -7,13 +7,25 @@ r % model.  Points (x, y) are split by rows over the data index, the LSH
 instances by rows over the model index, as ``shard_map``'s in_specs
 P('data', None) and P('model', None) cut them.
 
+A multi-axis data grid (the JAX step's ``data_axes=("pod", "data")``) is
+this grid's linear data axis: ranks laid out row-major as (pod, data,
+model) sit where ``make_host_mesh`` puts them, at data index
+``pod_index * data + data_index``, the JAX package's row-major linear
+index over its data axes (``_axes_linear_index``), and the JAX step's
+collectives over both data axes are the data group's.  So a (pods, data)
+grid is ``make_host_mesh`` over pods x data x model ranks; nothing reads
+the pod index apart.
+
 ``init_distributed`` joins the process group: from ``torchrun``'s
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) when it is set, else as the one rank of a group of one.
-NCCL on the card, gloo on the CPU.
+NCCL on the card and gloo on the CPU unless ``backend`` names one (gloo
+carries CUDA tensors too, staged through the host: several ranks sharing
+one card, which NCCL refuses).
 """
 from __future__ import annotations
 
+import datetime
 import os
 import tempfile
 from typing import NamedTuple
@@ -27,11 +39,16 @@ from ..backend import resolve_device
 
 def init_distributed(device=None, *, init_method: str | None = None,
                      rank: int | None = None,
-                     world_size: int | None = None) -> torch.device:
+                     world_size: int | None = None,
+                     backend: str | None = None,
+                     timeout_s: float | None = None) -> torch.device:
     """Join the process group (once per process) and return this rank's
     device: ``cuda:LOCAL_RANK`` for the card (None), or the CPU.  Without
     ``torchrun``'s environment and without arguments the group has one
-    rank, with a file store in a fresh temporary directory."""
+    rank, with a file store in a fresh temporary directory.  ``backend``
+    (None: NCCL on the card, gloo on the CPU) names the group's backend;
+    ``timeout_s`` bounds a collective's wait (None: the backend's
+    default)."""
     dev = resolve_device(device)
     env = os.environ
     if rank is None:
@@ -48,8 +65,12 @@ def init_distributed(device=None, *, init_method: str | None = None,
                            if dev.index is None else dev.index)
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
-        kw = {"device_id": dev} if dev.type == "cuda" else {}
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+        if backend is None:
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+        kw = {"device_id": dev} if backend == "nccl" else {}
+        if timeout_s is not None:
+            kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+        dist.init_process_group(backend,
                                 init_method=init_method, rank=rank,
                                 world_size=world_size, **kw)
     return dev
@@ -58,9 +79,9 @@ def init_distributed(device=None, *, init_method: str | None = None,
 class Mesh(NamedTuple):
     """This rank's place in the (data, model) grid and its two groups."""
 
-    data: int              # ranks along the data axis (point shards)
+    data: int              # ranks along the data axes (point shards)
     model: int             # ranks along the model axis (instance shards)
-    data_rank: int         # my index along data
+    data_rank: int         # my linear index along the data axes
     model_rank: int        # my index along model
     data_group: object     # the ranks that share my model index
     model_group: object    # the ranks that share my data index
@@ -73,10 +94,10 @@ class Mesh(NamedTuple):
 
 def make_host_mesh(model_parallel: int = 1, *, device=None) -> Mesh:
     """The (world // model_parallel, model_parallel) grid over the ranks of
-    the initialised process group.  Every rank creates every group, in the
-    same order (``dist.new_group`` is collective)."""
+    the initialised process group, row-major.  Every rank creates every
+    group, in the same order (``dist.new_group`` is collective)."""
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world % model_parallel:
+    if model_parallel < 1 or world % model_parallel:
         raise ValueError(f"world size {world} is not a multiple of "
                          f"model_parallel={model_parallel}")
     data = world // model_parallel

@@ -19,6 +19,12 @@ Load validates every array shape against the metadata manifest, the
 metadata against itself, and the tables for non-finite values (on the host,
 span ``io.validate_artifact``), then puts the arrays on the caller's device
 (None: the card).
+
+Sharded artifacts (``export_artifact_sharded``) are the JAX package's piece
+grids: a manifest and one checkpoint per (model shard, data shard) piece.
+``load_artifact_sharded`` reassembles the whole model (either package's
+export); ``load_artifact_piece`` reads one rank's piece, as the SPMD
+serving grid (serve/sharded.py) loads it.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ import torch
 
 from .. import obs
 from ..backend import resolve_device
-from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from ..checkpoint import (atomic_write_json, latest_step, restore_checkpoint,
+                          save_checkpoint)
 from ..core.bucket_fns import BUCKET_FNS
 from ..core.krr import WLSHKRRModel, model_operator
 from ..core.lsh import lsh_params_from_numpy
@@ -236,25 +243,16 @@ def load_artifact(directory: str, *, device=None,
     from a racing writer) with exponential backoff from
     ``retry_backoff_s``; validation failures raise at once."""
     dev = resolve_device(device)
-    attempt = 0
     with obs.span("io.load_artifact",
                   to_histogram=obs.histogram(
                       "io_artifact_load_us",
                       "artifact load wall time (incl. retries)")):
-        while True:
-            try:
-                loaded = _load_artifact_once(directory, dev,
-                                             artifact_id=artifact_id)
-                obs.counter("io_artifact_loads_total", "artifacts loaded",
-                            labels=("kind",)).labels("single").inc()
-                return loaded
-            except (OSError, zipfile.BadZipFile):
-                if attempt >= retries:
-                    raise
-                obs.counter("io_artifact_load_retries_total",
-                            "transient artifact-load failures retried").inc()
-                time.sleep(retry_backoff_s * (2 ** attempt))
-                attempt += 1
+        loaded = _with_retries(lambda: _load_artifact_once(
+            directory, dev, artifact_id=artifact_id), retries,
+            retry_backoff_s)
+        obs.counter("io_artifact_loads_total", "artifacts loaded",
+                    labels=("kind",)).labels("single").inc()
+        return loaded
 
 
 def _load_artifact_once(directory: str, dev: torch.device, *,
@@ -302,3 +300,382 @@ def _load_artifact_once(directory: str, dev: torch.device, *,
 def _read_meta(directory: str, step: int) -> dict:
     with open(os.path.join(directory, f"step_{step}", "meta.json")) as fh:
         return json.load(fh)
+
+
+# ---------------------------------------------------------------------------
+# sharded artifacts: a (model_shards, data_shards) piece grid
+# ---------------------------------------------------------------------------
+#
+# The JAX package's format: piece (i, j) holds model shard i's LSH rows
+# (m_loc, d) and its slot range of the tables (m_loc, spp[, k]), spp =
+# table_size / data_shards: the layout ``make_krr_step_hashjoin`` leaves the
+# table in (data rank j owns slots [j*spp, (j+1)*spp)), so a serving rank
+# loads only its own piece.  Every piece is an atomic checkpoint; the
+# manifest.json is written LAST, also atomically, and carries an
+# ``export_version`` cross-checked against every piece's meta: a torn export
+# (pieces, no manifest) is invisible and a mixed one never assembles.
+
+MANIFEST_NAME = "manifest.json"
+_LSH_NAMES = ("w", "z", "r1", "r2")
+
+
+class LoadedShardedArtifact(NamedTuple):
+    artifact_id: str
+    model: WLSHKRRModel          # reassembled full model (beta dropped)
+    operator: WLSHOperator       # on the device the arrays were put on
+    norm: Normalization | None
+    mesh_shape: tuple[int, int]  # (model_shards, data_shards) of the export
+    manifest: dict
+
+
+class LoadedPiece(NamedTuple):
+    """One rank's share of a sharded artifact (``load_artifact_piece``)."""
+
+    artifact_id: str
+    manifest: dict
+    mesh_shape: tuple[int, int]   # (model_shards, data_shards)
+    piece: tuple[int, int]        # (i, j): model shard i, data shard j
+    lsh: object                   # LSHParams, my m_loc rows on the device
+    table: torch.Tensor | None    # (m_loc, spp[, k]) on the device (None
+                                  #   when read without it)
+    lsh_host: dict | None         # every model shard's rows, numpy (w, z,
+                                  #   r1, r2 of all m), when asked for
+    norm: Normalization | None
+
+
+def piece_name(i: int, j: int) -> str:
+    return f"shard_{i}_{j}"
+
+
+def export_artifact_sharded(directory: str, model: WLSHKRRModel, *,
+                            mesh_shape: tuple[int, int],
+                            artifact_id: str | None = None,
+                            norm: Normalization | None = None,
+                            extra_meta: dict | None = None,
+                            golden_queries: int = GOLDEN_QUERIES,
+                            golden_x=None,
+                            golden_tol: float = GOLDEN_TOL) -> str:
+    """Atomically export ``model`` as a (model_shards, data_shards) piece
+    grid for a sharded serving grid; returns the artifact id.
+
+    Requires ``m % model_shards == 0`` and ``table_size % data_shards ==
+    0``.  ``beta`` is dropped (serving never reads it); normalization stats
+    and the canary golden set (the FULL model's predictions) travel in the
+    manifest.  Pieces are written first, each through the checkpoint
+    store's tmp+rename, the manifest last through its own atomic rename,
+    with ``export_version`` one past the last published manifest's."""
+    mm, nd = int(mesh_shape[0]), int(mesh_shape[1])
+    if mm <= 0 or nd <= 0:
+        raise ValueError(f"mesh_shape must be positive, got {mesh_shape}")
+    tables = _host(model.tables).astype(np.float32, copy=False)
+    m, table_size = tables.shape[:2]
+    if m % mm:
+        raise ValueError(f"m={m} not divisible by model_shards={mm}")
+    if table_size % nd:
+        raise ValueError(f"table_size={table_size} not divisible by "
+                         f"data_shards={nd}")
+    m_loc, spp = m // mm, table_size // nd
+    artifact_id = artifact_id or os.path.basename(os.path.normpath(directory))
+    prev = _read_manifest(directory)
+    version = int(prev.get("export_version", 0)) + 1 if prev else 1
+    with obs.span("io.export_artifact_sharded",
+                  to_histogram=obs.histogram(
+                      "io_artifact_export_us",
+                      "artifact export wall time")):
+        arrays_all = _model_arrays(model, include_beta=False)
+        lsh = {n: arrays_all[f"lsh_{n}"] for n in _LSH_NAMES}
+        common = {"kind": "wlsh_krr_sharded_piece",
+                  "format": ARTIFACT_FORMAT,
+                  "artifact_id": artifact_id,
+                  "export_version": version,
+                  "mesh_shape": [mm, nd],
+                  "bucket_name": model.bucket_name,
+                  "table_size": int(table_size),
+                  "m": int(m)}
+        pieces = {}
+        for i in range(mm):
+            for j in range(nd):
+                arrays = {f"lsh_{n}": v[i * m_loc:(i + 1) * m_loc]
+                          for n, v in lsh.items()}
+                arrays["tables"] = np.ascontiguousarray(
+                    tables[i * m_loc:(i + 1) * m_loc, j * spp:(j + 1) * spp])
+                name = piece_name(i, j)
+                save_checkpoint(os.path.join(directory, name),
+                                ARTIFACT_FORMAT, arrays,
+                                {**common, "piece": [i, j],
+                                 "arrays": {k: list(v.shape)
+                                            for k, v in arrays.items()}})
+                pieces[f"{i},{j}"] = name
+        on_card = model.tables.device.type == "cuda"
+        manifest = {"kind": "wlsh_krr_sharded_artifact",
+                    "format": ARTIFACT_FORMAT,
+                    "artifact_id": artifact_id,
+                    "export_version": version,
+                    "mesh_shape": [mm, nd],
+                    "m": int(m), "table_size": int(table_size),
+                    "k": int(tables.shape[2]) if tables.ndim == 3 else 0,
+                    "bucket_name": model.bucket_name,
+                    "backend": "pallas" if on_card else "reference",
+                    "framework": "torch",
+                    "precond": model.precond,
+                    "cg_iters": int(_host(model.cg_iters)),
+                    "pieces": pieces,
+                    "has_norm": norm is not None,
+                    **(extra_meta or {})}
+        if golden_queries > 0 or golden_x is not None:
+            manifest["golden"] = _golden_block(model, norm, k=golden_queries,
+                                               x=golden_x, tol=golden_tol)
+        if norm is not None:
+            manifest["norm"] = {
+                "x_mean": np.asarray(norm.x_mean, np.float32)
+                .reshape(-1).tolist(),
+                "x_std": np.asarray(norm.x_std, np.float32)
+                .reshape(-1).tolist(),
+                "y_mean": float(np.float32(norm.y_mean)),
+                "y_std": float(np.float32(norm.y_std))}
+        _write_manifest(directory, manifest)
+    obs.counter("io_artifact_exports_total", "artifacts exported",
+                labels=("kind",)).labels("sharded").inc()
+    return artifact_id
+
+
+def _write_manifest(directory: str, manifest: dict) -> None:
+    from ..checkpoint import store
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, MANIFEST_NAME)
+    if store._crash_mid_save is not None:
+        # a killed writer (testing.faults) may die before the manifest too:
+        # every piece written, the export still unpublished
+        store._crash_mid_save(path)
+    atomic_write_json(path, manifest)
+
+
+def _read_manifest(directory: str) -> dict | None:
+    path = os.path.join(directory, MANIFEST_NAME)
+    if not os.path.exists(path):
+        return None
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _with_retries(fn, retries: int, backoff_s: float):
+    """fn() retried on transient failures (OSError, a short-read zip from a
+    racing writer) with exponential backoff; anything else raises."""
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except (OSError, zipfile.BadZipFile):
+            if attempt >= retries:
+                raise
+            obs.counter("io_artifact_load_retries_total",
+                        "transient artifact-load failures retried").inc()
+            time.sleep(backoff_s * (2 ** attempt))
+            attempt += 1
+
+
+def _checked_manifest(directory: str, mesh_shape) -> dict:
+    """The manifest, refused when it is not a sharded artifact, newer than
+    this build reads, or exported for another grid than ``mesh_shape``."""
+    manifest = _read_manifest(directory)
+    if manifest is None:
+        raise FileNotFoundError(f"no sharded artifact manifest under "
+                                f"{directory}")
+    if manifest.get("kind") != "wlsh_krr_sharded_artifact":
+        raise ValueError(f"not a sharded artifact: "
+                         f"kind={manifest.get('kind')!r}")
+    fmt = int(manifest.get("format", 0))
+    if fmt > ARTIFACT_FORMAT:
+        raise ValueError(f"sharded artifact format {fmt} is newer than this "
+                         f"build's reader (supports <= {ARTIFACT_FORMAT})")
+    rec = tuple(manifest.get("mesh_shape", ()))
+    want = (int(mesh_shape[0]), int(mesh_shape[1]))
+    if rec != want:
+        raise ValueError(
+            f"sharded artifact was exported for mesh {rec}, target mesh is "
+            f"{want}: piece slot ranges do not line up — re-export for the "
+            f"target mesh")
+    bucket = manifest.get("bucket_name")
+    if bucket not in BUCKET_FNS:
+        raise ValueError(f"artifact bucket fn {bucket!r} unknown to this "
+                         f"build; have {sorted(BUCKET_FNS)}")
+    return manifest
+
+
+def _piece_meta(directory: str, manifest: dict, i: int, j: int):
+    """(piece dir, step, meta) of piece (i, j), cross-checked against the
+    manifest: a torn piece (no complete checkpoint) raises
+    FileNotFoundError, one of another export generation or grid
+    ValueError."""
+    name = manifest["pieces"].get(f"{i},{j}")
+    if name is None:
+        raise ValueError(f"manifest missing piece ({i},{j})")
+    pdir = os.path.join(directory, name)
+    step = latest_step(pdir)
+    if step is None:
+        raise FileNotFoundError(
+            f"sharded artifact piece ({i},{j}) has no complete checkpoint "
+            f"under {pdir} (torn export?)")
+    meta = _read_meta(pdir, step)
+    version = int(manifest.get("export_version", 1))
+    grid = list(manifest["mesh_shape"])
+    if (meta.get("kind") != "wlsh_krr_sharded_piece"
+            or meta.get("piece") != [i, j]
+            or int(meta.get("export_version", -1)) != version
+            or list(meta.get("mesh_shape", ())) != grid):
+        raise ValueError(
+            f"piece ({i},{j}) meta disagrees with the manifest (version "
+            f"{meta.get('export_version')} vs {version}, mesh "
+            f"{meta.get('mesh_shape')} vs {grid}) — mixed or torn export")
+    return pdir, step, meta
+
+
+def _read_piece(directory: str, manifest: dict, i: int, j: int,
+                *, lsh_only: bool = False) -> dict[str, np.ndarray]:
+    """Piece (i, j)'s arrays, validated: shapes against the manifest, the
+    tables for non-finite entries.  ``lsh_only`` reads the LSH rows and
+    leaves the tables on disk."""
+    mm, nd = manifest["mesh_shape"]
+    m, table_size = int(manifest["m"]), int(manifest["table_size"])
+    k = int(manifest.get("k", 0))
+    m_loc, spp = m // mm, table_size // nd
+    pdir, step, meta = _piece_meta(directory, manifest, i, j)
+    d = int(meta["arrays"]["lsh_w"][1])
+    shapes = {f"lsh_{n}": (m_loc, d) for n in _LSH_NAMES}
+    shapes["tables"] = (m_loc, spp) + ((k,) if k else ())
+    names = [f"lsh_{n}" for n in _LSH_NAMES] + ([] if lsh_only
+                                                else ["tables"])
+    path = os.path.join(pdir, f"step_{step}", "arrays.npz")
+    with np.load(path) as npz:
+        arrays = {n: npz[f"[{n!r}]"] for n in names}
+    for n in names:
+        if arrays[n].shape != shapes[n]:
+            raise ValueError(f"piece ({i},{j}) {n}: shape {arrays[n].shape}"
+                             f" != {shapes[n]} from the manifest")
+        arrays[n] = np.ascontiguousarray(arrays[n], _DTYPES[n])
+    if not lsh_only and not np.isfinite(arrays["tables"]).all():
+        raise ValueError(f"piece ({i},{j}) tables contain non-finite "
+                         f"entries — poisoned piece rejected at load")
+    return arrays
+
+
+def _manifest_norm(manifest: dict) -> Normalization | None:
+    if not manifest.get("has_norm"):
+        return None
+    nm = manifest["norm"]
+    return Normalization(x_mean=np.asarray(nm["x_mean"], np.float32),
+                         x_std=np.asarray(nm["x_std"], np.float32),
+                         y_mean=float(nm["y_mean"]),
+                         y_std=float(nm["y_std"]))
+
+
+def _artifact_id(directory, manifest, artifact_id):
+    return (artifact_id or manifest.get("artifact_id")
+            or os.path.basename(os.path.normpath(directory)))
+
+
+def load_artifact_sharded(directory: str, *, mesh_shape: tuple[int, int],
+                          device=None, artifact_id: str | None = None,
+                          retries: int = 0, retry_backoff_s: float = 0.05
+                          ) -> LoadedShardedArtifact:
+    """Load and validate a whole sharded artifact for a TARGET grid and
+    reassemble the model on ``device`` (None: the card).
+
+    A manifest recording another grid than ``mesh_shape`` is refused (the
+    pieces' slot ranges are baked into the export: re-export for the
+    target grid).  Every piece's meta is cross-checked against the manifest
+    (format, export version, geometry): a piece whose save was killed is
+    invisible to ``latest_step`` and surfaces as a missing piece, one of
+    another export generation fails the version check, and non-finite
+    tables are refused.  ``retries`` retries transient failures (a missing
+    manifest or piece while a publisher writes, a short-read zip) with
+    exponential backoff; validation failures raise at once."""
+    dev = resolve_device(device)
+
+    def once():
+        manifest = _checked_manifest(directory, mesh_shape)
+        mm, nd = manifest["mesh_shape"]
+        lsh_rows, table_rows = [], []
+        for i in range(mm):
+            row = [_read_piece(directory, manifest, i, j) for j in range(nd)]
+            lsh_rows.append(row[0])
+            table_rows.append(np.concatenate([p["tables"] for p in row], 1))
+        lsh = lsh_params_from_numpy(
+            *(np.concatenate([r[f"lsh_{n}"] for r in lsh_rows])
+              for n in _LSH_NAMES), dev)
+        k = int(manifest.get("k", 0))
+        model = WLSHKRRModel(
+            lsh=lsh, bucket_name=manifest["bucket_name"],
+            beta=torch.zeros((0, k) if k else (0,), dtype=torch.float32,
+                             device=dev),
+            tables=torch.from_numpy(np.concatenate(table_rows)).to(dev),
+            table_size=int(manifest["table_size"]),
+            cg_iters=torch.tensor(manifest.get("cg_iters", 0),
+                                  dtype=torch.int32, device=dev),
+            cg_resnorm=torch.tensor(0.0, dtype=torch.float32, device=dev),
+            precond=manifest.get("precond", "none"))
+        return LoadedShardedArtifact(
+            artifact_id=_artifact_id(directory, manifest, artifact_id),
+            model=model, operator=model_operator(model),
+            norm=_manifest_norm(manifest), mesh_shape=(mm, nd),
+            manifest=manifest)
+
+    with obs.span("io.load_artifact_sharded",
+                  to_histogram=obs.histogram(
+                      "io_artifact_load_us",
+                      "artifact load wall time (incl. retries)")):
+        loaded = _with_retries(once, retries, retry_backoff_s)
+    obs.counter("io_artifact_loads_total", "artifacts loaded",
+                labels=("kind",)).labels("sharded").inc()
+    return loaded
+
+
+def load_artifact_piece(directory: str, *, mesh_shape: tuple[int, int],
+                        piece: tuple[int, int], device=None,
+                        artifact_id: str | None = None,
+                        with_table: bool = True,
+                        with_lsh_host: bool = False, retries: int = 0,
+                        retry_backoff_s: float = 0.05) -> LoadedPiece:
+    """One rank's share of a sharded artifact: the manifest and piece
+    ``(i, j)`` only (the SPMD serving grid: each rank loads its own piece),
+    validated as ``load_artifact_sharded`` validates every piece, onto
+    ``device`` (None: the card).  ``with_lsh_host`` also reads every model
+    shard's LSH rows (from pieces (i', 0), tables left on disk), version
+    checked the same way: the front end's cache keys need all m
+    instances.  ``with_table=False`` leaves the piece's table on disk (a
+    front end outside the model's placement).  Same retry contract as
+    ``load_artifact_sharded``."""
+    dev = resolve_device(device)
+    i, j = int(piece[0]), int(piece[1])
+
+    def once():
+        manifest = _checked_manifest(directory, mesh_shape)
+        mm, nd = manifest["mesh_shape"]
+        if not (0 <= i < mm and 0 <= j < nd):
+            raise ValueError(f"piece {(i, j)} outside the {mm}x{nd} grid")
+        arrays = _read_piece(directory, manifest, i, j,
+                             lsh_only=not with_table)
+        lsh_host = None
+        if with_lsh_host:
+            rows = [arrays if ii == i else
+                    _read_piece(directory, manifest, ii, 0, lsh_only=True)
+                    for ii in range(mm)]
+            lsh_host = {n: np.concatenate([r[f"lsh_{n}"] for r in rows])
+                        for n in _LSH_NAMES}
+        return LoadedPiece(
+            artifact_id=_artifact_id(directory, manifest, artifact_id),
+            manifest=manifest, mesh_shape=(mm, nd), piece=(i, j),
+            lsh=lsh_params_from_numpy(*(arrays[f"lsh_{n}"]
+                                        for n in _LSH_NAMES), dev),
+            table=(torch.from_numpy(arrays["tables"]).to(dev)
+                   if with_table else None),
+            lsh_host=lsh_host, norm=_manifest_norm(manifest))
+
+    with obs.span("io.load_artifact_piece",
+                  to_histogram=obs.histogram(
+                      "io_artifact_load_us",
+                      "artifact load wall time (incl. retries)")):
+        loaded = _with_retries(once, retries, retry_backoff_s)
+    obs.counter("io_artifact_loads_total", "artifacts loaded",
+                labels=("kind",)).labels("piece").inc()
+    return loaded

@@ -20,8 +20,9 @@ cache hit costs one small numpy evaluation plus a dict probe (microseconds)
 and never reaches the device.
 
 A copy of the JAX package's module (which imports JAX through its core),
-taking the port's ``LSHParams`` (tensors) and ``BucketFn``.  The sharded
-key (``keys_with_touch``) comes with sharded serving.
+taking the port's ``LSHParams`` (tensors) and ``BucketFn``.
+``keys_with_touch`` gives the sharded tier's key: the bucket key and the
+data shards a row's slots touch, in one hash pass.
 """
 from __future__ import annotations
 
@@ -110,6 +111,39 @@ class BucketKeyFn:
         for i in np.nonzero(~ok)[0]:
             out[i] = b"!raw" + x[i].tobytes()
         return out
+
+    def keys_with_touch(self, x: np.ndarray, *, table_size: int,
+                        n_shards: int):
+        """Per-row ``(bucket key, touched-shard tuple)`` in ONE hash pass.
+
+        The touched shards are the owners of the row's m table slots
+        (``slot = key1 & (table_size-1)``, owner ``slot // spp``: the
+        hash-join layout of core/distributed.py): a sharded prediction
+        depends on nothing else, so the sharded cache key only changes when
+        one of THOSE shards' table pieces changes.  Rows whose bucket
+        coordinates leave the well-defined f32->int32 range are keyed by
+        raw identity (as in ``__call__``) and touch every shard."""
+        x = np.asarray(x, np.float32)
+        keys, h, t = self.bucket_ids(x)
+        n = keys.shape[1]
+        with np.errstate(invalid="ignore"):
+            ok = (np.isfinite(h).all(axis=(1, 2))
+                  & (np.abs(h) < 2147483648.0).all(axis=(1, 2)))
+        if self.exact_within_bucket:
+            out = [keys[:, i, :].tobytes() for i in range(n)]
+        else:
+            resid = h - t
+            out = [keys[:, i, :].tobytes() + resid[i].tobytes()
+                   for i in range(n)]
+        owners = (keys[0] & np.uint32(table_size - 1)) \
+            // np.uint32(table_size // n_shards)            # (n, m)
+        every = tuple(range(n_shards))
+        touched = [every if not ok[i]
+                   else tuple(np.unique(owners[i]).tolist())
+                   for i in range(n)]
+        for i in np.nonzero(~ok)[0]:
+            out[i] = b"!raw" + x[i].tobytes()
+        return list(zip(out, touched))
 
 
 class PredictionCache:

@@ -39,8 +39,11 @@ surfaces in ``health()`` — a runtime registered as a health provider turns
 ``/healthz`` into a live view of active version, retained rollback targets,
 probation state, and breaker state.
 
-The port's copy of the JAX package's module, over flat artifacts; sharded
-serving is not ported yet (ROADMAP.md, queue A item 3).
+The port's copy of the JAX package's module.  With ``mesh_shape`` (or a
+``ShardedPredictor``) the versions are sharded piece grids and the runtime
+runs on rank 0 of the grid: its loads, canary predicts and unloads reach
+every rank as the predictor's commands, so canary, swap and rollback act
+on the whole grid.
 """
 from __future__ import annotations
 
@@ -56,16 +59,15 @@ from .. import obs
 from ..checkpoint.store import latest_step
 from ..errors import (CircuitOpen, DeadlineExceeded, InvalidRequest,
                       Overloaded, ServingError, WorkerCrashed)
-from .artifact import load_artifact
+from .artifact import MANIFEST_NAME, load_artifact
 from .batcher import MicroBatcher
 from .predictor import DEFAULT_MAX_BATCH, Predictor
+from .sharded import ShardedPredictor
 
 _VERSION_RE = re.compile(r"^v(\d+)$")
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
 _STATE_CODE = {CLOSED: 0, OPEN: 1, HALF_OPEN: 2}
-_NO_SHARDED = ("sharded serving is not ported yet (ROADMAP.md, queue A "
-               "item 3)")
 
 
 # ---------------------------------------------------------------------------
@@ -81,14 +83,13 @@ def discover_versions(root: str, *, sharded: bool = False
                       ) -> list[tuple[int, str]]:
     """Sorted ``[(version, path)]`` of PUBLISHED versions under ``root``.
 
-    A version is published once its artifact is loadable at all: it needs
-    a completed checkpoint step (a ``step_N.tmp`` left by a killed writer
-    is invisible, as everywhere else).  Non-``v<N>`` entries are ignored —
-    exporters may keep scratch space next to the versions.  ``sharded``
-    raises ``NotImplementedError``.
+    A version is published once its artifact is loadable at all: a flat
+    version needs a completed checkpoint step (a ``step_N.tmp`` left by a
+    killed writer is invisible, as everywhere else), a sharded one its
+    manifest (written last by ``export_artifact_sharded``, so pieces
+    without one are a publish in progress).  Non-``v<N>`` entries are
+    ignored — exporters may keep scratch space next to the versions.
     """
-    if sharded:
-        raise NotImplementedError(_NO_SHARDED)
     try:
         names = os.listdir(root)
     except OSError:
@@ -101,7 +102,10 @@ def discover_versions(root: str, *, sharded: bool = False
         path = os.path.join(root, name)
         if not os.path.isdir(path):
             continue
-        if latest_step(path) is None:
+        if sharded:
+            if not os.path.exists(os.path.join(path, MANIFEST_NAME)):
+                continue
+        elif latest_step(path) is None:
             continue
         out.append((int(m.group(1)), path))
     return sorted(out)
@@ -416,27 +420,36 @@ class _Probation(NamedTuple):
 class ServingRuntime:
     """Version-watching, canary-validating, self-rolling-back serving tier.
 
-    Owns one ``Predictor`` on ``device`` (None: the card) and hosts every
-    live version inside it under artifact id ``v<N>`` — the active version
-    is one tuple attribute, so ``predict`` resolves it in a single atomic
-    read and a swap/rollback can never hand a request a mix of versions.
+    Owns one ``Predictor`` on ``device`` (None: the card), or a
+    ``ShardedPredictor`` when ``mesh_shape`` is given (built on the
+    initialised process group; this runtime then runs on rank 0 while the
+    other ranks run ``serve_forever``), and hosts every live version inside
+    it under artifact id ``v<N>`` — the active version is one tuple
+    attribute, so ``predict`` resolves it in a single atomic read and a
+    swap/rollback can never hand a request a mix of versions.
     ``poll_once`` is the deterministic unit the tests drive; ``start()``
-    runs it on a daemon thread every ``poll_interval_s``.  ``sharded=True``
-    raises ``NotImplementedError``.
+    runs it on a daemon thread every ``poll_interval_s``.
     """
 
-    def __init__(self, root: str, *, predictor=None, sharded: bool = False,
+    def __init__(self, root: str, *, predictor=None,
+                 mesh_shape: tuple[int, int] | None = None,
                  device=None, max_batch: int = DEFAULT_MAX_BATCH,
                  cache_entries: int = 0,
                  config: LifecycleConfig = LifecycleConfig(),
                  name: str = "default"):
-        if sharded:
-            raise NotImplementedError(_NO_SHARDED)
         self.root = str(root)
         self.config = config
         self.name = str(name)
-        self.predictor = predictor if predictor is not None else Predictor(
-            device=device, max_batch=max_batch, cache_entries=cache_entries)
+        if predictor is not None:
+            self.predictor = predictor
+        elif mesh_shape is not None:
+            self.predictor = ShardedPredictor(
+                mesh_shape=mesh_shape, device=device, max_batch=max_batch,
+                cache_entries=cache_entries)
+        else:
+            self.predictor = Predictor(device=device, max_batch=max_batch,
+                                       cache_entries=cache_entries)
+        self.sharded = isinstance(self.predictor, ShardedPredictor)
         self._lock = threading.RLock()
         self._active: tuple[int, str] | None = None   # (version, artifact id)
         self._history: list[tuple[int, str]] = []     # oldest .. newest
@@ -546,7 +559,8 @@ class ServingRuntime:
         with self._lock:
             active_version = self._active[0] if self._active else 0
             rejected = set(self._rejected)
-        cands = [(v, p) for v, p in discover_versions(self.root)
+        cands = [(v, p) for v, p in
+                 discover_versions(self.root, sharded=self.sharded)
                  if v > active_version and v not in rejected]
         if not cands:
             return {"action": "none", "active": self.active_version}
@@ -554,12 +568,20 @@ class ServingRuntime:
         aid = f"v{version}"
         cfg = self.config
         try:
-            loaded = load_artifact(
-                path, device=self.predictor.device, artifact_id=aid,
-                retries=cfg.load_retries,
-                retry_backoff_s=cfg.load_retry_backoff_s)
-            golden = loaded.meta.get("golden")
-            self.predictor.add_model(loaded)
+            if self.sharded:
+                # every rank reads its own piece; a failure on any rank
+                # raises here
+                self.predictor.load(path, artifact_id=aid,
+                                    retries=cfg.load_retries,
+                                    retry_backoff_s=cfg.load_retry_backoff_s)
+                golden = self.predictor._hosted(aid).manifest.get("golden")
+            else:
+                loaded = load_artifact(
+                    path, device=self.predictor.device, artifact_id=aid,
+                    retries=cfg.load_retries,
+                    retry_backoff_s=cfg.load_retry_backoff_s)
+                golden = loaded.meta.get("golden")
+                self.predictor.add_model(loaded)
         except (ValueError, KeyError) as e:
             # structural: re-reading cannot fix it — quarantine the version
             with self._lock:

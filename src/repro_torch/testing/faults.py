@@ -20,7 +20,11 @@
 * predictor   — ``serve_fault`` stalls or fails warm-path calls per plan.
 * artifact on disk — ``poison_artifact_tables`` scales a published
                 artifact's tables in place (finite but wrong: the canary's
-                catch); ``torn_publish`` exports under a killed writer.
+                catch); ``torn_publish`` exports under a killed writer
+                (flat, or a sharded grid without its manifest); on one
+                piece of a sharded grid, ``poison_piece`` scales it,
+                ``nan_piece`` writes NaN, ``mixed_generation_publish``
+                leaves it from the previous export.
 * canary readout — ``canary_poison`` perturbs canary predictions only.
 
 Host-side faults raise ``repro_torch.errors.FaultInjected``, so tests can
@@ -96,7 +100,8 @@ def killed_checkpoint_writer(after_saves: int = 0):
     """Arm ``checkpoint.store``'s crash hook: the save that lands after
     ``after_saves`` clean ones raises ``FaultInjected`` between writing
     arrays.npz and the atomic rename, leaving a ``step_N.tmp`` dir with a
-    full payload and no visibility to ``latest_step``."""
+    full payload and no visibility to ``latest_step``.  A sharded export's
+    manifest write counts as a save too (its last)."""
     from ..checkpoint import store
     counter = itertools.count()
 
@@ -196,18 +201,83 @@ def canary_poison(runtime, mode: str = "offset", magnitude: float = 1.0):
         runtime._canary_hook = prev
 
 
-def torn_publish(directory: str, model, norm=None, *, after_saves: int = 0,
-                 **export_kwargs) -> None:
-    """Export a flat artifact under a killed checkpoint writer, swallowing
-    the injected crash: what a killed publisher leaves (a ``step_N.tmp``
-    only).  The lifecycle watcher must treat the version as unpublished."""
-    from ..serve.artifact import export_artifact
+def torn_publish(directory: str, model, norm=None, *,
+                 mesh_shape: tuple[int, int] | None = None,
+                 after_saves: int = 0, **export_kwargs) -> None:
+    """Export under a killed checkpoint writer, swallowing the injected
+    crash: what a killed publisher leaves.  Flat: a ``step_N.tmp`` only.
+    Sharded (``mesh_shape``): ``after_saves`` complete pieces and no
+    manifest (the manifest counts as the export's last save, so
+    ``after_saves`` = the number of pieces leaves every piece and no
+    manifest).  The lifecycle watcher must treat the version as
+    unpublished."""
+    from ..serve.artifact import export_artifact, export_artifact_sharded
 
     with killed_checkpoint_writer(after_saves):
         try:
-            export_artifact(directory, model, norm=norm, **export_kwargs)
+            if mesh_shape is not None:
+                export_artifact_sharded(directory, model, norm=norm,
+                                        mesh_shape=mesh_shape,
+                                        **export_kwargs)
+            else:
+                export_artifact(directory, model, norm=norm, **export_kwargs)
         except FaultInjected:
             pass
+
+
+def _piece_dir(directory: str, piece: tuple[int, int]) -> str:
+    from ..serve.artifact import piece_name
+    path = os.path.join(directory, piece_name(*piece))
+    if not os.path.isdir(path):
+        raise FaultInjected(f"no piece {piece} under {directory}")
+    return path
+
+
+def poison_piece(directory: str, piece: tuple[int, int],
+                 scale: float = 3.0) -> int:
+    """``poison_artifact_tables`` on ONE piece of a published sharded
+    artifact: its tables scaled in place, finite but wrong (the canary's
+    catch, when a golden query touches the piece)."""
+    return poison_artifact_tables(_piece_dir(directory, piece), scale)
+
+
+def nan_piece(directory: str, piece: tuple[int, int]) -> None:
+    """Overwrite one piece's tables with NaN in place: the damage load-time
+    validation must refuse (on the rank that reads the piece)."""
+    path = _piece_dir(directory, piece)
+    for base, _dirs, files in os.walk(path):
+        if "arrays.npz" not in files or base.endswith(".tmp"):
+            continue
+        npz_path = os.path.join(base, "arrays.npz")
+        with np.load(npz_path) as npz:
+            arrays = {k: npz[k] for k in npz.files}
+        for k in arrays:
+            if "tables" in k:
+                arrays[k] = np.full_like(arrays[k], np.nan)
+        np.savez(npz_path, **arrays)
+
+
+def mixed_generation_publish(directory: str, model, norm=None, *,
+                             mesh_shape: tuple[int, int],
+                             stale: tuple[int, int] = (0, 0),
+                             **export_kwargs) -> None:
+    """Publish a sharded version whose piece ``stale`` is from the export
+    before the manifest's: export twice, then put the first export's piece
+    back.  Its meta's ``export_version`` disagrees with the manifest, so
+    the loader must refuse the grid (on the rank that reads the piece)."""
+    import shutil
+
+    from ..serve.artifact import export_artifact_sharded
+
+    export_artifact_sharded(directory, model, norm=norm,
+                            mesh_shape=mesh_shape, **export_kwargs)
+    path = _piece_dir(directory, stale)
+    keep = path + ".gen1"
+    shutil.copytree(path, keep)
+    export_artifact_sharded(directory, model, norm=norm,
+                            mesh_shape=mesh_shape, **export_kwargs)
+    shutil.rmtree(path)
+    os.rename(keep, path)
 
 
 def crash_supervised_workers(sup, crashes: int = 1,

@@ -1,12 +1,15 @@
-"""Run the distributed step on a small CPU process group, one process per
-rank (gloo, ``torch.multiprocessing.spawn``, a file store): the harness of
-the multi-rank tests.  Torch and the port only, so the spawned processes
-never load JAX.
+"""Run the distributed step and sharded serving on a small CPU process
+group, one process per rank (gloo, ``torch.multiprocessing.spawn``, a file
+store): the harness of the multi-rank tests.  Torch and the port only, so
+the spawned processes never load JAX.
 
 ``spawn_ranks`` hands every rank the same global inputs (numpy), lets
-each cut its own shards as the (data, model) grid says, runs the jobs in
-order and returns each rank's results; ``assemble`` puts the per-rank
-pieces back together into global arrays.
+each cut its own shards as the (data, model) grid says, runs the
+jobs in order and returns each rank's results; ``assemble`` puts the
+per-rank pieces back together into global arrays.  A ``serve`` job runs
+every sharded-serving check of one grid in the same spawn
+(``_serve_job``): rank 0 drives the ``ShardedPredictor`` sessions and
+records what it served, the other ranks run the worker loop.
 """
 from __future__ import annotations
 
@@ -21,32 +24,57 @@ WIRES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def spawn_ranks(world_size: int, model_parallel: int, store_dir: str,
-                inputs: dict, jobs: list) -> list[dict]:
+                inputs: dict, jobs: list, device: str = "cpu",
+                backend: str | None = None,
+                timeout_s: float | None = None) -> list[dict]:
     """Run ``jobs`` on a (world_size // model_parallel, model_parallel)
-    grid.  ``inputs``: x, y, xq (numpy, global) and w, z, r1, r2 (global
-    LSH rows).  ``jobs``: (name, spec) pairs, spec a dict with 'mode'
-    ('psum' | 'hashjoin'), 'cfg' (KRRStepConfig fields) and for the hash
-    join 'wire' ('f32' | 'bf16') and optionally 'cap_factor'."""
+    grid.  ``inputs``: x, y, xq (numpy, global) and w, z,
+    r1, r2 (global LSH rows).  ``jobs``: (name, spec) pairs, spec a dict
+    with 'mode' ('psum' | 'hashjoin' | 'serve'); for the steps 'cfg'
+    (KRRStepConfig fields), for the hash join 'wire' ('f32' | 'bf16') and
+    optionally 'cap_factor'; for 'serve' the artifact
+    directories ``_serve_job`` reads, for 'serve_rows' a 'grid' and the
+    rows 'xq' to serve, for 'serve_faults' what ``_serve_faults_job``
+    reads.  ``device`` is every rank's ("cuda:0": ranks sharing one card,
+    over ``backend`` gloo); ``timeout_s`` the group's collective timeout
+    (None: the backend's)."""
     mp.spawn(_rank_main, args=(world_size, model_parallel, store_dir, inputs,
-                               jobs), nprocs=world_size, join=True)
-    return [torch.load(os.path.join(store_dir, f"rank{r}.pt"))
+                               jobs, device, backend, timeout_s),
+             nprocs=world_size, join=True)
+    # the ranks' own results (tensors and numpy records): not weights
+    return [torch.load(os.path.join(store_dir, f"rank{r}.pt"),
+                       weights_only=False)
             for r in range(world_size)]
 
 
-def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs):
+def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
+               device="cpu", backend=None, timeout_s=None):
     from ..core.bucket_fns import RECT
     from ..core.lsh import lsh_params_from_numpy
     from ..launch.mesh import (init_distributed, local_lsh, local_tensor,
                                make_host_mesh)
     torch.set_num_threads(1)
-    init_distributed("cpu", init_method=f"file://{store_dir}/store",
-                     rank=rank, world_size=world_size)
-    mesh = make_host_mesh(model_parallel, device="cpu")
+    dev = init_distributed(device, init_method=f"file://{store_dir}/store",
+                           rank=rank, world_size=world_size, backend=backend,
+                           timeout_s=timeout_s)
+    mesh = make_host_mesh(model_parallel, device=dev)
     lsh = local_lsh(mesh, lsh_params_from_numpy(
         inputs["w"], inputs["z"], inputs["r1"], inputs["r2"], "cpu"))
     x, y, xq = (local_tensor(mesh, inputs[k]) for k in ("x", "y", "xq"))
     out = {"data_rank": mesh.data_rank, "model_rank": mesh.model_rank}
     for name, spec in jobs:
+        if spec["mode"] == "serve":
+            out[name] = _serve_job(mesh, spec)
+            continue
+        if spec["mode"] == "krr_serve":
+            out[name] = _krr_serve_job(spec["argv"])
+            continue
+        if spec["mode"] == "serve_rows":
+            out[name] = _serve_rows_job(mesh, spec)
+            continue
+        if spec["mode"] == "serve_faults":
+            out[name] = _serve_faults_job(mesh, spec)
+            continue
         out[name] = _run(mesh, spec, RECT, x, y, xq, lsh)
     torch.save(out, os.path.join(store_dir, f"rank{rank}.pt"))
     dist.barrier()
@@ -75,6 +103,266 @@ def _run(mesh, spec, f, x, y, xq, lsh) -> dict:
         res[f"pred_dedup{int(dedup)}"] = pred
         res[f"pred_dropped{int(dedup)}"] = dropped
     return res
+
+
+def _serve_job(mesh, spec) -> dict:
+    """Every sharded-serving check of one grid, in sessions: each session
+    builds a ``ShardedPredictor`` on every rank; rank 0 runs the session's
+    checks and stops the grid, the other ranks serve until then.  Returns,
+    on rank 0, what it served and saw (numpy), for the test to hold
+    against the port's and the JAX package's ``Predictor``; {} elsewhere.
+
+    ``spec``: 'grid', 'grid_norm', 'grid_k3' (sharded exports for this
+    grid), 'flat', 'flat_norm', 'flat_k3' (the same models flat), 'flat_b'
+    (a second model, flat), 'half' (model 'flat' exported for one model
+    rank: placement co-serving), 'root' (an empty version root), 'xq'."""
+    from ..serve import ShardedPredictor
+    front = dist.get_rank() == 0
+    mm, nd = mesh.model, mesh.data
+    res = {}
+    sessions = [("bcast", dict(cache_entries=1024)),
+                ("dedup", dict(dedup=True, max_batch=16)),
+                ("starved", dict(dedup=True, cap_factor=0.001)),
+                ("lifecycle", dict(cache_entries=1024, max_batch=16))]
+    for name, kw in sessions:
+        pred = ShardedPredictor(mesh=mesh, **kw)
+        if front:
+            try:
+                _SESSIONS[name](pred, spec, res, mm, nd)
+            finally:
+                pred.stop()
+        else:
+            pred.serve_forever()
+        if name == "bcast":
+            # the first model loaded ("grid", handle 0): this rank's piece
+            share = pred._handles[0].share
+            res["pieces"] = dict(piece=(mesh.model_rank, mesh.data_rank),
+                                 table=share.table.cpu().numpy(),
+                                 w=share.lsh.w.cpu().numpy())
+    return res
+
+
+def _serve_rows_job(mesh, spec) -> dict:
+    """Rank 0 loads ``spec['grid']`` and serves ``spec['xq']`` in both
+    routes, the others serve; rank 0's answers and every rank's launch
+    counts."""
+    from ..kernels import launch_counts, reset_launch_counts
+    from ..serve import ShardedPredictor
+    res = {}
+    reset_launch_counts()
+    for dedup in (False, True):
+        pred = ShardedPredictor(mesh=mesh, max_batch=64, dedup=dedup)
+        if pred.is_front:
+            try:
+                pred.load(spec["grid"])
+                res[f"pred_dedup{int(dedup)}"] = pred.predict(
+                    spec["xq"], use_cache=False)
+            finally:
+                pred.stop()
+        else:
+            pred.serve_forever()
+    res["counts"] = launch_counts()
+    return res
+
+
+def _serve_faults_job(mesh, spec) -> dict:
+    """The two ways a grid could hang, on a group whose collective timeout
+    is short: rank 0 idles for ``spec['idle_s']`` (past the timeout; the
+    heartbeat, every ``spec['heartbeat_s']``, keeps each worker's wait
+    short) and serves again; then the last rank's local half of a predict
+    raises (model 'bad': its piece's LSH rows lack a column) and rank 0's
+    predict must raise that rank's error, after which the grid serves the
+    good model again.  Every rank hosts both models through ``add_model``
+    (its own piece of ``spec['grid']``).  Returns rank 0's answers and
+    error text, and each worker's last error."""
+    import time
+
+    from ..errors import ServingError
+    from ..serve import ShardedPredictor, load_artifact_piece
+    rank, world = dist.get_rank(), dist.get_world_size()
+    pred = ShardedPredictor(mesh=mesh, heartbeat_s=spec["heartbeat_s"])
+    piece = load_artifact_piece(
+        spec["grid"], mesh_shape=(mesh.model, mesh.data),
+        piece=(mesh.model_rank, mesh.data_rank), device="cpu",
+        with_lsh_host=pred.is_front)
+    pred.add_model(piece, artifact_id="good")
+    if rank == world - 1:
+        piece = piece._replace(lsh=type(piece.lsh)(
+            *(t[:, :-1].contiguous() for t in piece.lsh)))
+    pred.add_model(piece, artifact_id="bad")
+    res = {}
+    if not pred.is_front:
+        pred.serve_forever()
+        return {"worker_error": pred.health()["last_error"]}
+    xq = spec["xq"]
+    try:
+        res["before"] = pred.predict(xq, artifact_id="good", use_cache=False)
+        time.sleep(spec["idle_s"])
+        res["after_idle"] = pred.predict(xq, artifact_id="good",
+                                         use_cache=False)
+        try:
+            pred.predict(xq, artifact_id="bad", use_cache=False)
+            res["fault"] = None
+        except ServingError as e:
+            res["fault"] = str(e)
+        res["after_fault"] = pred.predict(xq, artifact_id="good",
+                                          use_cache=False)
+        res["errors"] = pred.health()["errors"]
+    finally:
+        pred.stop()
+    return res
+
+
+def _krr_serve_job(argv) -> dict:
+    """``krr_serve.main(argv)`` on every rank of the running group (rank 0
+    fronts, the others serve); rank 0's standard output is kept."""
+    import contextlib
+    import io
+
+    from ..launch import krr_serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = krr_serve.main(argv)
+    return {"rc": rc, "out": buf.getvalue()}
+
+
+def _bcast_session(pred, spec, res, mm, nd):
+    from ..errors import InvalidRequest
+    from ..serve import Predictor
+    xq = spec["xq"]
+    single = Predictor(device="cpu")
+    for tag in ("", "_norm", "_k3"):
+        aid = pred.load(spec["grid" + tag], artifact_id="grid" + tag)
+        single.load(spec["flat" + tag], artifact_id="flat" + tag)
+        res["pred" + tag] = pred.predict(xq, artifact_id=aid,
+                                         use_cache=False)
+        res["single" + tag] = single.predict(xq, artifact_id="flat" + tag,
+                                             use_cache=False)
+        res["one_row" + tag] = pred.predict(xq[0], artifact_id=aid,
+                                            use_cache=False)
+    if mm == 1:
+        try:
+            pred.load(spec["half"], artifact_id="placed", placement=(1, 2))
+            res["placement_refused"] = False
+        except ValueError:
+            res["placement_refused"] = "placed" not in pred.artifact_ids
+    else:
+        # a one-model-rank export on model rows [1, 2) against itself on
+        # rows [0, 1): both serve through one model rank
+        pred.load(spec["half"], artifact_id="placed", placement=(1, 2))
+        pred.load(spec["half"], artifact_id="placed0", placement=(0, 1))
+        res["placed"] = pred.predict(xq, artifact_id="placed",
+                                     use_cache=False)
+        res["placed0"] = pred.predict(xq, artifact_id="placed0",
+                                      use_cache=False)
+        res["placement"] = pred.health()["shards"]["placed"]["placement"]
+    # cache: hits replay the cold rows; a bump misses exactly the rows whose
+    # slots touch the bumped shard
+    q = xq[:16]
+    cold = pred.predict(q, artifact_id="grid")
+    res["cache_hit_equal"] = np.array_equal(
+        pred.predict(q, artifact_id="grid"), cold)
+    before = pred.cache_stats(artifact_id="grid")
+    pred.bump_shard_version(0, artifact_id="grid")
+    res["cache_after_bump_equal"] = np.array_equal(
+        pred.predict(q, artifact_id="grid"), cold)
+    after = pred.cache_stats(artifact_id="grid")
+    res["bump_misses"] = after["misses"] - before["misses"]
+    res["bump_hits"] = after["hits"] - before["hits"]
+    hosted = pred._hosted("grid")
+    touch = hosted.keyfn.keys_with_touch(
+        q, table_size=int(hosted.manifest["table_size"]), n_shards=nd)
+    res["touch0"] = sum(0 in t for _, t in touch)
+    res["piece_versions"] = pred.health()["shards"]["grid"]["piece_versions"]
+    bad = xq[:4].copy()
+    bad[1, 2] = np.nan
+    errors = pred.health()["errors"]
+    try:
+        pred.predict(bad, artifact_id="grid")
+        res["nonfinite_rejected"] = False
+    except InvalidRequest:
+        res["nonfinite_rejected"] = pred.health()["errors"] == errors + 1
+    # ragged sizes within one bucket run no new bucket
+    res["buckets_before"] = sorted(hosted.buckets)
+    for b in (9, 12, 16, 3, 1):
+        pred.predict(xq[:b], artifact_id="grid", use_cache=False)
+    res["buckets_after"] = sorted(hosted.buckets)
+    res["overflow_bcast"] = pred.health()["shards"]["grid"]["overflow"]
+    res["unloaded"] = pred.unload("grid_k3") and "grid_k3" not in \
+        pred.artifact_ids
+
+
+def _dedup_session(pred, spec, res, mm, nd):
+    pred.load(spec["grid"], artifact_id="grid")
+    res["dedup_chunked"] = pred.predict(spec["xq"][:50], use_cache=False)
+    res["overflow_dedup"] = pred.health()["shards"]["grid"]["overflow"]
+
+
+def _starved_session(pred, spec, res, mm, nd):
+    pred.load(spec["grid"], artifact_id="grid")
+    pred.predict(spec["xq"], use_cache=False)
+    res["overflow_starved"] = pred.health()["shards"]["grid"]["overflow"]
+
+
+def _lifecycle_session(pred, spec, res, mm, nd):
+    """v1 served; v2 with one piece scaled on disk (canary reject); v3
+    torn (pieces, no manifest: invisible); v4 with a NaN piece and v5 with
+    a piece of the previous export (both refused at load, on the rank
+    that reads the piece); v6, another model, swapped in; rollback() to
+    v1."""
+    from ..serve import (LifecycleConfig, ServingRuntime, export_artifact_sharded,
+                         load_artifact, version_dir)
+    from .faults import (mixed_generation_publish, nan_piece, poison_piece,
+                         torn_publish)
+    root, xq = spec["root"], spec["xq"]
+    shape = (mm, nd)
+    models = [load_artifact(spec[k], device="cpu").model
+              for k in ("flat", "flat_b")]
+    rt = ServingRuntime(root, predictor=pred, config=LifecycleConfig(
+        probation_s=0.0, retain=2, warm_sizes=(16,)))
+    last = (mm - 1, nd - 1)
+    steps = []
+
+    def step(label, publish):
+        publish()
+        r = rt.poll_once()
+        steps.append((label, r["action"], rt.active_version))
+
+    def v(n):
+        return version_dir(root, n)
+
+    step("v1", lambda: export_artifact_sharded(v(1), models[0],
+                                               mesh_shape=shape))
+    res["life_v1"] = rt.predict(xq, use_cache=False)
+
+    def poisoned():
+        export_artifact_sharded(v(2), models[0], mesh_shape=shape)
+        poison_piece(v(2), last)
+    step("v2 poisoned piece", poisoned)
+    step("v3 torn", lambda: torn_publish(v(3), models[1], mesh_shape=shape,
+                                         after_saves=mm * nd))
+
+    def nan():
+        export_artifact_sharded(v(4), models[1], mesh_shape=shape)
+        nan_piece(v(4), last)
+    step("v4 nan piece", nan)
+    step("v5 mixed generations", lambda: mixed_generation_publish(
+        v(5), models[1], mesh_shape=shape, stale=last))
+    step("v6", lambda: export_artifact_sharded(v(6), models[1],
+                                               mesh_shape=shape))
+    res["life_v6"] = rt.predict(xq, use_cache=False)
+    res["life_models_v6"] = pred.artifact_ids
+    ok = rt.rollback("test: rollback to v1")
+    steps.append(("rollback()", "rollback" if ok else "refused",
+                  rt.active_version))
+    res["life_after_rollback"] = rt.predict(xq, use_cache=False)
+    res["life_models"] = pred.artifact_ids
+    res["life_steps"] = steps
+    res["life_rejected"] = rt.health()["rejected_versions"]
+
+
+_SESSIONS = {"bcast": _bcast_session, "dedup": _dedup_session,
+             "starved": _starved_session, "lifecycle": _lifecycle_session}
 
 
 def assemble(results: list[dict], job: str, key: str) -> np.ndarray:

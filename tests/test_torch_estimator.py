@@ -201,7 +201,8 @@ def test_make_matvec_and_estimator(mode):
     with pytest.raises(ValueError):
         T.make_matvec(tf, "nope")
     est = T.WLSHEstimator(params=T.sample_lsh_params(
-        np.random.default_rng(1), 3, 2, T.GammaPDF()), bucket_name="rect",
+        np.random.default_rng(1), 3, 2, T.GammaPDF(), device="cpu"),
+        bucket_name="rect",
         mode=mode, table_size=128)
     feats = est.featurize(T.RECT, np.zeros((4, 2), np.float32))
     assert tuple(feats.key1.shape) == (3, 4)
@@ -212,7 +213,7 @@ def test_operator_exact_mode():
     the sum form and an unknown mode raise, as in the JAX operator."""
     jf, tf = _exact_pair(14, 64, 2, 6)
     op = T.make_operator(T.sample_lsh_params(np.random.default_rng(0), 6, 2,
-                                             T.GammaPDF()),
+                                             T.GammaPDF(), device="cpu"),
                          T.RECT, 256, device="cpu")
     idx = op.build_index(tf, mode="exact")
     assert isinstance(idx, T.ExactIndex)
@@ -326,7 +327,7 @@ def test_exact_matvec_matches_dense(n, d, m):
     """tests/test_core_wlsh.py: the sorted-bucket matvec equals the
     explicit estimator matrix times beta."""
     x, rng = _points(n * 100 + d * 10 + m, n, d)
-    lsh = T.sample_lsh_params(rng, m, d, T.GammaPDF(2.0, 1.0))
+    lsh = T.sample_lsh_params(rng, m, d, T.GammaPDF(2.0, 1.0), device="cpu")
     feats = T.featurize(lsh, T.RECT, torch.from_numpy(x))
     beta = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
     dense = T.exact_kernel_matrix(feats) @ beta
@@ -343,7 +344,8 @@ def test_wlsh_krr_exact_mode_close_to_exact_laplace_krr():
     lam = 1.0
     beta_exact = T.exact_krr_fit(T.laplace_kernel, x, y, lam=lam)
     pred_exact = T.exact_krr_predict(T.laplace_kernel, x, beta_exact, x)
-    lsh = T.sample_lsh_params(rng, 1500, 2, T.GammaPDF(2.0, 1.0))
+    lsh = T.sample_lsh_params(rng, 1500, 2, T.GammaPDF(2.0, 1.0),
+                              device="cpu")
     model = T.wlsh_krr_fit(lsh, x, y, T.WLSHKernelSpec(bucket=T.RECT),
                            lam=lam, mode="exact", device="cpu")
     pred_appr = T.exact_krr_predict(T.laplace_kernel, x, model.beta, x)

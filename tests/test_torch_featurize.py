@@ -89,7 +89,8 @@ def test_bucket_fns_match_jax(fname):
 
 def test_sample_lsh_params_contract():
     p = tlsh.sample_lsh_params(np.random.default_rng(0), 16, 5,
-                               tlsh.GammaPDF(2.0, 1.0), lengthscale=3.0)
+                               tlsh.GammaPDF(2.0, 1.0), lengthscale=3.0,
+                               device="cpu")
     assert p.w.dtype == torch.float32 and p.r1.dtype == torch.uint32
     assert bool((p.w > 0).all()) and bool((p.z >= 0).all())
     assert bool((p.z <= p.w).all())

@@ -51,11 +51,13 @@ def test_rff_from_jax_draws_matches_jax(n, d, n_features, ell):
 def test_rff_draw_statistics_and_device():
     """W ~ N(0, 2 / ell^2), b ~ U[0, 2 pi], from the generator; the fit's
     default device is the card (it raises without one)."""
-    w, b = T.rff_draw(np.random.default_rng(0), 4, 20000, lengthscale=2.0)
+    w, b = T.rff_draw(np.random.default_rng(0), 4, 20000, lengthscale=2.0,
+                      device="cpu")
     assert w.dtype == b.dtype == torch.float32
     assert abs(float(w.var()) - 0.5) < 0.02
     assert 0.0 <= float(b.min()) and float(b.max()) <= 2.0 * np.pi
-    w2, _ = T.rff_draw(np.random.default_rng(0), 4, 20000, lengthscale=2.0)
+    w2, _ = T.rff_draw(np.random.default_rng(0), 4, 20000, lengthscale=2.0,
+                      device="cpu")
     assert torch.equal(w, w2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
@@ -134,7 +136,7 @@ def test_gp_posterior_rhs_fit_gives_posterior_samples():
                                         noise=0.1, device="cpu")
     rhs, _ = tgp.gp_posterior_rhs(rng, x, y, T.laplace_kernel, n_train=120,
                                   n_samples=2, noise=0.1)
-    lsh = T.sample_lsh_params(rng, 64, 2, T.GammaPDF())
+    lsh = T.sample_lsh_params(rng, 64, 2, T.GammaPDF(), device="cpu")
     spec = T.WLSHKernelSpec(bucket=T.RECT)
     block = T.wlsh_krr_fit(lsh, x, rhs, spec, lam=0.1, mode="exact",
                            tol=1e-7, device="cpu")

@@ -326,7 +326,8 @@ def test_readout_matches_plain(cuda, k, m, n, average):
 @pytest.mark.parametrize("precond", ["none", "jacobi", "nystrom"])
 def test_fit_on_card_matches_cpu(cuda, precond):
     x, y, xq, _ = make_regression(2000, 300, 5, rough=0.3, seed=1)
-    lsh = T.sample_lsh_params(np.random.default_rng(2), 16, 5, T.GammaPDF())
+    lsh = T.sample_lsh_params(np.random.default_rng(2), 16, 5, T.GammaPDF(),
+                              device="cpu")
     spec = T.WLSHKernelSpec(bucket=T.RECT)
     kw = dict(lam=0.5, tol=1e-7, maxiter=300, precond=precond,
               precond_rank=64)
@@ -503,6 +504,9 @@ def test_route_pack_and_unpack_are_bitwise(cuda, k, cap_factor):
         (nb,) + tail, dtype=np.float32)).to(cuda)
     assert torch.equal(route_unpack_cuda(cell_lay, lay.coeff_lay, back),
                        route_unpack_ref(cell_lay, lay.coeff_lay, back))
+    # no coefficient: the reads themselves (the sharded predict's unpack)
+    assert torch.equal(route_unpack_cuda(cell_lay, None, back),
+                       route_unpack_ref(cell_lay, None, back))
 
 
 @pytest.mark.parametrize("heavy", [None, 4096])
@@ -929,7 +933,8 @@ def test_exact_mode_fit_on_card_matches_cpu(cuda):
     1e-4 of max|pred|."""
     x, y, xq, _ = make_regression(3000, 500, 5, rough=0.3, seed=3)
     rng = np.random.default_rng(3)
-    lsh = T.sample_lsh_params(rng, 64, 5, T.GammaPDF(7.0, 1.0), 1.5)
+    lsh = T.sample_lsh_params(rng, 64, 5, T.GammaPDF(7.0, 1.0), 1.5,
+                              device="cpu")
     spec = T.WLSHKernelSpec(bucket=T.SMOOTH, pdf=T.GammaPDF(7.0, 1.0))
     reset_launch_counts()
     card = T.wlsh_krr_fit(lsh.to(cuda), x, y, spec, lam=0.5, mode="exact",
@@ -943,3 +948,89 @@ def test_exact_mode_fit_on_card_matches_cpu(cuda):
     ph = T.wlsh_krr_predict(host, xq)
     torch.testing.assert_close(pc, ph, rtol=0,
                                atol=1e-4 * float(ph.abs().max()))
+
+
+@pytest.mark.parametrize("k,n", [(None, 1000), (None, 1001), (3, 1000)])
+def test_combine_through_the_readout_is_its_bits(cuda, k, n):
+    """``bin_combine_op`` on values read per point (the readout without a
+    slot: point i reads column i) is the readout's result on the table
+    they came from, bit for bit, four points a thread (n = 1000) and one
+    (n = 1001, k = 3): the sharded predict's combine is the single-host
+    readout's.  It launches the readout once and counts it."""
+    from repro_torch.kernels.binning.ops import bin_combine_op
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    m, b = 64, 1 << 12
+    slot = torch.randint(0, b, (m, n), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    coeff = torch.randn((m, n), generator=gen, device=cuda)
+    tables = torch.randn((m, b) + ((k,) if k else ()), generator=gen,
+                         device=cuda)
+    vals = gather_ref(slot, tables).contiguous()
+    for average in (True, False):
+        reset_launch_counts()
+        got = bin_combine_op(coeff, vals, average=average)
+        assert launch_counts()["bin_readout"] == 1
+        assert torch.equal(got, bin_readout_cuda(slot, coeff, tables,
+                                                 average=average))
+        # the plain combine sums in its own (pairwise) order
+        plain = bin_combine_op(coeff.cpu(), vals.cpu(), average=average)
+        torch.testing.assert_close(got.cpu(), plain, rtol=0,
+                                   atol=1e-5 * float(plain.abs().max()))
+
+
+@pytest.fixture
+def nccl_group(cuda, tmp_path):
+    """A one-rank NCCL group on the card for this test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    own = not dist.is_initialized()
+    if own:
+        init_distributed(cuda, init_method=f"file://{tmp_path}/pg",
+                         rank=0, world_size=1)
+    yield
+    if own:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_sharded_1x1_on_card_is_the_predictors_bits(cuda, nccl_group,
+                                                    tmp_path, dedup):
+    """On one NCCL rank the sharded predict (B1, the routing, the readout's
+    combine; B8 with dedup) serves the graph-replayed Predictor's bits at
+    every size, chunks included."""
+    from repro_torch.serve import ShardedPredictor, export_artifact_sharded
+    pred, model, xq = _served_model(cuda, tmp_path)
+    export_artifact_sharded(str(tmp_path / "grid"), model, mesh_shape=(1, 1))
+    with ShardedPredictor(mesh_shape=(1, 1), device=cuda, max_batch=64,
+                          dedup=dedup) as sharded:
+        sharded.load(str(tmp_path / "grid"))
+        reset_launch_counts()
+        for b in (1, 3, 17, 64, 65, 300):
+            assert np.array_equal(sharded.predict(xq[:b], use_cache=False),
+                                  pred.predict(xq[:b], use_cache=False))
+        counts = launch_counts()
+    assert counts["featurize"] > 0 and counts["bin_readout"] > 0
+    assert (counts["route_unpack"] > 0) == dedup
+
+
+def test_sharded_grid_on_one_card_over_gloo(cuda, tmp_path):
+    """Two ranks (1x2) sharing the card over gloo, which carries the
+    routing's CUDA tensors through the host: one model rank, so rank 0
+    serves the single-host Predictor's bits, in both routes."""
+    from repro_torch.serve import export_artifact_sharded
+    from repro_torch.testing.multirank import spawn_ranks
+    pred, model, xq = _served_model(cuda, tmp_path)
+    export_artifact_sharded(str(tmp_path / "grid"), model, mesh_shape=(1, 2))
+    inputs = dict(x=np.zeros((2, 16), np.float32),
+                  y=np.zeros(2, np.float32), xq=xq[:2],
+                  **{k: v.cpu().numpy()
+                     for k, v in zip(("w", "z", "r1", "r2"), model.lsh)})
+    job = dict(mode="serve_rows", grid=str(tmp_path / "grid"), xq=xq)
+    ranks = spawn_ranks(2, 1, str(tmp_path), inputs, [("rows", job)],
+                        device="cuda:0", backend="gloo")
+    want = pred.predict(xq, use_cache=False)
+    for dedup in (0, 1):
+        assert np.array_equal(ranks[0]["rows"][f"pred_dedup{dedup}"], want)
+    for r in ranks:
+        assert r["rows"]["counts"]["featurize"] > 0
+        assert r["rows"]["counts"]["route_unpack"] > 0

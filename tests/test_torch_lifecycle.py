@@ -1,7 +1,7 @@
 """The port's self-healing serving runtime on the CPU: version discovery,
 golden canary, atomic swap and rollback, probation, worker supervision and
 circuit breakers, with the JAX package's own test cases (its sharded cases
-wait for sharded serving; ``sharded=True`` raises).
+run on gloo grids in tests/test_torch_serving_sharded.py).
 
 Exactness pins:
 * a torn publish (killed writer) is INVISIBLE to the watcher;
@@ -61,11 +61,24 @@ def _runtime(root, **over):
                           config=LifecycleConfig(**cfg_kw), **over)
 
 
-def test_sharded_runtime_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        ServingRuntime(str(tmp_path), device="cpu", sharded=True)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        discover_versions(str(tmp_path), sharded=True)
+def test_sharded_runtime_raises(tmp_path, fitted):
+    """A sharded runtime raises where its grid cannot exist (a 1x2 grid on
+    a process group of one rank), and a sharded version without its
+    manifest (written last) is not published."""
+    import torch.distributed as dist
+    own = not dist.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            ServingRuntime(str(tmp_path), device="cpu", mesh_shape=(1, 2))
+    finally:
+        if own and dist.is_initialized():
+            dist.destroy_process_group()
+    model, _ = fitted
+    root = tmp_path / "versions"
+    torn_publish(version_dir(str(root), 1), model, mesh_shape=(1, 2),
+                 after_saves=2)
+    assert discover_versions(str(root)) == []
+    assert discover_versions(str(root), sharded=True) == []
 
 
 def test_swap_releases_the_evicted_version(tmp_path, fitted):

@@ -53,7 +53,8 @@ def test_port_sources_name_no_jax_import():
 
 
 def test_no_device_means_the_card():
-    lsh = T.sample_lsh_params(np.random.default_rng(0), 4, 3, T.GammaPDF())
+    lsh = T.sample_lsh_params(np.random.default_rng(0), 4, 3, T.GammaPDF(),
+                              device="cpu")
     if torch.cuda.is_available():
         op = T.make_operator(lsh, T.RECT, 1024)
         assert op.device.type == "cuda"

@@ -166,6 +166,32 @@ def test_route_unpack_plain_matches_pallas(k):
     np.testing.assert_array_equal(got.numpy(), out)
 
 
+@pytest.mark.parametrize("k", [None, 4])
+def test_route_unpack_without_coeff_is_pallas_at_one(k):
+    """B8's plain version with no coefficient (the sharded predict's
+    unpack) against ``route_unpack_pallas`` in interpret mode with every
+    coefficient 1: bitwise, sentinels reading 0."""
+    jlay, tlay, jmaps, tmaps, _ = _setup()
+    nb = 2 * tmaps[3]
+    jplan = j_route_plan(jmaps[0], jlay, nb)
+    cell_lay = D._make_route_plan(tmaps[0], tlay, nb)
+    rng = np.random.default_rng(8)
+    back = rng.standard_normal((nb,) if k is None else (nb, k)
+                               ).astype(np.float32)
+    s = jplan.sched
+    cbbt = s.num_cell_tiles * s.block_t
+    buf = np.pad(back, ((0, cbbt - nb),) + ((0, 0),) * (back.ndim - 1))
+    buf = buf.T if k is not None else buf[None]
+    out = np.asarray(route_unpack_pallas(
+        s.u_block, s.u_tile, s.u_flag, jplan.cell_lay,
+        jnp.ones_like(jlay.coeff_lay), jnp.asarray(buf),
+        block_n=jlay.block_n, block_t=s.block_t, interpret=True))
+    if k is not None:
+        out = np.swapaxes(out, 1, 2)                       # (m, L, k)
+    got = route_unpack_ref(cell_lay, None, torch.from_numpy(back))
+    np.testing.assert_array_equal(got.numpy(), out)
+
+
 def test_bf16_wire_cast_is_bitwise():
     """The wire cast rounds to nearest-even in both frameworks, ties,
     subnormals, infinities and NaN included."""
