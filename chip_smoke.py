@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
 predict and the distributed step, LM serving, KRR serving, the paper's
-Tables 1 and 2, and sharded KRR serving.
+Tables 1 and 2, sharded KRR serving, and LM training.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -183,6 +183,32 @@ non-zero:
    ranks sharing one card over host-staged collectives.  Each export's
    directory goes when its part ends, after a check of free disk.  The
    phase's launches join the ``kernels`` line's (``sharded_launches``).
+11. LM training: gemma3-1b at its full config (26 layers, d_model 1152,
+   vocab 262144; about 1.0 B parameters) through ``launch/train.py``'s
+   ``build`` (``make_train_step``: bf16 compute, float32 master parameters
+   and AdamW state, remat per slot and per cross-entropy chunk) in
+   ``RestartableLoop``: batch 8 x 2048 from ``synthetic_lm_batch``, 12
+   steps, a checkpoint (12 GB, into a temporary directory removed after)
+   every 6, a failure injected at step 8.  Before it, the bf16 logits
+   product with a float32 result (``torch.mm``'s out_dtype and the
+   backward written for it) against the float32 product (logits 1e-5 of
+   max, gradients within one bf16 rounding, 2^-8, as the JAX package's
+   transpose rounds them), and one f32 step of the smoke config on the
+   card against the CPU's to the CPU tests' limits.  Counts reset before
+   the loop and read after (``train_launches``, 0 for every kernel:
+   training attends over the full sequence).  The loop must restart once
+   and the replayed steps' losses equal the first run's within 1e-3
+   relative; every loss and grad norm finite.  Then the 2-microbatch step
+   against the full one, in bf16 and float32: from the run's state, read
+   only (its std-1 stacked weights make attention near one-hot, and the
+   grad norm moves by percents between the two even in float32), and
+   from weights drawn at std 1/sqrt(fan-in), loss and grad norm within
+   1e-3 relative; one step profiled by kind of kernel and its optimizer
+   share.  Printed: the loss and grad-norm curve, ms a step (wall, and
+   device by CUDA events around the step), tokens/s, MFU against the
+   dense bf16 peak with its FLOP count, peak device memory against its
+   reckoning, the checkpoint's write and read seconds
+   (``io_checkpoint_*_us``) and the loop's time outside its steps.
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -192,8 +218,10 @@ non-zero:
    tiles' ranges it reads, not the layout's slack.  B5 and B7 also
    against their first designs (kept for that), B5 split into its kernels
    by torch.profiler, the zero fill of B7's send buffer alone (the
-   index_add_ yardstick leaves it out), and B8 against torch.gather
-   times coeff (its function in two calls).  The
+   index_add_ yardstick leaves it out), B8 against torch.gather
+   times coeff (its function in two calls) and, without its coefficient
+   (the sharded dedup route), against torch.gather alone (the same
+   function, held bitwise).  The
    readout against its first design (B4's gather kernel, then the PyTorch
    combine; in turns), at one instance a launch and all in one, beside its
    32-byte-sector floor.  B2 as the matvec op runs it (the run totals)
@@ -203,7 +231,9 @@ non-zero:
    the parent's op (beta laid out, B2's first design, the map back, the
    mean), with its peak extra allocation.  B1 beside its SASS
    instruction floor, B9 at
-   phase 7's shapes over six turns, and B9 on one long cache (B 1, T
+   phase 7's shapes over six turns in turns with
+   scaled_dot_product_attention on the same cache
+   (``library_device_ms``), and B9 on one long cache (B 1, T
    32768, f32 and bf16) at its plan (splits combined by the last block)
    against the same kernel with its splits capped at a cluster's.  Each
    wrapper also counts its launches by input shape; a kernel's
@@ -216,7 +246,9 @@ non-zero:
    torch.profiler as ``device_ms``: events over launches back to back
    time the host there), listed with those launches as ``by_shape`` (B9's
    device time from torch.profiler); B1, B2, B3, B5 and the readout also
-   at phase 9's largest shape (``tables_ms``).  Last, one replay of each of phase 8's graphs: by
+   at phase 9's largest shape (``tables_ms``; B3's beside index_add_ on
+   the same inputs, forest's layout, ``tables_library_ms``).  Phase 11's
+   counted run is listed as ``train_launches``.  Last, one replay of each of phase 8's graphs: by
    CUDA events back to back, and its kernels' device time by
    torch.profiler over the warm path's wall (the device-busy share).
 
@@ -1169,7 +1201,8 @@ def dist_times(torch, x, lsh, beta, ts):
     their plain versions and library calls; B5 and B7 also against their
     first designs, B5 split by the profiler into its kernels, B7's zero
     fill of the send buffer alone, B8 against torch.gather times coeff (two
-    calls: B8's function), and B3 at path (a)'s split layout.  Returns the
+    calls: B8's function) and without its coefficient against
+    torch.gather, and B3 at path (a)'s split layout.  Returns the
     rows, B7's times by its wrapper's shape key (f32 and bf16 out), B3's
     at the split layout and the extra keys of B8's entry."""
     import repro_torch.core as T
@@ -1291,9 +1324,20 @@ def dist_times(torch, x, lsh, beta, ts):
     rows["route_unpack"] = (ms, plain, bound(
         nbytes(cell_lay, lay.coeff_lay, out) + 4 * distinct,
         out.numel()), lib)
+    # B8's no-coefficient form (the sharded dedup route): the values alone,
+    # the same function as the gather, the sentinel aside
+    bare = lambda: route_unpack_cuda(cell_lay, None, send)
+    out_bare = bare()
+    if not torch.equal(out_bare, torch.gather(back.expand(m, -1), 1, idx)):
+        fail("B8 without a coefficient differs from torch.gather")
+    bare_ms = time_ms(torch, bare)
+    bare_b, _ = bound(nbytes(cell_lay, out_bare) + 4 * distinct)
     say(f"  B8 route unpack {ms:.4f} ms; torch.gather alone {lib:.4f} ms, "
         f"torch.gather times coeff (B8's function, two calls) "
-        f"{with_coeff:.4f} ms")
+        f"{with_coeff:.4f} ms; B8 without a coefficient {bare_ms:.4f} ms "
+        f"(bound {bare_b:.4f} ms, {bare_b / bare_ms:.1%} of it) against "
+        f"torch.gather's {lib:.4f} ms, bitwise equal ({card_line()})")
+    del out_bare
     say("  (library calls: index_add_ for B5 and B7, torch.gather for B6 "
         "and B8 -- B8's without the coeff product)")
     del out, idx, back, send, cell_lay
@@ -1303,7 +1347,9 @@ def dist_times(torch, x, lsh, beta, ts):
                      "at path (a)'s split layout")
     b3_split = {tuple(lay.slot_lay.shape) + (1,): b3}
     return rows, pack_timed, b3_split, {
-        "route_unpack": dict(gather_coeff_ms=with_coeff)}
+        "route_unpack": dict(gather_coeff_ms=with_coeff,
+                             nocoeff_ms=bare_ms, nocoeff_bound_ms=bare_b,
+                             nocoeff_library_ms=lib)}
 
 
 def decode_inputs(torch, dev, b, kv, g, d, t, dtype, seed, lens="random"):
@@ -1616,8 +1662,10 @@ def decode_serve_times(torch, dev, seed, tally):
     """B9 at every shape phase 7 launched it at (``tally``: its launches by
     (B, T, KV, G, D, cache dtype); gemma3-1b: the global layers' caches
     and the local layers' rings): device time from the profiler over
-    several turns against the bound, on a wrapped ring (every row
-    valid)."""
+    several turns, in turns with scaled_dot_product_attention on the same
+    cache laid out (B, KV, T, D) (enable_gqa, boolean mask), against the
+    bound, on a wrapped ring (every row valid)."""
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode_cuda
     timed = {}
     for key in tally:
@@ -1628,16 +1676,24 @@ def decode_serve_times(torch, dev, seed, tally):
         out = flash_decode_cuda(q, k, v, valid)
         run = lambda: flash_decode_cuda(q, k, v, valid)
         names = [kernel_name(n) for n in device_split(torch, run)]
-        got = turns(torch, {"new": run})
+        kt, vt = (a.transpose(1, 2).contiguous() for a in (k, v))
+        qs = q.reshape(b, kv * g, 1, d).to(kt.dtype)
+        mask = (valid > 0)[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, enable_gqa=True)
+        got = turns(torch, {"new": run, "sdpa": lib})
         b_ms, _ = bound(nbytes(q, k, v, valid, out), 4.0 * q.numel() * t)
         mean = lambda ts: sum(ts) / len(ts) if ts else None
-        timed[key] = dict(device_ms=mean(got["new"]), bound_ms=b_ms)
+        timed[key] = dict(device_ms=mean(got["new"]), bound_ms=b_ms,
+                          library_device_ms=mean(got["sdpa"]))
         say(f"  B9 at phase 7's B={b} KV={kv} G={g} D={d} T={t} {dt}: "
             f"device {spread(got['new'])} (torch.profiler: "
             + ", ".join(names) + f"), bound {b_ms:.4f} ms, {tally[key]} "
             f"launches in phase 7; turns "
-            + " ".join(f"{x:.4f}" for x in got["new"]))
-        del q, k, v, valid, out
+            + " ".join(f"{x:.4f}" for x in got["new"])
+            + f"; scaled_dot_product_attention device {spread(got['sdpa'])} "
+            f"({card_line()})")
+        del q, k, v, valid, out, kt, vt, qs, mask
     return timed
 
 
@@ -1719,6 +1775,16 @@ def merged_tallies(runs):
     return total, tally
 
 
+def index_add_ms(torch, slot_lay, contrib, width):
+    """index_add_ of the contributions (m, L) into a flat (m, width) table
+    at each position's slot: B3's function in one PyTorch call."""
+    m = slot_lay.shape[0]
+    flat = (slot_lay.long() + width * torch.arange(
+        m, device=contrib.device)[:, None]).view(-1)
+    acc = torch.zeros(m * width, device=contrib.device)
+    return time_ms(torch, lambda: acc.index_add_(0, flat, contrib.view(-1)))
+
+
 def b3_times(torch, lay, contrib, label):
     """B3 on ``lay`` (contributions (m, L)): CUDA events, its plain version,
     index_add_ and its bound, which counts the bytes the kernel must move:
@@ -1736,10 +1802,7 @@ def b3_times(torch, lay, contrib, label):
     ms = time_ms(torch, run)
     plain = time_ms(torch, lambda: scatter_blocked_ref(
         lay.slot_lay, contrib, width=width), reps=1, warmup=False)
-    flat = (lay.slot_lay.long() + width * torch.arange(
-        m, device=contrib.device)[:, None]).view(-1)
-    acc = torch.zeros(m * width, device=contrib.device)
-    lib = time_ms(torch, lambda: acc.index_add_(0, flat, contrib.view(-1)))
+    lib = index_add_ms(torch, lay.slot_lay, contrib, width)
     used = int(lay.blk_start[:, -1].sum()) * lay.block_n
     b = bound(8 * used + nbytes(lay.blk_start, tables), used)
     b_all, _ = bound(nbytes(lay.blk_start, lay.slot_lay, contrib, tables))
@@ -1749,7 +1812,7 @@ def b3_times(torch, lay, contrib, label):
         f"{used / lay.slot_lay.numel():.1%} of the layout, whose whole "
         f"bytes would take {b_all:.4f} ms); plain {plain:.4f} ms, "
         f"index_add_ {lib:.4f} ms")
-    del flat, acc, tables
+    del tables
     return (ms, plain, b, lib), dict(ms=ms, bound_ms=b[0])
 
 
@@ -2790,8 +2853,15 @@ def held_times(torch, held):
         b_ms, b_by = held_bound(name, a, run())
         extra[name] = dict(tables_shape=str(shape), tables_ms=ms,
                            tables_bound_ms=b_ms, tables_bound_by=b_by)
+        lib = ""
+        if name == "bin_scatter_blocked" and a["contrib_lay"].ndim == 2:
+            # forest's layout (phase 9 (b)): index_add_ at the same inputs
+            lib_ms = index_add_ms(torch, a["slot_lay"], a["contrib_lay"],
+                                  run().shape[1])
+            extra[name]["tables_library_ms"] = lib_ms
+            lib = f"; index_add_ {lib_ms:.4f} ms ({card_line()})"
         say(f"  {name} at phase 9's largest shape {shape}: {ms:.4f} ms "
-            f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)")
+            f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it){lib}")
     held.largest.clear()
     return extra
 
@@ -2816,8 +2886,8 @@ def check_disk(path, gib, what):
     import shutil
     free = shutil.disk_usage(path).free
     if free < gib * 2**30:
-        fail(f"{what}: {free / 2**30:.2f} GiB free under {path}, the "
-             f"export needs {gib} GiB")
+        fail(f"{what}: {free / 2**30:.2f} GiB free under {path}, "
+             f"{gib} GiB needed")
 
 
 def served_bitwise(what, got, want):
@@ -3225,8 +3295,456 @@ def phase_sharded(torch, data, model, serving, seed):
     return dict(a=a, b=b, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: LM training of gemma3-1b at its full config
+# ---------------------------------------------------------------------------
+
+# bf16 compute from float32 master parameters and AdamW state, batch 8 x
+# 2048 (phase 7's prompt), steps through RestartableLoop with one checkpoint
+# before an injected failure and one at the end (keep 1)
+TRAIN = dict(arch="gemma3-1b", batch=8, seq=2048, steps=12, ckpt_every=6,
+             fail_at=8, lr=3e-4)
+TRAIN_DISK_GIB = 26       # two 12 GB checkpoints while the older is swept
+PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def train_model_flops(cfg, n: int, batch: int, seq: int
+                      ) -> tuple[float, float]:
+    """Model FLOPs of one train step: 6 N a token (forward and backward of
+    every parameter's product, the tied table's logits included) plus the
+    attention products, 12 H dh a token, layer and attended key, at each
+    layer's mean key count (causal: (S + 1) / 2; a window W: the mean of
+    min(t + 1, W)); ``n`` parameters.  Returns (total, attention part)."""
+    tokens = batch * seq
+    att = 0.0
+    for slot in cfg.layer_pattern * cfg.n_groups:
+        w = slot.window or seq
+        keys = sum(min(t + 1, w) for t in range(seq)) / seq
+        att += 12.0 * cfg.n_heads * cfg.head_dim * keys
+    return tokens * (6.0 * n + att), tokens * att
+
+
+def _grads_of(torch, cfg, params, batch, dtype):
+    """(loss, gradient tree) of the port's loss_fn by autograd."""
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import tree_map
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    total, metrics = TM.loss_fn(cfg, leaves, batch, dtype=dtype)
+    total.backward()
+    return float(metrics["loss"]), tree_map(lambda p: p.grad, leaves)
+
+
+def _leaf_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / (a.abs().max() + 1e-30))
+
+
+def check_logits_f32(torch, dev, seed):
+    """The bf16 logits product with float32 accumulation and result
+    (``_LogitsF32``: torch.mm's out_dtype, with a backward written for it)
+    against the float32 product of the same bf16 values (TF32 off), by
+    ``repro_torch.testing.train``: the logits within 1e-5 of max|logit|
+    (summation order), the gradients of h and of the float32 table within
+    one bf16 rounding of their max (2^-8: the JAX package's transpose
+    rounds only its results; its reading on the CPU is in
+    tests/test_torch_train.py).  Then one cross-entropy chunk's product
+    and its backward timed at phase 11's shape."""
+    from repro_torch.models.model import _logits_f32
+    from repro_torch.testing.train import ROUNDING, logits_grad_errors
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype, errs = logits_grad_errors(
+        torch.randn(2, 512, 1152, generator=g, device=dev),
+        0.02 * torch.randn(8192, 1152, generator=g, device=dev),
+        torch.randn(2, 512, 8192, generator=g, device=dev))
+    # one cross-entropy chunk's product at phase 11's shape: bf16 with a
+    # float32 result, its backward (four such products: the head and the
+    # tail of the gradient, for h and for the table), bf16, and float32
+    # (TF32 off)
+    hc = torch.randn(TRAIN["batch"] * 512, 1152, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    tc = torch.randn(262144, 1152, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    ms = [time_ms(torch, lambda: torch.mm(hc, tc.T, out_dtype=torch.float32))]
+    hg, tg = hc.requires_grad_(True), tc.requires_grad_(True)
+    out = _logits_f32(hg[None], tg)
+    gout = torch.randn_like(out)
+    ms.append(time_ms(torch, lambda: torch.autograd.grad(
+        out, (hg, tg), gout, retain_graph=True), reps=3))
+    del out, gout, hg, tg
+    hc, tc = hc.detach(), tc.detach()
+    ms.append(time_ms(torch, lambda: hc @ tc.T))
+    hc, tc = hc.float(), tc.float()
+    ms.append(time_ms(torch, lambda: hc @ tc.T, reps=2))
+    del hc, tc
+    torch.cuda.empty_cache()
+    say(f"  bf16 logits with float32 accumulation (torch.mm out_dtype, "
+        f"{card_line()}): logits {errs[0]:.3g} of max (limit 1e-5), "
+        f"grad h {errs[1]:.3g}, grad table {errs[2]:.3g} (limit 2^-8 = "
+        f"{ROUNDING:.3g}, one bf16 rounding); one chunk's product "
+        f"({TRAIN['batch'] * 512} x 1152 x 262144) {ms[0]:.3f} ms, its "
+        f"backward {ms[1]:.3f} ms, in bf16 out {ms[2]:.3f} ms, in float32 "
+        f"{ms[3]:.3f} ms")
+    if dtype != torch.float32 or not (
+            errs[0] <= 1e-5 and max(errs[1:]) <= ROUNDING):
+        fail(f"phase 11: the float32-accumulated bf16 logits disagree: "
+             f"{errs}")
+
+
+def check_train_smoke(torch, dev, seed):
+    """gemma3-1b's smoke config, f32: the card's loss_fn gradients and one
+    train step against the port's own on the CPU, to the CPU tests' limits
+    (tests/test_torch_train.py): the loss within 1e-5 relative; each
+    gradient leaf within max(1e-4, 4x its float32 floor) of its max (the
+    floor: how far half an ulp on every parameter moves it, on the CPU and
+    on the card, the larger: the smoke config's stacked weights are drawn
+    at std 1, so its attention scores are near one-hot, and the card's
+    floor is several times the CPU's);
+    lr of the step equal, loss within 1e-5 relative, grad_norm within
+    what the gradient limits allow (the L2 norm of each leaf's limit over
+    its entries); the new parameters within lr * 1e-3 where the clipped
+    gradient is above 1e-5 and |g| above its leaf's limit (its sign is
+    not noise there: the first step moves by lr g / (|g| + eps)), AdamW's
+    bound lr (1 + wd |p|) on both updates elsewhere."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch import steps as TS
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = registry.smoke_config(TRAIN["arch"])
+    cpu = TM.init(cfg, torch.Generator().manual_seed(seed))
+    card = tree_map(lambda p: p.to(dev), cpu)
+    batch = synthetic_lm_batch(seed, 0, batch=4, seq=64,
+                               vocab=cfg.vocab_size, device="cpu")
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    l_cpu, g_cpu = _grads_of(torch, cfg, cpu, batch, torch.float32)
+    l_card, g_card = _grads_of(torch, cfg, card, dbatch, torch.float32)
+    gen = torch.Generator().manual_seed(99)
+    moved = tree_map(lambda p: p * (1 + 2.0 ** -24 * (2 * torch.randint(
+        0, 2, p.shape, generator=gen) - 1)), cpu)
+    _, m_cpu = _grads_of(torch, cfg, moved, batch, torch.float32)
+    _, m_card = _grads_of(torch, cfg, tree_map(lambda p: p.to(dev), moved),
+                          dbatch, torch.float32)
+    worst, noise, norm_tol, floors = 0.0, {}, 0.0, [0.0, 0.0]
+    for (path, a), (_, b), (_, c), (_, d) in zip(
+            tree_leaves(g_cpu), tree_leaves(g_card), tree_leaves(m_cpu),
+            tree_leaves(m_card)):
+        floors = [max(floors[0], _leaf_rel(a, c)),
+                  max(floors[1], _leaf_rel(b, d))]
+        tol = max(1e-4, 4 * max(_leaf_rel(a, c), _leaf_rel(b, d)))
+        worst = max(worst, _leaf_rel(a, b) / tol)
+        noise[path] = tol * float(a.abs().max())
+        norm_tol += a.numel() * noise[path] ** 2
+        if _leaf_rel(a, b) > tol:
+            fail(f"phase 11: smoke gradient {path} on the card "
+                 f"{_leaf_rel(a, b):.3g} off the CPU's (limit {tol:.3g})")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    step = TS.make_train_step(cfg, opt, dtype=torch.float32)
+    p1, _, m1 = step(cpu, adamw_init(cpu), batch)
+    p2, _, m2 = step(card, adamw_init(card), dbatch)
+    lr = float(m1["lr"])
+    for name, lim in (("loss", 1e-5 * abs(float(m1["loss"]))),
+                      ("grad_norm", norm_tol ** 0.5), ("lr", 0.0)):
+        a, b = float(m1[name]), float(m2[name])
+        if not abs(a - b) <= lim:
+            fail(f"phase 11: smoke step {name} {b} on the card, {a} on "
+                 f"the CPU (limit {lim:.3g})")
+    scale = min(1.0, opt.clip_norm / max(float(m1["grad_norm"]), 1e-9))
+    far = 0.0
+    for (path, a), (_, b), (_, g), (_, p0) in zip(
+            tree_leaves(p1), tree_leaves(p2), tree_leaves(g_cpu),
+            tree_leaves(cpu)):
+        b = b.cpu()
+        big = (g.abs() * scale > 1e-5) & (g.abs() > noise[path])
+        # AdamW's first-step bound, plus the float32 rounding of p
+        cap = lr * (1 + opt.weight_decay * p0.abs()) * (1 + 1e-5) + \
+            2.0 ** -23 * p0.abs()
+        if big.any():
+            far = max(far, float((a - b).abs()[big].max()) / lr)
+        if far > 1e-3 or bool(((a - p0).abs() > cap)[~big].any()) or bool(
+                ((b - p0).abs() > cap)[~big].any()):
+            fail(f"phase 11: smoke step parameter {path} off the CPU's")
+    say(f"  smoke config, f32, card against CPU ({card_line()}): loss "
+        f"{l_card:.6f} / {l_cpu:.6f}; gradients at {worst:.3g} of their "
+        f"limits (float32 floor up to {floors[0]:.3g} of a leaf's max on "
+        f"the CPU, {floors[1]:.3g} on the card); grad norm {float(m2['grad_norm']):.6f} / "
+        f"{float(m1['grad_norm']):.6f}; one step's parameters within "
+        f"{far:.3g} lr where the gradient's sign is not noise (limit 1e-3)")
+    if not abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu):
+        fail(f"phase 11: smoke loss {l_card} on the card, {l_cpu} on the "
+             f"CPU")
+
+
+def phase_train(torch, dev, seed):
+    """Phase 11: gemma3-1b at its full config trained through the port's
+    train step in RestartableLoop (launch/train.py's build), with an
+    injected failure after one checkpoint; then the 2-microbatch step
+    against the full one.  Returns the counted run's launches."""
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.train import build
+    from repro_torch.models import model as TM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureInjector, RestartableLoop
+    b, s, n_steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    cfg, step_fn = build(TRAIN["arch"], smoke=False, steps=n_steps,
+                         lr=TRAIN["lr"], dtype=torch.bfloat16)
+    n = TM.count_params(cfg)
+    say(f"== phase 11: LM training, {cfg.name} at its full config ({n:,} "
+        f"parameters; bf16 compute, float32 master parameters and AdamW "
+        f"state), batch {b} x {s}, {n_steps} steps, a checkpoint every "
+        f"{TRAIN['ckpt_every']}, a failure injected at step "
+        f"{TRAIN['fail_at']} ({card_line()})")
+    check_logits_f32(torch, dev, seed)
+    check_train_smoke(torch, dev, seed)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    say(f"  device memory held by the earlier phases: {held / 2**30:.2f} GiB")
+
+    history = []       # (step, loss, grad_norm, lr) of every run step
+    marks = []         # CUDA events around each step's step_fn
+
+    def loop_step(state, step):
+        batch = synthetic_lm_batch(seed, step, batch=b, seq=s,
+                                   vocab=cfg.vocab_size, device=dev)
+        e, f = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e.record()
+        p, o, m = step_fn(state["params"], state["opt"], batch)
+        f.record()
+        marks.append((e, f))
+        return {"params": p, "opt": o}, m
+
+    def on_metrics(step, m):
+        history.append((step - 1, float(m["loss"]), float(m["grad_norm"]),
+                        float(m["lr"])))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        check_disk(tmp, TRAIN_DISK_GIB, "phase 11's checkpoints")
+        t0 = sync_clock(torch)
+        state0 = dict(zip(("params", "opt"), TS.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(seed))))
+        say(f"  parameters and AdamW state made in "
+            f"{sync_clock(torch) - t0:.2f} s")
+        loop = RestartableLoop(loop_step, tmp,
+                               checkpoint_every=TRAIN["ckpt_every"], keep=1,
+                               injector=FailureInjector((TRAIN["fail_at"],)))
+        hist = lambda name: obs.histogram(name).state()[1:]
+        save0, restore0 = hist("io_checkpoint_save_us"), hist(
+            "io_checkpoint_restore_us")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = loop.run(state0, n_steps, on_metrics=on_metrics)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        save1, restore1 = hist("io_checkpoint_save_us"), hist(
+            "io_checkpoint_restore_us")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state0
+
+    say(f"  launches of the port's kernels in the run: "
+        f"{ {k: v for k, v in counts.items() if v} or 'none'} (training "
+        f"attends over the full sequence: no B9)")
+    if loop.restarts != 1 or result.step != n_steps:
+        fail(f"phase 11: {loop.restarts} restarts, ended at step "
+             f"{result.step} of {n_steps}")
+    say("  step: loss, grad norm, lr (" + card_line() + "): " + "; ".join(
+        f"{st} {lo:.4f} {gn:.4f} {lr:.2e}" for st, lo, gn, lr in history))
+    if not all(np.isfinite(v) for h in history for v in h[1:3]):
+        fail("phase 11: a non-finite loss or grad norm")
+    first = {}
+    for st, lo, gn, _ in history:
+        if st in first:
+            rel = abs(lo - first[st]) / abs(first[st])
+            say(f"  replayed step {st}: loss {lo:.6f} against "
+                f"{first[st]:.6f} before the failure ({rel:.3g} relative, "
+                f"limit 1e-3)")
+            if not rel <= 1e-3:
+                fail(f"phase 11: replayed step {st} loss {lo} != {first[st]}")
+        else:
+            first[st] = lo
+    replayed = len(history) - len(first)
+    if replayed != TRAIN["fail_at"] - TRAIN["ckpt_every"]:
+        fail(f"phase 11: {replayed} steps replayed")
+
+    # device time of the steps after the first, from the events around
+    # step_fn; its optimizer share is the profiled step's (below)
+    walls = loop.watchdog.times[1:]
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    step_s = med(walls)
+    dev_ms = med([e.elapsed_time(f) for e, f in marks[1:]])
+    flops, att = train_model_flops(cfg, n, b, s)
+    mfu = flops / (dev_ms * 1e-3) / PEAK_BF16_OPS_PER_S
+    state_gib = 12 * n / 2**30
+    say(f"  step (median of {len(walls)} after the first; {card_line()}): "
+        f"wall {step_s * 1e3:.1f} ms (batch made on the host included), "
+        f"device {dev_ms:.1f} ms (CUDA events around the step); "
+        f"{b * s / step_s:.0f} tokens/s by the wall, "
+        f"{b * s / dev_ms * 1e3:.0f} by the device; first step "
+        f"{loop.watchdog.times[0] * 1e3:.1f} ms")
+    say(f"  model FLOPs a step {flops / 1e12:.2f} T (6 N = "
+        f"{6 * n * b * s / 1e12:.2f} T over {b * s} tokens, attention "
+        f"{att / 1e12:.2f} T at the causal and 512-windowed key counts): "
+        f"MFU {mfu:.1%} of the dense bf16 peak 989 TFLOP/s over the "
+        f"device time")
+    say(f"  peak device memory {peak / 2**30:.2f} GiB, "
+        f"{(peak - held) / 2**30:.2f} of it phase 11's; reckoned: "
+        f"parameters, m and v {state_gib:.2f} GiB, twice (the loop keeps "
+        f"the initial state to restart from before a checkpoint), "
+        f"gradients {4 * n / 2**30:.2f}, the bf16 compute copy "
+        f"{2 * n / 2**30:.2f}, one cross-entropy chunk's float32 logits "
+        f"{b * 512 * cfg.vocab_size * 4 / 2**30:.2f} GiB each")
+    dsave = (save1[0] - save0[0]) / max(save1[1] - save0[1], 1) / 1e6
+    drest = (restore1[0] - restore0[0]) / max(
+        restore1[1] - restore0[1], 1) / 1e6
+    say(f"  checkpoints of {state_gib * 2**30 / 1e9:.1f} GB: each file "
+        f"write {dsave:.2f} s (worker thread, io_checkpoint_save_us), the "
+        f"npz read of the restore {drest:.2f} s "
+        f"(io_checkpoint_restore_us); the loop {wall:.1f} s, "
+        f"{wall - sum(loop.watchdog.times):.1f} s of it outside the steps "
+        f"(the copies to the host, the restore to the card, the last "
+        f"write's wait)")
+
+    # 2 microbatches against the full batch.  (a) From the run's state:
+    # read in bf16 and float32, not gated.  Its stacked weights were drawn
+    # at std 1/sqrt(groups) = 1 (gemma3's 26 slots are one group), so
+    # attention is near one-hot and the gradient is carried by near-ties
+    # of the scores; the products of 8192 rows round otherwise than those
+    # of 16384, and that moves the grad norm by percents even in float32.
+    # (b) From weights drawn at std 1/sqrt(fan-in), where attention is not
+    # near one-hot: loss and grad norm within 1e-3 relative in both.
+    st = result.state
+    del result
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"], total_steps=n_steps,
+                          warmup_steps=max(10, n_steps // 20))
+    batch = synthetic_lm_batch(seed, n_steps, batch=b, seq=s,
+                               vocab=cfg.vocab_size, device=dev)
+    readings = {"from the run's state": microbatch_readings(
+        torch, cfg, opt_cfg, st, batch)}
+    profile_train_step(torch, TS.make_train_step(
+        cfg, opt_cfg, dtype=torch.bfloat16), st, batch)
+    del st
+    torch.cuda.empty_cache()
+    readings["from a fan-in draw"] = microbatch_readings(
+        torch, cfg, opt_cfg, fan_in_state(torch, cfg, dev, seed), batch)
+    del batch
+    torch.cuda.empty_cache()
+    rel = lambda x, y: abs(x - y) / abs(y)
+    for where, r in readings.items():
+        for dt, ((l1, g1, t1), (l2, g2, t2)) in r.items():
+            gated = where == "from a fan-in draw"
+            say(f"  2 microbatches against the full batch {where}, {dt} "
+                f"({card_line()}): loss {l2:.6f} / {l1:.6f} "
+                f"({rel(l2, l1):.3g} relative), grad norm {g2:.6f} / "
+                f"{g1:.6f} ({rel(g2, g1):.3g} relative)"
+                f"{' (limits 1e-3)' if gated else ' (not gated)'}; "
+                f"{t2 * 1e3:.1f} / {t1 * 1e3:.1f} ms")
+            if not np.isfinite([l1, l2, g1, g2]).all() or gated and not (
+                    rel(l2, l1) <= 1e-3 and rel(g2, g1) <= 1e-3):
+                fail(f"phase 11: microbatched step {where} in {dt}: {l2}, "
+                     f"{g2} against {l1}, {g1}")
+    return counts
+
+
+def microbatch_readings(torch, cfg, opt_cfg, state, batch):
+    """The train step from ``state`` on ``batch`` whole and in 2
+    microbatches, in bf16 and float32 compute (TF32 off): {dtype: [(loss,
+    grad norm, seconds) whole, the same in 2]}."""
+    from repro_torch.launch import steps as TS
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        got = []
+        for nm in (1, 2):
+            t0 = sync_clock(torch)
+            _, _, m = TS.make_train_step(cfg, opt_cfg, dtype=dtype,
+                                         num_microbatches=nm)(
+                state["params"], state["opt"], batch)
+            got.append((float(m["loss"]), float(m["grad_norm"]),
+                        sync_clock(torch) - t0))
+            del m
+            torch.cuda.empty_cache()
+        out[str(dtype).removeprefix("torch.")] = got
+    return out
+
+
+def fan_in_state(torch, cfg, dev, seed):
+    """A train state whose stacked weights have std 1/sqrt(their fan-in)
+    instead of the init's 1/sqrt(groups) (``repro_torch.testing.train.
+    fan_in_scale``, as tests/test_torch_train.py draws its bf16 inputs),
+    and a fresh AdamW state."""
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.testing.train import fan_in_scale
+    params, opt = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 1))
+    return {"params": fan_in_scale(cfg, params), "opt": opt}
+
+
+# kernel names by the work they do in a train step's profile
+TRAIN_KERNEL_KINDS = (("matmul", ("gemm", "xmma", "nvjet", "cutlass",
+                                  "sm90_", "cublas")),
+                      ("softmax", ("softmax",)),
+                      ("reduction", ("reduce", "norm")),
+                      ("copy", ("copy", "memcpy", "memset", "cat", "fill")))
+
+
+def profile_train_step(torch, step, state, batch):
+    """One train step under torch.profiler: the device's busy time (the
+    sum of kernel times: one stream) against the wall, the optimizer's
+    share (the kernels under the step's ``OPTIMIZER_RANGE``), by kind of
+    kernel (names matched against TRAIN_KERNEL_KINDS, the rest
+    elementwise) and the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import OPTIMIZER_RANGE
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = sync_clock(torch)
+        out = step(state["params"], state["opt"], batch)
+        wall = (sync_clock(torch) - t0) * 1e3
+    del out
+    by_name, opt_ms = {}, 0.0
+    for e in prof.events():
+        if e.name == OPTIMIZER_RANGE:       # the range, not a kernel
+            if e.device_type == DeviceType.CPU:
+                opt_ms += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
+        say("  profiled train step: no device events recorded; the split "
+            "is not measured")
+        return
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    kinds = {}
+    for name, (n, us) in by_name.items():
+        low = name.lower()
+        kind = next((k for k, keys in TRAIN_KERNEL_KINDS
+                     if any(key in low for key in keys)), "elementwise")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+    split = (f"forward + backward {busy - opt_ms:.1f} ms, optimizer "
+             f"{opt_ms:.1f} ms" if opt_ms > 0 else
+             "the optimizer's share not measured (no device time under "
+             "its range)")
+    say(f"  profiled train step (torch.profiler; {card_line()}): wall "
+        f"{wall:.1f} ms, {sum(n for n, _ in by_name.values())} kernels, "
+        f"device busy {busy:.1f} ms ({busy / wall:.1%}): {split}; by kind: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+            kinds.items(), key=lambda kv: -kv[1])))
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:8]:
+        say(f"    {us / 1e3:.1f} ms in {n} x {name[:100]}")
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
-                lm_counts, serving, tables, sharded, seed):
+                lm_counts, serving, tables, sharded, train_counts, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import bin_readout_cuda
     from repro_torch.kernels.binning.ops import _beta_to_layout
@@ -3424,6 +3942,7 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         if name in by_shape:
             entries[-1]["by_shape"] = by_shape[name]
         entries[-1].update(extra.get(name, {}))
+        entries[-1]["train_launches"] = train_counts[name]
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}; {launches[name]} "
@@ -3473,8 +3992,10 @@ def main(argv=None) -> int:
     sharded = phase_sharded(torch, data, model, serving, args.seed)
     import torch.distributed as dist
     dist.destroy_process_group()
+    train_counts = phase_train(torch, dev, args.seed)
     entries = phase_times(torch, data, model, counts, errs, dist_state,
-                          lm_counts, serving, tables, sharded, args.seed)
+                          lm_counts, serving, tables, sharded, train_counts,
+                          args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -174,6 +174,23 @@ def restore_checkpoint(directory: str, template: Any, step: int | None = None):
         return _unflatten(template, arrays), step, meta
 
 
+def restore_like(directory: str, template: Any, step: int | None = None):
+    """``restore_checkpoint`` with each leaf a new tensor on its template
+    leaf's device and dtype (a leaf whose template is not a tensor stays a
+    numpy array).  Returns (state, step, meta)."""
+    state, step, meta = restore_checkpoint(directory, template, step)
+    want = dict(_walk(template, ""))
+
+    def place(path, arr):
+        t = want[path]
+        if not isinstance(t, torch.Tensor):
+            return arr
+        return torch.from_numpy(np.array(arr)).to(device=t.device,
+                                                  dtype=t.dtype)
+
+    return _map_leaves(state, place), step, meta
+
+
 PLACEMENT_AXES = ("model", "data")
 
 

@@ -9,7 +9,9 @@ model predicts through the port as the JAX model does.
 
 ``lm_params_from_reference`` and ``lm_cache_from_reference`` take the LM
 stack's parameter and decode-cache trees (nested dicts of arrays, the stacked
-group axis first) and give tensor trees with the same keys.
+group axis first) and give tensor trees with the same keys;
+``adamw_state_from_reference`` takes the JAX package's ``AdamWState`` (step,
+m, v), so a JAX train state continues in the port's train step.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from .backend import resolve_device
 from .core.krr import WLSHKRRModel
 from .core.lsh import LSHParams, lsh_params_from_numpy
+from .optim.adamw import AdamWState
 
 
 def lsh_from_reference(lsh, device=None) -> LSHParams:
@@ -75,3 +78,12 @@ def lm_cache_from_reference(cache, device=None) -> dict:
     """The port's decode cache from the JAX package's (``model.prefill`` or
     ``model.init_cache``), on ``device``."""
     return _tensor_tree(cache, resolve_device(device))
+
+
+def adamw_state_from_reference(state, device=None) -> AdamWState:
+    """The port's AdamWState from the JAX package's (step as an int32
+    scalar, m and v as float32 trees), on ``device``."""
+    dev = resolve_device(device)
+    return AdamWState(step=_tensor(state.step, np.int32, dev).reshape(()),
+                      m=_tensor_tree(state.m, dev),
+                      v=_tensor_tree(state.v, dev))

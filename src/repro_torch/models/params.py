@@ -34,12 +34,14 @@ class ParamSpec(NamedTuple):
         return out.normal_(0.0, std, generator=generator)
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of a tree of nested dicts (a ``ParamSpec`` is
-    a leaf, not a tuple to descend into)."""
+    a leaf, not a tuple to descend into); with more trees of the same
+    keys, ``fn`` takes the leaves at one path from each."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any, path: str = "") -> list[tuple[str, Any]]:

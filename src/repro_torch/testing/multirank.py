@@ -35,7 +35,8 @@ def spawn_ranks(world_size: int, model_parallel: int, store_dir: str,
     optionally 'cap_factor'; for 'serve' the artifact
     directories ``_serve_job`` reads, for 'serve_rows' a 'grid' and the
     rows 'xq' to serve, for 'serve_faults' what ``_serve_faults_job``
-    reads.  ``device`` is every rank's ("cuda:0": ranks sharing one card,
+    reads, for 'compressed_psum' the per-rank rows 'x' and a 'seed'.
+    ``device`` is every rank's ("cuda:0": ranks sharing one card,
     over ``backend`` gloo); ``timeout_s`` the group's collective timeout
     (None: the backend's)."""
     mp.spawn(_rank_main, args=(world_size, model_parallel, store_dir, inputs,
@@ -75,6 +76,9 @@ def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
         if spec["mode"] == "serve_faults":
             out[name] = _serve_faults_job(mesh, spec)
             continue
+        if spec["mode"] == "compressed_psum":
+            out[name] = _compressed_psum_job(spec)
+            continue
         out[name] = _run(mesh, spec, RECT, x, y, xq, lsh)
     torch.save(out, os.path.join(store_dir, f"rank{rank}.pt"))
     dist.barrier()
@@ -103,6 +107,16 @@ def _run(mesh, spec, f, x, y, xq, lsh) -> dict:
         res[f"pred_dedup{int(dedup)}"] = pred
         res[f"pred_dropped{int(dedup)}"] = dropped
     return res
+
+
+def _compressed_psum_job(spec) -> dict:
+    """``optim.compressed_psum`` of this rank's row of spec['x'] (world,
+    ...) over the world group, its generator seeded with spec['seed']."""
+    from ..optim import compressed_psum
+    x = torch.from_numpy(spec["x"][dist.get_rank()])
+    return {"sum": compressed_psum(x, dist.group.WORLD,
+                                   torch.Generator().manual_seed(
+                                       spec["seed"]))}
 
 
 def _serve_job(mesh, spec) -> dict:

@@ -693,6 +693,57 @@ def test_decode_on_card_matches_cpu(cuda, arch):
                                rtol=0)
 
 
+def test_bf16_logits_accumulate_in_float32(cuda):
+    """The cross-entropy's bf16 logits product on the card (torch.mm with
+    a float32 result, and the backward written for it) against the float32
+    product of the same bf16 values: logits within 1e-5 of max|logit|, the
+    gradients of h and of the float32 table within one bf16 rounding (2^-8
+    of their max), as the JAX package's transpose rounds them."""
+    from repro_torch.testing.train import ROUNDING, logits_grad_errors
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dtype, errs = logits_grad_errors(
+        torch.randn(2, 256, 512, generator=g, device=cuda),
+        0.05 * torch.randn(3000, 512, generator=g, device=cuda),
+        torch.randn(2, 256, 3000, generator=g, device=cuda))
+    assert dtype == torch.float32
+    assert errs[0] <= 1e-5 and max(errs[1:]) <= ROUNDING, errs
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two bf16 train steps of gemma3-1b's smoke config on the card against
+    the same on the CPU (the same weights and batches; the stacked weights
+    at std 1/sqrt(fan-in), ``fan_in_scale``, so that attention is not near
+    one-hot): loss and grad norm within 2e-2 relative (the card's bf16
+    products round at other places than the CPU's).  The float32 step is
+    ``chip_smoke.py``'s ``check_train_smoke``, at the CPU tests' limits."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import AdamWConfig
+    cfg = registry.smoke_config("gemma3-1b")
+    from repro_torch.testing.train import fan_in_scale
+    params, opt = init_train_state(cfg, torch.Generator().manual_seed(0))
+    params = fan_in_scale(cfg, params)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=0,
+                                            total_steps=10),
+                           dtype=torch.bfloat16)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        o = opt._replace(step=opt.step.to(dev), m=tree_map(
+            lambda a: a.to(dev), opt.m), v=tree_map(lambda a: a.to(dev),
+                                                    opt.v))
+        got = []
+        for k in range(2):
+            batch = synthetic_lm_batch(0, k, batch=4, seq=64,
+                                       vocab=cfg.vocab_size, device=dev)
+            p, o, m = step(p, o, batch)
+            got += [float(m["loss"]), float(m["grad_norm"])]
+        out[str(dev)] = np.array(got)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=2e-2)
+
+
 @pytest.mark.parametrize("fname", ["rect", "tent", "smooth"])
 def test_featurize_kernel_on_edge_operands(cuda, fname):
     """B1's fast divide and rounding where they hand over to the exact path
