@@ -168,7 +168,9 @@ non-zero:
    equal their first answer, the golden block within its tol.  By bucket
    the sharded ``predict()`` µs beside phase 8's graph warm path and
    eager path; at buckets 1 and 1024 its device busy time by kernel and
-   its host self time by operator (torch.profiler).  Then a lifecycle of
+   its host self time by operator (torch.profiler); B8 at every shape the
+   dedup route launched it at, by torch.profiler, in turns with its first
+   design (``sharded_device_ms`` in the ``kernels`` line).  Then a lifecycle of
    1x1 grids of phase 8's lifecycle models: v1 served, v2 with its piece
    scaled on disk (canary reject), v3 pieces without a manifest
    (invisible), v4 a piece of the previous export (refused at load), v5
@@ -218,10 +220,22 @@ non-zero:
    tiles' ranges it reads, not the layout's slack.  B5 and B7 also
    against their first designs (kept for that), B5 split into its kernels
    by torch.profiler, the zero fill of B7's send buffer alone (the
-   index_add_ yardstick leaves it out), B8 against torch.gather
-   times coeff (its function in two calls) and, without its coefficient
-   (the sharded dedup route), against torch.gather alone (the same
-   function, held bitwise).  The
+   index_add_ yardstick leaves it out).  B8 first on the inputs of
+   ``repro_torch.testing.route_cases`` (random, negative and descending
+   cells, sentinels at num_cells and 2^31 - 1, L 1, 3, 5 and 4097, k 1, 3
+   and 4 (and a one-column back), m 1 and 65, with and without a
+   coefficient, rows aligned and one element off), it and its first
+   design bitwise the plain version, and on this routing with every row
+   reversed and with its cells randomly permuted; then, in both forms (with its coefficient, and without it:
+   the sharded dedup route), in turns with its first design (kept for
+   that), torch.gather (times coeff: its function in two calls; without
+   the coefficient the same function, held bitwise) and the streams
+   alone (a PyTorch copy, or multiply, of the same cell, coeff and out
+   bytes, no back read) and B8 with every real cell moved to cell 0 (its
+   streams with the back reads on one line), each form beside its bound,
+   with the routing's share of sentinel positions; and without the
+   coefficient on the routing's cells reversed and randomly permuted, in
+   turns with its first design.  The
    readout against its first design (B4's gather kernel, then the PyTorch
    combine; in turns), at one instance a launch and all in one, beside its
    32-byte-sector floor.  B2 as the matvec op runs it (the run totals)
@@ -259,6 +273,7 @@ of the repository, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -781,6 +796,43 @@ def check_dist_kernels(torch, slot, coeff, lay, routes, beta, table_size):
     return e5
 
 
+def check_unpack_adversarial(torch, dev):
+    """B8 and its first design bitwise (signed zeros apart) against the
+    plain version, and the plain version against the numpy oracle, on the
+    inputs of ``repro_torch.testing.route_cases``: random, negative and
+    descending cells, sentinels at num_cells and 2^31 - 1, at every L, k,
+    m of it, with and without a coefficient, aligned and one element
+    off."""
+    from repro_torch.kernels.binning import route_unpack_cuda, route_unpack_ref
+    from repro_torch.kernels.binning.variants import route_unpack_v1_cuda
+    from repro_torch.testing.route_cases import (UNPACK_KS, UNPACK_LS,
+                                                 UNPACK_MS, unpack_bits,
+                                                 unpack_case, unpack_oracle)
+    cases = 0
+    for L, k, m, coeff, offset in itertools.product(
+            UNPACK_LS, UNPACK_KS, UNPACK_MS, (True, False), (False, True)):
+        what = f"L={L} k={k} m={m} coeff={coeff} offset={offset}"
+        cell, cf, back = unpack_case(100 + L + k, m, L, k, coeff=coeff,
+                                     offset=offset, device=dev)
+        want = unpack_bits(route_unpack_ref(cell, cf, back))
+        oracle = unpack_oracle(cell.cpu().numpy(),
+                               None if cf is None else cf.cpu().numpy(),
+                               back.cpu().numpy())
+        if not np.array_equal(want, oracle.view(np.uint32)):
+            fail(f"B8's plain version at {what}: not the numpy oracle's "
+                 f"bits")
+        for name, fn in (("B8", route_unpack_cuda),
+                         ("B8's first design", route_unpack_v1_cuda)):
+            if not np.array_equal(unpack_bits(fn(cell, cf, back)), want):
+                fail(f"{name} at {what}: not bitwise its plain version")
+        cases += 1
+    say(f"  B8 and its first design on {cases} adversarial inputs (random, "
+        f"negative and descending cells, sentinels at num_cells and "
+        f"2^31 - 1, L {UNPACK_LS}, k {UNPACK_KS}, m {UNPACK_MS}, with and "
+        f"without coeff, rows aligned and one element off): bitwise the "
+        f"plain version, itself the numpy oracle's bits")
+
+
 def check_featurize_edges(torch, dev, seed):
     """B1 on its edge operands (where the fast divide and rounding hand
     over to the exact path, and ties) for all three bucket functions."""
@@ -1213,7 +1265,8 @@ def dist_times(torch, x, lsh, beta, ts):
                                              route_unpack_cuda,
                                              route_unpack_ref, scatter_ref)
     from repro_torch.kernels.binning.variants import (bin_scatter_v1_cuda,
-                                                      route_pack_v1_cuda)
+                                                      route_pack_v1_cuda,
+                                                      route_unpack_v1_cuda)
     from repro_torch.kernels.binning.ops import layout_rows
     from repro_torch.kernels.featurize import featurize_cuda
     m = lsh.m
@@ -1308,48 +1361,103 @@ def dist_times(torch, x, lsh, beta, ts):
     del acc, contrib_lay, cells, vals
     torch.cuda.empty_cache()
 
-    run = lambda: route_unpack_cuda(cell_lay, lay.coeff_lay, send)
-    out = run()
-    ms = time_ms(torch, run)
+    # B8: the adversarial inputs first, then both forms, each in turns
+    # with its first design, torch.gather (times coeff: B8's function in
+    # two calls), the streams alone (PyTorch passes over the same cell,
+    # coeff and out bytes that read no back value) and B8 with every real
+    # cell moved to cell 0 (the same streams, the back reads all on one
+    # line: what the back reads cost); then without the coefficient on
+    # the routing's cells in other orders (each row reversed, a random
+    # permutation), in turns with its first design
+    check_unpack_adversarial(torch, x.device)
+    orders = dict(reversed=cell_lay.flip(1).contiguous(),
+                  permuted=cell_lay.view(-1)[torch.randperm(
+                      cell_lay.numel(), device=x.device)].view(
+                          cell_lay.shape))
+    for what, cl in orders.items():
+        if not torch.equal(route_unpack_cuda(cl, lay.coeff_lay, send).view(
+                torch.int32), route_unpack_ref(cl, lay.coeff_lay, send).view(
+                torch.int32)):
+            fail(f"B8 on phase 5's routing, cells {what}: not bitwise")
+    order_ms = {what: event_turns(torch, dict(
+        new=lambda cl=cl: route_unpack_cuda(cl, None, send),
+        first=lambda cl=cl: route_unpack_v1_cuda(cl, None, send)))
+        for what, cl in orders.items()}
+    del orders
+    one_cell = torch.where(cell_lay < nb, 0, cell_lay)
+    sentinel = float((cell_lay >= nb).float().mean())
+    idx = cell_lay.long()
+    back = torch.cat([send, send.new_zeros(int(idx.max()) + 1 - nb)])
+    gather = lambda: torch.gather(back.expand(m, -1), 1, idx)
+    bits = cell_lay.view(torch.float32)
+    sink = torch.empty_like(bits)
+    b8 = {}
+    for form, cf in (("coeff", lay.coeff_lay), ("bare", None)):
+        new = lambda cf=cf: route_unpack_cuda(cell_lay, cf, send)
+        out = new()
+        if not torch.equal(route_unpack_v1_cuda(cell_lay, cf, send), out):
+            fail(f"B8's first design ({form}) differs from B8")
+        if cf is None and not torch.equal(out, gather()):
+            fail("B8 without a coefficient differs from torch.gather")
+        fns = dict(
+            new=new,
+            first=lambda cf=cf: route_unpack_v1_cuda(cell_lay, cf, send),
+            library=gather if cf is None else
+            lambda: gather() * lay.coeff_lay,
+            streams=(lambda: sink.copy_(bits)) if cf is None else
+            lambda: torch.mul(bits, lay.coeff_lay, out=sink),
+            one_cell=lambda cf=cf: route_unpack_cuda(one_cell, cf, send))
+        b8[form] = event_turns(torch, fns)
+        b8[form]["bound"] = bound(nbytes(cell_lay, out) + 4 * distinct
+                                  + (0 if cf is None else
+                                     nbytes(lay.coeff_lay)))[0]
+        del out
+    del sink, bits, one_cell
     plain = time_ms(torch, lambda: route_unpack_ref(cell_lay, lay.coeff_lay,
                                                     send),
                     reps=1, warmup=False)
-    idx = cell_lay.long()
-    back = torch.cat([send, send.new_zeros(int(idx.max()) + 1 - nb)])
-    lib = time_ms(torch, lambda: torch.gather(back.expand(m, -1), 1, idx))
-    # B8's function in PyTorch: the gather (the sentinel reads the zero
-    # past the cells) times coeff, two calls
-    with_coeff = time_ms(torch, lambda: torch.gather(
-        back.expand(m, -1), 1, idx) * lay.coeff_lay)
-    rows["route_unpack"] = (ms, plain, bound(
-        nbytes(cell_lay, lay.coeff_lay, out) + 4 * distinct,
-        out.numel()), lib)
-    # B8's no-coefficient form (the sharded dedup route): the values alone,
-    # the same function as the gather, the sentinel aside
-    bare = lambda: route_unpack_cuda(cell_lay, None, send)
-    out_bare = bare()
-    if not torch.equal(out_bare, torch.gather(back.expand(m, -1), 1, idx)):
-        fail("B8 without a coefficient differs from torch.gather")
-    bare_ms = time_ms(torch, bare)
-    bare_b, _ = bound(nbytes(cell_lay, out_bare) + 4 * distinct)
-    say(f"  B8 route unpack {ms:.4f} ms; torch.gather alone {lib:.4f} ms, "
-        f"torch.gather times coeff (B8's function, two calls) "
-        f"{with_coeff:.4f} ms; B8 without a coefficient {bare_ms:.4f} ms "
-        f"(bound {bare_b:.4f} ms, {bare_b / bare_ms:.1%} of it) against "
-        f"torch.gather's {lib:.4f} ms, bitwise equal ({card_line()})")
-    del out_bare
+    lib = b8["bare"]["library"]
+    rows["route_unpack"] = (b8["coeff"]["new"], plain,
+                            (b8["coeff"]["bound"], "bytes"), lib)
+    for form, what in (("coeff", "with its coefficient"),
+                       ("bare", "without a coefficient (the dedup route)")):
+        t = b8[form]
+        say(f"  B8 route unpack {what}: {t['new']:.4f} ms (bound "
+            f"{t['bound']:.4f} ms, {t['bound'] / t['new']:.1%} of it); "
+            f"first design {t['first']:.4f} ms; torch.gather"
+            + (" alone" if form == "bare" else " times coeff (two calls)")
+            + f" {t['library']:.4f} ms; the streams alone (no back read) "
+            f"{t['streams']:.4f} ms; B8 with every real cell on cell 0 "
+            f"{t['one_cell']:.4f} ms; in turns, CUDA events")
+    say("  B8 without a coefficient on the routing's cells in other orders, "
+        "new / first design: " + ", ".join(
+            f"{what} {t['new']:.4f} / {t['first']:.4f} ms"
+            for what, t in order_ms.items()))
+    say(f"  B8 at phase 5's routing: {sentinel:.1%} of the positions on the "
+        f"sentinel; bitwise its plain version, its first design and, "
+        f"without a coefficient, torch.gather ({card_line()})")
     say("  (library calls: index_add_ for B5 and B7, torch.gather for B6 "
         "and B8 -- B8's without the coeff product)")
-    del out, idx, back, send, cell_lay
+    del idx, back, send, cell_lay
     torch.cuda.empty_cache()
     # B3 last, so B5-B8 are timed as before it was added here
     _, b3 = b3_times(torch, lay, lay.coeff_lay * layout_rows(lay, beta),
                      "at path (a)'s split layout")
     b3_split = {tuple(lay.slot_lay.shape) + (1,): b3}
     return rows, pack_timed, b3_split, {
-        "route_unpack": dict(gather_coeff_ms=with_coeff,
-                             nocoeff_ms=bare_ms, nocoeff_bound_ms=bare_b,
-                             nocoeff_library_ms=lib)}
+        "route_unpack": dict(
+            gather_coeff_ms=b8["coeff"]["library"],
+            first_design_ms=b8["coeff"]["first"],
+            streams_ms=b8["coeff"]["streams"],
+            nocoeff_ms=b8["bare"]["new"], nocoeff_bound_ms=b8["bare"]["bound"],
+            nocoeff_first_design_ms=b8["bare"]["first"],
+            nocoeff_library_ms=lib, nocoeff_streams_ms=b8["bare"]["streams"],
+            one_cell_ms=b8["coeff"]["one_cell"],
+            nocoeff_one_cell_ms=b8["bare"]["one_cell"],
+            nocoeff_reversed_ms=order_ms["reversed"]["new"],
+            nocoeff_permuted_ms=order_ms["permuted"]["new"],
+            nocoeff_permuted_first_design_ms=order_ms["permuted"]["first"],
+            sentinel_share=sentinel)}
 
 
 def decode_inputs(torch, dev, b, kv, g, d, t, dtype, seed, lens="random"):
@@ -1651,6 +1759,18 @@ def turns(torch, fns: dict, rounds: int = 3) -> dict:
             if ms is not None:
                 out[name].append(ms)
     return out
+
+
+def event_turns(torch, fns: dict, rounds: int = 2) -> dict:
+    """CUDA-event times of each fn in ``fns`` (name -> fn) in alternating
+    turns (the names in order, then in reverse, ``rounds`` times), each
+    turn ``time_ms``'s mean of 5 calls: {name: the mean over its turns}."""
+    out = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order + order[::-1]:
+            out[name].append(time_ms(torch, fns[name]))
+    return {name: sum(ts) / len(ts) for name, ts in out.items()}
 
 
 def spread(ts) -> str:
@@ -2404,11 +2524,13 @@ class HeldToPlain:
     the same inputs (``plain_err``; the plain version launches nothing),
     again at each call of that shape until an output is not all zeros.
     Each kernel's inputs at its largest shape (by bytes) are kept, copied,
-    for phase 5 to time."""
+    for phase 5 to time; for the kernels named in ``keep``, its inputs at
+    every shape (``kept``: {name: {shape: arguments}})."""
 
-    def __init__(self, torch, held=HELD):
+    def __init__(self, torch, held=HELD, keep=()):
         self.torch = torch
         self.held = held
+        self.kept = {name: {} for name in keep}
         # name: {shape: plain_err's result}
         self.errs = {name: {} for name in held}
         self.zeros = {name: set() for name in held}  # all-zero outputs
@@ -2445,6 +2567,10 @@ class HeldToPlain:
                     self.errs[name][shape] = res
                 else:
                     self.zeros[name].add(shape)
+            if name in self.kept and shape not in self.kept[name]:
+                self.kept[name][shape] = {
+                    k: v.clone() if isinstance(v, torch.Tensor) else v
+                    for k, v in a.items()}
             size = nbytes(*(v for v in a.values()
                             if isinstance(v, torch.Tensor)))
             seen = shape in self.errs[name]
@@ -2954,7 +3080,8 @@ def sharded_1x1(torch, dev, data, model, serving, tmp, seed):
     for dedup in (False, True):
         route = "dedup" if dedup else "broadcast"
         reset_launch_counts()
-        with HeldToPlain(torch, SHARD_HELD) as held:
+        with HeldToPlain(torch, SHARD_HELD,
+                         keep=("route_unpack",) if dedup else ()) as held:
             pred = ShardedPredictor(mesh=mesh, max_batch=SERVE["max_batch"],
                                     cache_entries=SERVE["cache_entries"],
                                     dedup=dedup)
@@ -2984,6 +3111,8 @@ def sharded_1x1(torch, dev, data, model, serving, tmp, seed):
             fail("phase 10 (a) broadcast: B8 launched off its route")
         counted[route] = (counts, shapes)
         errs[route] = held.summary()
+        if dedup:
+            b8_args = held.kept["route_unpack"]
         out[dedup] = dict(pred=pred, served=served, golden=got_golden,
                           gold=golden, stats=stats,
                           cache=pred.cache_stats(), load_s=t_load,
@@ -3053,6 +3182,8 @@ def sharded_1x1(torch, dev, data, model, serving, tmp, seed):
         say(f"      bucket {b}: host self time {host:.1f} us a predict "
             f"(torch.profiler, CPU); top operators (us): " + ", ".join(
                 f"{k} {v:.1f}" for k, v in ops))
+    b8 = b8_bucket_times(torch, b8_args)
+    del b8_args
     for o in out.values():
         o["pred"].unload(aid)
         o["pred"].stop()
@@ -3060,12 +3191,38 @@ def sharded_1x1(torch, dev, data, model, serving, tmp, seed):
     life, life_counts = sharded_lifecycle(torch, mesh, serving,
                                           f"{tmp}/versions")
     return dict(counts=counted, lifecycle=life, lifecycle_counts=life_counts,
-                warm=warm, errs=errs,
+                warm=warm, errs=errs, b8_buckets=b8,
                 stats={("dedup" if k else "broadcast"): dict(
                     p50_us=o["stats"]["p50_us"], p99_us=o["stats"]["p99_us"],
                     qps=o["stats"]["qps"],
                     hit_rate=o["cache"]["hit_rate"])
                     for k, o in out.items()})
+
+
+def b8_bucket_times(torch, kept):
+    """B8 at each shape the dedup route launched it at (``kept``: the
+    arguments ``HeldToPlain`` copied there), new design against its first
+    in turns: device ms by torch.profiler (events over launches back to
+    back time the host at these sizes).  Its bits are its plain
+    version's, held as it ran.  A list of {shape, ms, first_design_ms}."""
+    from repro_torch.kernels.binning import route_unpack_cuda
+    from repro_torch.kernels.binning.variants import route_unpack_v1_cuda
+    rows = []
+    for shape, a in sorted(kept.items()):
+        t = turns(torch, dict(
+            new=lambda a=a: route_unpack_cuda(**a),
+            first=lambda a=a: route_unpack_v1_cuda(**a)), rounds=1)
+        ms = {k: sum(v) / len(v) if v else None for k, v in t.items()}
+        rows.append(dict(shape=f"m={shape[0][0]} L={shape[0][1]} "
+                         f"cells={shape[2][0]}", ms=ms["new"],
+                         first_design_ms=ms["first"]))
+    say("      B8 in the dedup route, device ms by torch.profiler, new / "
+        "first design, in turns: " + ", ".join(
+            f"{r['shape']}: " + " / ".join(
+                "not measured" if v is None else f"{v:.4f}"
+                for v in (r["ms"], r["first_design_ms"])) for r in rows)
+        + f" ({card_line()})")
+    return rows
 
 
 def sharded_lifecycle(torch, mesh, serving, root):
@@ -3930,6 +4087,7 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         if k:
             launches[name] += k
             extra.setdefault(name, {})["sharded_launches"] = k
+    extra["route_unpack"]["sharded_device_ms"] = sharded["a"]["b8_buckets"]
     for name, times in held_times(torch, held).items():
         extra.setdefault(name, {}).update(times)
     entries = []

@@ -156,39 +156,171 @@ __global__ void route_pack_kernel(const int32_t* __restrict__ cell,
 // route_unpack: replaces `route_unpack_pallas`
 // (src/repro/kernels/binning/kernel.py, `_route_unpack_body`).
 //   out[s, p, j] = coeff[s, p] * (cell[s,p] real ? back[cell[s,p], j] : 0)
-// The TPU kernel gathers through one-hot products per (block, cell tile)
-// visit; here it is one indexed load per output.
-// Bound: device-memory bytes (cell and coeff read once, out written once,
-// one k-wide row of back read per real position).
-// Design: one thread per (position, column), consecutive threads on
-// consecutive positions, so cell, coeff and out are coalesced; the back
-// reads follow the ascending cells of the layout.
 // With no coeff (a null pointer) each output is the value read, unscaled
 // (coefficient 1: the sharded predict, whose combine applies coeff).
+// The TPU kernel gathers through one-hot products per (block, cell tile)
+// visit; here it is one indexed load per output and at most one multiply,
+// so every output is the plain version's bits.
+// Bound: device-memory bytes (cell and coeff read once, out written once,
+// one k-wide row of back read per distinct real cell).
+// Design: the function does not depend on the instance, so the (m, L)
+// positions are one flat array of m*L, cut into groups of 4 (one 16-byte
+// load of cells and of coeff).  A warp takes a tile of 32*G groups, lane l
+// the groups l, l + 32, ... of it, so each of its loads and stores covers
+// 512 contiguous bytes; a flat 1-D grid holds one tile a warp, so the
+// tiles in flight stay a narrow window of the arrays (a grid of SMs x
+// resident blocks looping over the tiles was slower, and so were
+// evict-first hints: PERF.md, PR 22).  A thread loads its 4G cells (and
+// coefficients) past L1 (.cg: read once, they leave L1 to the back
+// reads), then issues all 4G back reads before it uses any, so 4G
+// independent loads are in flight instead of one dependent chain, then
+// stores past L1.  The routing's cells ascend along a
+// layout, so a warp's back reads fall in a few adjacent sectors and hit
+// L1 after the first; correctness does not rest on that order (any
+// cell, negative and sentinel ones included, reads back[c] or 0).  k > 1
+// loops the columns of a position (float4 reads of a back row when k % 4
+// == 0, no division by k).  A cell or coeff array that is not 16-byte
+// aligned (a sliced row) is read with scalar loads in the same pattern;
+// the positions past the last whole tile (fewer than 128G) are done
+// one a thread at the end.  out is the wrapper's own allocation,
+// always 16-byte aligned.
 // ---------------------------------------------------------------------------
-__global__ void route_unpack_kernel(const int32_t* __restrict__ cell,
-                                    const float* __restrict__ coeff,
-                                    const float* __restrict__ back,
-                                    float* __restrict__ out, long long L,
-                                    unsigned long long num_cells, int k) {
-  const long long s = blockIdx.y;
-  const int32_t* crow = cell + s * L;
-  const float* frow = coeff ? coeff + s * L : nullptr;
-  float* orow = out + s * L * k;
-  const long long lk = L * k;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < lk; e += (long long)gridDim.x * blockDim.x) {
-    const long long p = k == 1 ? e : e / k;
-    const int32_t c = crow[p];
-    const bool real = (unsigned long long)(uint32_t)c < num_cells;
-    const float v = real ? back[(long long)c * k + (e - p * k)] : 0.0f;
-    orow[e] = frow ? frow[p] * v : v;
+constexpr int UNPACK_G = 2;       // groups of 4 positions a thread: V = 8
+constexpr int UNPACK_TILE = 32 * UNPACK_G;  // groups a warp's tile
+
+__device__ __forceinline__ bool real_cell(int32_t c, uint32_t num_cells) {
+  return (uint32_t)c < num_cells;  // negative cells wrap past num_cells
+}
+
+__device__ __forceinline__ int4 load_cells(const int32_t* p, bool vec) {
+  if (vec) return __ldcg(reinterpret_cast<const int4*>(p));
+  return make_int4(__ldcg(p), __ldcg(p + 1), __ldcg(p + 2), __ldcg(p + 3));
+}
+
+__device__ __forceinline__ float4 load_coeff(const float* p, bool vec) {
+  if (vec) return __ldcg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldcg(p), __ldcg(p + 1), __ldcg(p + 2), __ldcg(p + 3));
+}
+
+// W: the columns a read takes: 1 (k == 1, or any k one column at a time)
+// or 4 (k % 4 == 0, float4 reads of a back row).  K1: k == 1, where a
+// group's four outputs are one float4 store.
+template <bool K1, int W, bool COEFF>
+__global__ void __launch_bounds__(THREADS)
+route_unpack_kernel(const int32_t* __restrict__ cell,
+                    const float* __restrict__ coeff,
+                    const float* __restrict__ back, float* __restrict__ out,
+                    long long n, uint32_t num_cells, int k, bool cell_vec,
+                    bool coeff_vec) {
+  using Vec = typename std::conditional<W == 4, float4, float>::type;
+  constexpr int P = 4 * UNPACK_G;  // positions a thread: V
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+  const long long tiles = n / (4LL * UNPACK_TILE);
+  const Vec* vback = reinterpret_cast<const Vec*>(back);
+  const int kw = k / W;  // back row and out row in Vec units
+  for (long long t = warp; t < tiles; t += nwarps) {
+    long long pos[UNPACK_G];
+    int32_t c[P];
+    float f[P];
+#pragma unroll
+    for (int g = 0; g < UNPACK_G; ++g) {
+      pos[g] = (t * UNPACK_TILE + g * 32 + lane) * 4;
+      const int4 c4 = load_cells(cell + pos[g], cell_vec);
+      c[4 * g] = c4.x; c[4 * g + 1] = c4.y;
+      c[4 * g + 2] = c4.z; c[4 * g + 3] = c4.w;
+      if constexpr (COEFF) {
+        const float4 f4 = load_coeff(coeff + pos[g], coeff_vec);
+        f[4 * g] = f4.x; f[4 * g + 1] = f4.y;
+        f[4 * g + 2] = f4.z; f[4 * g + 3] = f4.w;
+      }
+    }
+    if constexpr (K1) {
+      float v[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        v[i] = real_cell(c[i], num_cells) ? __ldg(back + c[i]) : 0.0f;
+#pragma unroll
+      for (int g = 0; g < UNPACK_G; ++g) {
+        float4 o = make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2],
+                               v[4 * g + 3]);
+        if constexpr (COEFF) {
+          o.x = f[4 * g] * o.x; o.y = f[4 * g + 1] * o.y;
+          o.z = f[4 * g + 2] * o.z; o.w = f[4 * g + 3] * o.w;
+        }
+        __stcg(reinterpret_cast<float4*>(out + pos[g]), o);
+      }
+    } else {
+      Vec* vout = reinterpret_cast<Vec*>(out);
+      for (int q = 0; q < kw; ++q) {
+        Vec v[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          if (real_cell(c[i], num_cells)) {
+            v[i] = __ldg(vback + (long long)c[i] * kw + q);
+          } else {
+            v[i] = Vec{};
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          Vec o = v[i];
+          if constexpr (COEFF) {
+            const float s = f[i];
+            if constexpr (W == 4) {
+              o.x = s * o.x; o.y = s * o.y; o.z = s * o.z; o.w = s * o.w;
+            } else {
+              o = s * o;
+            }
+          }
+          __stcg(vout + (pos[i / 4] + i % 4) * kw + q, o);
+        }
+      }
+    }
+  }
+  // the positions past the last whole tile, one a thread
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long p = tiles * 4 * UNPACK_TILE + tid; p < n;
+       p += (long long)gridDim.x * blockDim.x) {
+    const int32_t cp = cell[p];
+    const bool real = real_cell(cp, num_cells);
+    const float s = COEFF ? coeff[p] : 1.0f;
+    for (int j = 0; j < k; ++j) {
+      const float v = real ? back[(long long)cp * k + j] : 0.0f;
+      out[p * k + j] = COEFF ? s * v : v;
+    }
   }
 }
 
-dim3 row_grid(long long work, int m) {
-  const long long blocks = (work + THREADS - 1) / THREADS;
-  return dim3((unsigned)(blocks < 65535 ? blocks : 65535), m);
+template <bool K1, int W, bool COEFF>
+cudaError_t unpack(const int32_t* cell, const float* coeff,
+                   const float* back, float* out, long long n,
+                   long long num_cells, int k, cudaStream_t st) {
+  const auto kernel = route_unpack_kernel<K1, W, COEFF>;
+  const long long per_block = (long long)THREADS / 32 * 4 * UNPACK_TILE;
+  // one tile a warp; the kernel's loop takes any rest
+  long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > INT32_MAX) blocks = INT32_MAX;
+  const auto vec = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  kernel<<<(unsigned)blocks, THREADS, 0, st>>>(
+      cell, coeff, back, out, n, (uint32_t)num_cells, k, vec(cell),
+      coeff != nullptr && vec(coeff));
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t unpack_cols(const int32_t* cell, const float* coeff,
+                        const float* back, float* out, long long n,
+                        long long num_cells, int k, cudaStream_t st) {
+  if (coeff)
+    return unpack<false, W, true>(cell, coeff, back, out, n, num_cells, k,
+                                  st);
+  return unpack<false, W, false>(cell, coeff, back, out, n, num_cells, k,
+                                 st);
 }
 
 template <typename OutT>
@@ -223,15 +355,27 @@ extern "C" int route_pack_launch(const int32_t* cell, const float* contrib,
   return pack(cell, contrib, (float*)send, used, m, L, cap, n_shards, k, st);
 }
 
+// out (m, L[, k]) f32, 16-byte aligned (the wrapper's allocation); cell
+// and coeff rows of any alignment; num_cells < 2^31.
 extern "C" int route_unpack_launch(const int32_t* cell, const float* coeff,
                                    const float* back, float* out, int m,
                                    long long L, long long num_cells, int k,
                                    void* stream) {
   if (m == 0 || L == 0 || k == 0) return (int)cudaGetLastError();
-  route_unpack_kernel<<<row_grid(L * k, m), THREADS, 0,
-                        (cudaStream_t)stream>>>(
-      cell, coeff, back, out, L, (unsigned long long)num_cells, k);
-  return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(out) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)m * L;
+  if (k == 1) {
+    if (coeff)
+      return (int)unpack<true, 1, true>(cell, coeff, back, out, n,
+                                        num_cells, k, st);
+    return (int)unpack<true, 1, false>(cell, coeff, back, out, n, num_cells,
+                                       k, st);
+  }
+  if (k % 4 == 0 && (reinterpret_cast<uintptr_t>(back) & 15) == 0)
+    return (int)unpack_cols<4>(cell, coeff, back, out, n, num_cells, k, st);
+  return (int)unpack_cols<1>(cell, coeff, back, out, n, num_cells, k, st);
 }
 
 extern "C" const char* route_error_string(int e) {

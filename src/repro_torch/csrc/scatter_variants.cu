@@ -3,9 +3,12 @@
 // memset of the whole (m, B, k) table, then one global atomicAdd per point
 // and column), of B7 (route_pack: a memset of the whole send buffer, then
 // one thread per layout position, the thread at a run's head walking the
-// run once per column) and of B2 (bin_fused_matvec: one block per
+// run once per column), of B2 (bin_fused_matvec: one block per
 // (instance, tile), the tile's table in shared memory filled by float
-// atomics, then read back over the tile's range; beta laid out beforehand).
+// atomics, then read back over the tile's range; beta laid out beforehand)
+// and of B8 (route_unpack: one thread per (position, column), a 4-byte
+// cell load, the dependent back load and a 4-byte store; a row of blocks
+// per instance).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,6 +57,28 @@ __global__ void route_pack_v1_kernel(const int32_t* __restrict__ cell,
       for (long long q = p; q < end; ++q) acc += vrow[q * k + j];
       send[(long long)c * k + j] = acc;
     }
+  }
+}
+
+// B8's first design: out[s, p, j] = coeff[s, p] * (cell[s, p] real ?
+// back[cell[s, p], j] : 0), coeff null for 1.
+__global__ void route_unpack_v1_kernel(const int32_t* __restrict__ cell,
+                                       const float* __restrict__ coeff,
+                                       const float* __restrict__ back,
+                                       float* __restrict__ out, long long L,
+                                       unsigned long long num_cells, int k) {
+  const long long s = blockIdx.y;
+  const int32_t* crow = cell + s * L;
+  const float* frow = coeff ? coeff + s * L : nullptr;
+  float* orow = out + s * L * k;
+  const long long lk = L * k;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < lk; e += (long long)gridDim.x * blockDim.x) {
+    const long long p = k == 1 ? e : e / k;
+    const int32_t c = crow[p];
+    const bool real = (unsigned long long)(uint32_t)c < num_cells;
+    const float v = real ? back[(long long)c * k + (e - p * k)] : 0.0f;
+    orow[e] = frow ? frow[p] * v : v;
   }
 }
 
@@ -133,6 +158,18 @@ extern "C" int route_pack_v1_launch(const int32_t* cell, const float* contrib,
   if (m == 0 || L == 0) return (int)cudaGetLastError();
   route_pack_v1_kernel<<<row_grid(L, m), THREADS, 0, st>>>(
       cell, contrib, send, L, (unsigned long long)num_cells, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int route_unpack_v1_launch(const int32_t* cell,
+                                      const float* coeff, const float* back,
+                                      float* out, int m, long long L,
+                                      long long num_cells, int k,
+                                      void* stream) {
+  if (m == 0 || L == 0 || k == 0) return (int)cudaGetLastError();
+  route_unpack_v1_kernel<<<row_grid(L * k, m), THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      cell, coeff, back, out, L, (unsigned long long)num_cells, k);
   return (int)cudaGetLastError();
 }
 

@@ -26,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 # every library the port builds; scatter_variants holds the first designs
-# of B5 and B7, timed beside them and run on no path
+# of B5, B7, B2 and B8, timed beside them and run on no path
 SOURCES = ("featurize", "binning", "route", "flash_decode",
            "scatter_variants")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

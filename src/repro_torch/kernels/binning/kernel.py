@@ -458,11 +458,9 @@ def route_pack_cuda(cell_lay, contrib_lay, used, cap: int, *,
     return send
 
 
-def route_unpack_cuda(cell_lay, coeff_lay, back):
-    """out_lay[s, p(, j)] = coeff_lay[s, p] * back[cell_lay[s, p](, j)],
-    where a sentinel cell (>= len(back)) reads 0; cell_lay and coeff_lay
-    (m, L), back (num_cells,) or (num_cells, k) f32 -> (m, L) or
-    (m, L, k).  coeff_lay None reads the values unscaled."""
+def _unpack_args(cell_lay, coeff_lay, back):
+    """(m, L, num_cells, k, out) of an unpack: the checked arguments and
+    its output, allocated (16-byte aligned)."""
     num_cells = back.shape[0]
     m, L = _cells(cell_lay, num_cells)
     if coeff_lay is not None:
@@ -474,6 +472,16 @@ def route_unpack_cuda(cell_lay, coeff_lay, back):
     k = back.shape[1] if back.ndim == 2 else 1
     out = torch.empty((m, L) + tuple(back.shape[1:]), dtype=torch.float32,
                       device=cell_lay.device)
+    return m, L, num_cells, k, out
+
+
+def route_unpack_cuda(cell_lay, coeff_lay, back):
+    """out_lay[s, p(, j)] = coeff_lay[s, p] * back[cell_lay[s, p](, j)],
+    where a cell outside [0, len(back)) reads 0; cell_lay and coeff_lay
+    (m, L), back (num_cells,) or (num_cells, k) f32 -> (m, L) or
+    (m, L, k).  coeff_lay None reads the values unscaled.  Any L, any
+    cells, rows of any alignment."""
+    m, L, num_cells, k, out = _unpack_args(cell_lay, coeff_lay, back)
     if out.numel() == 0:
         return out
     lib = _route_lib()

@@ -1,6 +1,6 @@
 """Wrappers of the yardsticks in csrc/scatter_variants.cu, the first
-designs of B5, B7 and B2, timed beside them in ``chip_smoke.py`` phase 5
-and on no path of the port, so not counted."""
+designs of B5, B7, B2 and B8, timed beside them in ``chip_smoke.py``
+phase 5 and on no path of the port, so not counted."""
 from __future__ import annotations
 
 import ctypes
@@ -9,7 +9,7 @@ import torch
 
 from .._build import check, load, stream_ptr
 from .kernel import (_layout_args, _need, _pack_args, _scatter_args,
-                     _tables)
+                     _tables, _unpack_args)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -23,8 +23,10 @@ def _lib():
         lib.route_pack_v1_launch.argtypes = [_P] * 3 + [_I, _L, _L, _I, _P]
         lib.fused_matvec_v1_launch.argtypes = [_P] * 5 + [_I] * 4 + [
             _L, _I, _I, _P]
+        lib.route_unpack_v1_launch.argtypes = [_P] * 4 + [_I, _L, _L, _I,
+                                                          _P]
         for fn in (lib.bin_scatter_v1_launch, lib.route_pack_v1_launch,
-                   lib.fused_matvec_v1_launch):
+                   lib.fused_matvec_v1_launch, lib.route_unpack_v1_launch):
             fn.restype = _I
         lib.scatter_variants_error_string.argtypes = [_I]
         lib.scatter_variants_error_string.restype = ctypes.c_char_p
@@ -84,4 +86,20 @@ def fused_matvec_v1_cuda(blk_start, slot_lay, coeff_lay, beta_lay, *,
         beta_lay.data_ptr(), out.data_ptr(), m, num_tiles, block_n, block_t,
         L, k, kc, stream_ptr(out.device))
     check(rc, "fused_matvec_v1", lib.scatter_variants_error_string)
+    return out
+
+
+def route_unpack_v1_cuda(cell_lay, coeff_lay, back):
+    """B8's first design, the same function as ``route_unpack_cuda``: one
+    thread per (position, column), a row of blocks per instance."""
+    m, L, num_cells, k, out = _unpack_args(cell_lay, coeff_lay, back)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    rc = lib.route_unpack_v1_launch(cell_lay.data_ptr(),
+                                    None if coeff_lay is None
+                                    else coeff_lay.data_ptr(),
+                                    back.data_ptr(), out.data_ptr(), m, L,
+                                    num_cells, k, stream_ptr(out.device))
+    check(rc, "route_unpack_v1", lib.scatter_variants_error_string)
     return out

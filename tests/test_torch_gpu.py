@@ -35,6 +35,9 @@ from repro_torch.kernels.binning.ops import layout_rows
 from repro_torch.kernels.featurize import featurize_cuda, featurize_ref
 from repro_torch.testing.matvec_model import (fused_matvec_model,
                                               skewed_points, trap_layout)
+from repro_torch.testing.route_cases import (UNPACK_KS, UNPACK_LS,
+                                             UNPACK_MS, unpack_bits,
+                                             unpack_case, unpack_oracle)
 from repro_torch.testing.scatter_model import (scatter_blocked_model,
                                                trap_layout_case)
 
@@ -507,6 +510,27 @@ def test_route_pack_and_unpack_are_bitwise(cuda, k, cap_factor):
     # no coefficient: the reads themselves (the sharded predict's unpack)
     assert torch.equal(route_unpack_cuda(cell_lay, None, back),
                        route_unpack_ref(cell_lay, None, back))
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("coeff", [True, False])
+@pytest.mark.parametrize("m", UNPACK_MS)
+@pytest.mark.parametrize("k", UNPACK_KS)
+@pytest.mark.parametrize("L", UNPACK_LS)
+def test_route_unpack_on_adversarial_cells_is_bitwise(cuda, L, k, m, coeff,
+                                                      offset):
+    """B8 and its first design on cells out of the routing's order
+    (random, negative, descending, sentinels at num_cells and 2^31 - 1),
+    signed zeros and rows one element off 16-byte alignment: bitwise the
+    plain version, and that the numpy oracle's bits."""
+    cell, cf, back = unpack_case(100 + L + k, m, L, k, coeff=coeff,
+                                 offset=offset, device=cuda)
+    want = unpack_bits(route_unpack_ref(cell, cf, back))
+    np.testing.assert_array_equal(want, unpack_oracle(
+        cell.cpu().numpy(), None if cf is None else cf.cpu().numpy(),
+        back.cpu().numpy()).view(np.uint32))
+    for fn in (route_unpack_cuda, V.route_unpack_v1_cuda):
+        np.testing.assert_array_equal(unpack_bits(fn(cell, cf, back)), want)
 
 
 @pytest.mark.parametrize("heavy", [None, 4096])

@@ -1,8 +1,9 @@
 """Hash-join routing of the port against the JAX package on the CPU: the
 routing maps, the wire-cell layout and the route schedule bitwise, the
-plain versions of the route kernels B7/B8 against the Pallas kernels in
-interpret mode, the bf16 wire cast bitwise, and no sort in the routing
-build."""
+order of the wire cells that B8 is sized on, the plain versions of the
+route kernels B7/B8 against the Pallas kernels in interpret mode and B8's
+against a numpy oracle on cells out of that order, the bf16 wire cast
+bitwise, and no sort in the routing build."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +18,9 @@ from repro_torch.core.wlsh import (BLOCKED_SPLIT_N, BLOCKED_SPLIT_T,
                                    build_blocked_layout,
                                    build_route_schedule)
 from repro_torch.kernels.binning import route_pack_ref, route_unpack_ref
+from repro_torch.testing.route_cases import (UNPACK_KS, UNPACK_LS,
+                                             UNPACK_MS, unpack_bits,
+                                             unpack_case, unpack_oracle)
 
 
 def _setup(m=3, n=200, table_size=1024, n_shards=2, cap_factor=2.0, seed=9):
@@ -223,3 +227,55 @@ def test_query_shard_touch_matches_jax():
                                   jtouch(slots, 1024, 4))
     with pytest.raises(ValueError):
         D.query_shard_touch(slots, 1000, 3)
+
+
+@pytest.mark.parametrize("cap_factor", [0.05, 0.3, 2.0])
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_route_plan_order_that_b8_is_sized_on(n_shards, cap_factor):
+    """The order B8's design counts on to be fast (never to be right):
+    along every instance's real positions the cells do not decrease, each
+    real cell is one contiguous run of the layout, and at most n_shards - 1
+    steps exceed one (the owners' boundaries); in both packages' route
+    plans, which are equal."""
+    jlay, tlay, jmaps, tmaps, _ = _setup(m=4, n=1000, n_shards=n_shards,
+                                         cap_factor=cap_factor)
+    nb = n_shards * tmaps[3]
+    port = D._make_route_plan(tmaps[0], tlay, nb).numpy()
+    jax_plan = np.asarray(j_route_plan(jmaps[0], jlay, nb).cell_lay)
+    np.testing.assert_array_equal(port, jax_plan)
+    for plan in (port, jax_plan):
+        seen = set()
+        for row in plan:
+            pos = np.nonzero(row < nb)[0]
+            cells = row[pos]
+            assert np.all(np.diff(cells) >= 0)
+            assert np.count_nonzero(np.diff(cells) > 1) <= n_shards - 1
+            same = cells[1:] == cells[:-1]
+            # a run's positions are adjacent: no sentinel inside a run
+            assert np.all(np.diff(pos)[same] == 1)
+            heads = cells[np.r_[True, ~same]] if cells.size else cells
+            assert not seen & set(heads.tolist())  # runs of one instance
+            seen |= set(heads.tolist())
+        assert np.all(plan[plan >= nb] == plan.max())   # one sentinel
+    if cap_factor == 0.05:
+        assert int(tmaps[4]) > 0       # buckets dropped onto the sentinel
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("coeff", [True, False])
+@pytest.mark.parametrize("m", UNPACK_MS)
+@pytest.mark.parametrize("k", UNPACK_KS)
+@pytest.mark.parametrize("L", UNPACK_LS)
+def test_route_unpack_plain_on_adversarial_cells(L, k, m, coeff, offset):
+    """B8's plain version bitwise against a numpy oracle on cells that
+    break the routing's order: random, negative, descending, sentinels at
+    num_cells and 2^31 - 1, signed zeros, rows one element off 16-byte
+    alignment (the inputs the card test and chip_smoke.py phase 5 give the
+    kernel)."""
+    cell, cf, back = unpack_case(100 + L + k, m, L, k, coeff=coeff,
+                                 offset=offset)
+    got = route_unpack_ref(cell, cf, back)
+    want = unpack_oracle(cell.numpy(), None if cf is None else cf.numpy(),
+                         back.numpy())
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(unpack_bits(got), want.view(np.uint32))
