@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
 predict and the distributed step, LM serving, KRR serving, the paper's
-Tables 1 and 2, sharded KRR serving, and LM training.
+Tables 1 and 2, sharded KRR serving, LM training, and LM serving of the
+MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -46,12 +47,17 @@ non-zero:
    scaled to about 2^20 and to about -2^-30).  Then flash decode
    B9 at the kv-head shapes of gemma3-1b (KV 1, G 4, D 256; f32 and bf16
    caches), qwen3-14b (KV 8, G 5, D 128, bf16), phi3-mini-3.8b (KV 32, G 1,
-   D 96, f32) and command-r-plus-104b (KV 8, G 12, D 128, bf16) and one
-   long gemma3-1b cache (B 1, T 8191: more splits than a cluster), each
-   with random lengths, one valid row, a wrapped ring and no valid row, T
-   not a multiple of the tile: 1e-5 of max|out| (f32), 1e-4 (bf16); and at
-   phase 7's two shapes (T 512 and 2112) and the long cache, each called
-   twice in a row and on two streams.
+   D 96, f32) and command-r-plus-104b (KV 8, G 12, D 128, bf16), one
+   long gemma3-1b cache (B 1, T 8191: more splits than a cluster), and
+   the other slots' shapes, each in f32 and bf16: zamba2-7b's shared
+   attention (KV 32, G 1, D 112), mixtral-8x22b (KV 8, G 6, D 128),
+   whisper-large-v3's self-attention (KV 20, G 1, D 64) and
+   cross-attention (T 1500), llama-3.2-vision-90b's cross-attention (KV
+   8, G 8, D 128, T 1024) and llama4-scout-17b-a16e (KV 8, G 5, D 128);
+   each with random lengths, one valid row, a wrapped ring and no valid
+   row, T not a multiple of the tile: 1e-5 of max|out| (f32), 1e-4
+   (bf16); and at phase 7's two shapes (T 512 and 2112) and the long
+   cache, each called twice in a row and on two streams.
 3. Main phase: ``wlsh_krr_fit`` then ``wlsh_krr_predict`` at the repo's
    ``wlsh_krr`` config (n = 2^22, d = 64, m = 64, B = 2^23, rect,
    Gamma(2, 1), lam = 1, no preconditioner, 32 PCG iterations as the
@@ -211,6 +217,29 @@ non-zero:
    dense bf16 peak with its FLOP count, peak device memory against its
    reckoning, the checkpoint's write and read seconds
    (``io_checkpoint_*_us``) and the loop's time outside its steps.
+12. LM serving of the other slot kinds at full width, f32, random weights
+   from the seed, each arch's freed before the next, through
+   ``repro_torch.launch.serve.generate`` (64 greedy tokens, batch 8):
+   zamba2-7b (all 81 layers: mamba2 slots and the shared windowed
+   attention every third; a 2048-token prompt), rwkv6-1.6b (all 24
+   layers; 2048), mixtral-8x22b at full width and 2 of its 56 layers
+   (capacity factor 1.25 as configured; 4096, so the 4096-row window ring
+   wraps at the first decode step) and whisper-large-v3 (32 encoder and
+   32 decoder layers over 1500 frames from the seed; 448).  Counts are
+   reset before each serve run and read after: B9 must launch 27, 0, 2
+   and 64 times a decode step (attention, shared-attention and
+   cross-attention layers).  Printed: parameters, prefill ms, tokens/s
+   and model-FLOP share of the f32 peak (``launch.specs.useful_flops``),
+   decode ms a step and tok/s, peak device memory against weights and
+   caches, mixtral's dropped (token, expert) pairs.  Then, with the
+   weights rescaled in place to std 1/sqrt(fan-in)
+   (``testing.train.fan_in_factors``), prefill/decode consistency within
+   2e-3 of max|reference|: rwkv6 and whisper (its frames the same) one
+   decode step after prefill(x[:S]) against prefill(x[:S+1]); zamba2
+   prefill(x[:1792]) and 256 decode steps against prefill(x[:2048]),
+   logits, conv and ssm states and the shared attention's rows; mixtral
+   at batch 2, a 1024-token prompt and capacity factor 8.0.  Its launches
+   are listed apart in the ``kernels`` line (``lm_slots_launches``).
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -262,7 +291,10 @@ non-zero:
    device time from torch.profiler); B1, B2, B3, B5 and the readout also
    at phase 9's largest shape (``tables_ms``; B3's beside index_add_ on
    the same inputs, forest's layout, ``tables_library_ms``).  Phase 11's
-   counted run is listed as ``train_launches``.  Last, one replay of each of phase 8's graphs: by
+   counted run is listed as ``train_launches``, phase 12's as
+   ``lm_slots_launches``; B9 at every shape phase 12 launched it at, by
+   torch.profiler beside scaled_dot_product_attention on the same cache
+   (``lm_slots_by_shape``).  Last, one replay of each of phase 8's graphs: by
    CUDA events back to back, and its kernels' device time by
    torch.profiler over the warm path's wall (the device-busy share).
 
@@ -324,6 +356,23 @@ MAIN_KERNELS = ("featurize", "bin_fused_matvec", "bin_scatter_blocked",
 B9_KERNELS = ("fma_kernel<", "mma_kernel<")
 # phase 7: gemma3-1b at its full config, f32, seeded random weights
 LM = dict(arch="gemma3-1b", batch=8, prompt=2048, gen=64)
+# phase 12: the other slot kinds at full width (f32, seeded random weights),
+# each served through repro_torch.launch.serve.generate.  ``b9`` is B9's
+# launches a decode step (attention, shared-attention and cross-attention
+# layers); ``check`` the prefill/decode consistency check's (batch, prompt,
+# decode steps).  mixtral-8x22b keeps 2 of its 56 layers (an 8-expert layer
+# is 2.5 B parameters, 10 GB in float32); its check runs at capacity factor
+# 8.0, so that no pair is dropped in either run.
+LM_SLOTS = (
+    dict(arch="zamba2-7b", layers=None, batch=8, prompt=2048, gen=64, b9=27,
+         check=(8, 1792, 256)),
+    dict(arch="rwkv6-1.6b", layers=None, batch=8, prompt=2048, gen=64, b9=0,
+         check=(8, 2048, 1)),
+    dict(arch="mixtral-8x22b", layers=2, batch=8, prompt=4096, gen=64, b9=2,
+         check=(2, 1024, 1)),
+    dict(arch="whisper-large-v3", layers=None, batch=8, prompt=448, gen=64,
+         b9=64, check=(8, 448, 1)),
+)
 # B9 parity shapes (name, B, KV, G, D, T, cache dtype): the kv-head shapes of
 # four dense archs, T not a multiple of the kernel's 32-row tile
 DECODE_PARITY = (("gemma3-1b", 8, 1, 4, 256, 2112, "float32"),
@@ -335,7 +384,26 @@ DECODE_PARITY = (("gemma3-1b", 8, 1, 4, 256, 2112, "float32"),
                  # one long cache: more splits than a cluster, combined by
                  # the last block through device memory
                  ("gemma3-1b", 1, 1, 4, 256, 8191, "float32"),
-                 ("gemma3-1b", 1, 1, 4, 256, 8191, "bfloat16"))
+                 ("gemma3-1b", 1, 1, 4, 256, 8191, "bfloat16"),
+                 # the kv-head shapes of the other slots: zamba2's shared
+                 # attention (D 112, not a size of the bf16 mma path),
+                 # mixtral's windowed GQA, whisper's self- and
+                 # cross-attention (1500 source rows), llama-3.2-vision's
+                 # cross-attention (1024 patches), llama4-scout
+                 ("zamba2-7b shared", 8, 32, 1, 112, 2112, "float32"),
+                 ("zamba2-7b shared", 4, 32, 1, 112, 777, "bfloat16"),
+                 ("mixtral-8x22b", 8, 8, 6, 128, 4096, "float32"),
+                 ("mixtral-8x22b", 4, 8, 6, 128, 1001, "bfloat16"),
+                 ("whisper-large-v3 self", 8, 20, 1, 64, 512, "float32"),
+                 ("whisper-large-v3 self", 4, 20, 1, 64, 449, "bfloat16"),
+                 ("whisper-large-v3 cross", 8, 20, 1, 64, 1500, "float32"),
+                 ("whisper-large-v3 cross", 8, 20, 1, 64, 1500, "bfloat16"),
+                 ("llama-3.2-vision-90b cross", 8, 8, 8, 128, 1024,
+                  "float32"),
+                 ("llama-3.2-vision-90b cross", 8, 8, 8, 128, 1024,
+                  "bfloat16"),
+                 ("llama4-scout-17b-a16e", 4, 8, 5, 128, 1001, "float32"),
+                 ("llama4-scout-17b-a16e", 4, 8, 5, 128, 1001, "bfloat16"))
 # B9 at the gemma3-1b serve run's shapes (phase 7: batch 8, the local layers'
 # 512-row rings and the global layers' 2112-row caches; splits combined in a
 # cluster) and at one long cache (splits combined through device memory by
@@ -1481,8 +1549,9 @@ def decode_inputs(torch, dev, b, kv, g, d, t, dtype, seed, lens="random"):
 
 
 def phase_parity_decode(torch, dev, seed):
-    """B9 against its plain version at the kv-head shapes of four dense
-    archs: 1e-5 of max|out| with an f32 cache, 1e-4 with bf16."""
+    """B9 against its plain version at the kv-head shapes of the ten
+    archs' attention, shared-attention and cross-attention layers: 1e-5 of
+    max|out| with an f32 cache, 1e-4 with bf16."""
     from repro_torch.kernels.flash_decode import (flash_decode_cuda,
                                                   flash_decode_ref)
     say("== phase 2: flash decode (B9) against its plain version")
@@ -1778,13 +1847,15 @@ def spread(ts) -> str:
             f"{max(ts):.4f}, {len(ts)} turns)" if ts else "not measured")
 
 
-def decode_serve_times(torch, dev, seed, tally):
-    """B9 at every shape phase 7 launched it at (``tally``: its launches by
-    (B, T, KV, G, D, cache dtype); gemma3-1b: the global layers' caches
-    and the local layers' rings): device time from the profiler over
-    several turns, in turns with scaled_dot_product_attention on the same
-    cache laid out (B, KV, T, D) (enable_gqa, boolean mask), against the
-    bound, on a wrapped ring (every row valid)."""
+def decode_serve_times(torch, dev, seed, tally, label="phase 7"):
+    """B9 at every shape a counted run launched it at (``tally``: its
+    launches by (B, T, KV, G, D, cache dtype); phase 7's gemma3-1b: the
+    global layers' caches and the local layers' rings; phase 12's: the
+    windowed, shared and cross-attention caches): device time from the
+    profiler over several turns, in turns with
+    scaled_dot_product_attention on the same cache laid out (B, KV, T, D)
+    (enable_gqa, boolean mask), against the bound, on a wrapped ring
+    (every row valid, as a cross-attention source is)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode_cuda
     timed = {}
@@ -1806,10 +1877,10 @@ def decode_serve_times(torch, dev, seed, tally):
         mean = lambda ts: sum(ts) / len(ts) if ts else None
         timed[key] = dict(device_ms=mean(got["new"]), bound_ms=b_ms,
                           library_device_ms=mean(got["sdpa"]))
-        say(f"  B9 at phase 7's B={b} KV={kv} G={g} D={d} T={t} {dt}: "
+        say(f"  B9 at {label}'s B={b} KV={kv} G={g} D={d} T={t} {dt}: "
             f"device {spread(got['new'])} (torch.profiler: "
             + ", ".join(names) + f"), bound {b_ms:.4f} ms, {tally[key]} "
-            f"launches in phase 7; turns "
+            f"launches in {label}; turns "
             + " ".join(f"{x:.4f}" for x in got["new"])
             + f"; scaled_dot_product_attention device {spread(got['sdpa'])} "
             f"({card_line()})")
@@ -3900,8 +3971,219 @@ def profile_train_step(torch, step, state, batch):
         say(f"    {us / 1e3:.1f} ms in {n} x {name[:100]}")
 
 
+def slots_config(spec):
+    """The registry config of a phase 12 arch, cut to ``layers``."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get_config(spec["arch"])
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    return cfg
+
+
+def cache_bytes(cfg, batch: int, seq_len: int) -> int:
+    """Bytes of the f32 decode state ``init_cache`` makes for this batch."""
+    import math
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import tree_leaves
+    return sum(4 * math.prod(s.shape) for _, s in tree_leaves(
+        TM.cache_specs(cfg, batch, seq_len)))
+
+
+def b9_per_step(cfg) -> int:
+    return cfg.n_groups * sum((s.kind == "attn") + s.shared_attn +
+                              s.cross_attn for s in cfg.layer_pattern)
+
+
+def moe_drop_counter():
+    """A wrapper of ``models.moe._dispatch_row`` that tallies, on the
+    device, the (token, expert) pairs of prefill calls kept within
+    capacity and all of them; (wrapper, tally list, original)."""
+    from repro_torch.models import moe
+    real = moe._dispatch_row
+    tally = []
+
+    def counting(logits, e, k, cap):
+        out = real(logits, e, k, cap)
+        b, s, _ = logits.shape
+        if s > 1:
+            tally.append(((out[0] < s).sum(), b * s * k))
+        return out
+    return counting, tally, real
+
+
+def slots_consistency(torch, cfg, spec, params, gen, dev):
+    """The prefill/decode consistency check of one phase 12 arch, at
+    ``spec['check']``: decode ``steps`` tokens from prefill(x[:S]) against
+    prefill(x[:S + steps]); with more than one step (zamba2) also every
+    cache leaf (the conv and ssm states, the shared attention's rows)
+    against that prefill's caches, each over all groups.  Returns {what:
+    max|error| / max|reference|}."""
+    import dataclasses
+    from repro_torch.launch.steps import source_inputs
+    from repro_torch.models import model as TM
+    b, s, steps = spec["check"]
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    x = torch.randint(0, cfg.vocab_size, (b, s + steps), generator=gen,
+                      device=dev)
+    src = source_inputs(cfg, b, gen)
+    with torch.inference_mode():
+        ref, ref_cache, _ = TM.prefill(cfg, params, {"tokens": x, **src},
+                                       dtype=torch.float32)
+        # the reference caches wait on the host (zamba2's are 13 GB), and
+        # come back one group at a time to be compared
+        ref_cache = ({slot: {name: t.cpu() for name, t in leaves.items()}
+                      for slot, leaves in ref_cache.items()}
+                     if steps > 1 else None)
+        torch.cuda.empty_cache()
+        _, cache, pos = TM.prefill(cfg, params, {"tokens": x[:, :s], **src},
+                                   max_cache_len=s + steps,
+                                   dtype=torch.float32)
+        for t in range(s, s + steps):
+            got, cache = TM.decode_step(cfg, params, cache, x[:, t:t + 1],
+                                        pos, dtype=torch.float32)
+            pos = pos + 1
+    if not (bool(torch.isfinite(got).all()) and bool(
+            torch.isfinite(ref).all())):
+        fail(f"phase 12 {cfg.name}: non-finite logits")
+    errs = {"logits": max_err(got, ref) / float(ref.abs().max())}
+    for slot, leaves in (ref_cache or {}).items():
+        for name, want in leaves.items():
+            diff = top = 0.0
+            for g in range(want.shape[0]):
+                w = want[g].to(dev)
+                diff = max(diff, float((cache[slot][name][g] - w).abs().max()))
+                top = max(top, float(w.abs().max()))
+            errs[name] = max(errs.get(name, 0.0), diff / top)
+    del cache, ref_cache
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_lm_slots(torch, dev, seed):
+    """Phase 12: zamba2-7b, rwkv6-1.6b, mixtral-8x22b (2 layers) and
+    whisper-large-v3 at full width served through
+    repro_torch.launch.serve.generate, each with its B9 launches counted,
+    then its prefill/decode consistency at weights rescaled in place to
+    std 1/sqrt(fan-in).  Returns the launches (total, by shape) summed over
+    the four counted runs."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
+    from repro_torch.launch import specs
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import source_inputs
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.testing.train import fan_in_factors
+    say(f"== phase 12: LM serving of the other slot kinds at full width "
+        f"(f32, seeded random weights) ({card_line()})")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    say(f"  device memory held by the earlier phases: {held / 2**30:.2f} GiB")
+    total, by_shape = {}, {}
+    for spec in LM_SLOTS:
+        cfg = slots_config(spec)
+        b, s, n_gen = spec["batch"], spec["prompt"], spec["gen"]
+        steps = n_gen - 1
+        if b9_per_step(cfg) != spec["b9"]:
+            fail(f"phase 12 {cfg.name}: {b9_per_step(cfg)} B9 layers a "
+                 f"step, not {spec['b9']}")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        t0 = sync_clock(torch)
+        params = TM.init(cfg, gen, torch.float32)
+        n = TM.count_params(cfg)
+        say(f"  {cfg.name}: {n:,} parameters ({cfg.n_layers} layers"
+            + (f" of {slots_config(dict(spec, layers=None)).n_layers}"
+               if spec["layers"] else "")
+            + f", d_model {cfg.d_model}) made in "
+            f"{sync_clock(torch) - t0:.2f} s; batch {b}, prompt {s}, "
+            f"{n_gen} greedy tokens")
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device=dev)
+        src = source_inputs(cfg, b, gen)
+        counting, drops, real = moe_drop_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        moe._dispatch_row = counting
+        try:
+            ids, t_pre, t_dec = generate(cfg, params, tokens, n_gen,
+                                         generator=gen, source=src)
+        finally:
+            moe._dispatch_row = real
+        counts, shapes = launch_counts(), launch_counts_by_shape()
+        peak = torch.cuda.max_memory_allocated()
+        for name, k in counts.items():
+            total[name] = total.get(name, 0) + k
+        for name, per in shapes.items():
+            into = by_shape.setdefault(name, {})
+            for key, k in per.items():
+                into[key] = into.get(key, 0) + k
+        if counts["flash_decode"] != spec["b9"] * steps:
+            fail(f"phase 12 {cfg.name}: flash_decode launched "
+                 f"{counts['flash_decode']} times, not {spec['b9']} per "
+                 f"decode step x {steps}")
+        if ids.shape != (b, n_gen) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab_size)).all()):
+            fail(f"phase 12 {cfg.name}: generated ids of shape "
+                 f"{tuple(ids.shape)} out of range")
+        flops = specs.useful_flops(cfg, ShapeSpec("prefill", s, b,
+                                                  "prefill"))
+        w_bytes = 4 * n
+        c_bytes = cache_bytes(cfg, b, s + n_gen)
+        say(f"    prefill {b}x{s}: {t_pre * 1e3:.2f} ms, "
+            f"{b * s / t_pre:.1f} tokens/s, {flops / 1e12:.2f} model TFLOP "
+            f"= {flops / t_pre / PEAK_F32_OPS_PER_S:.1%} of the f32 peak "
+            f"67 TFLOP/s; decode {steps} steps: {t_dec / steps * 1e3:.3f} ms "
+            f"per step, {b * steps / t_dec:.1f} tok/s; B9 "
+            f"{counts['flash_decode'] / steps:g} launches a step, by (B, T, "
+            f"KV, G, D, cache dtype) {shapes['flash_decode']}")
+        say(f"    peak device memory {peak / 2**30:.2f} GiB against its "
+            f"reckoning: earlier phases {held / 2**30:.2f} + weights "
+            f"{w_bytes / 2**30:.2f} + decode caches {c_bytes / 2**30:.2f} = "
+            f"{(held + w_bytes + c_bytes) / 2**30:.2f} GiB, the rest "
+            f"{(peak - held - w_bytes - c_bytes) / 2**30:.2f} GiB the "
+            f"prefill's transients")
+        if drops:
+            kept = sum(int(k) for k, _ in drops)
+            pairs = sum(p for _, p in drops)
+            say(f"    MoE at capacity factor {cfg.moe.capacity_factor}: "
+                f"{pairs - kept} of {pairs} (token, expert) pairs of the "
+                f"prefill dropped ({(pairs - kept) / pairs:.3%})")
+        say(f"    sample ids {ids[0, :8].tolist()} ...")
+
+        # consistency, at weights rescaled in place to std 1/sqrt(fan-in)
+        with torch.no_grad():
+            for (_, p), (_, f) in zip(tree_leaves(params),
+                                      tree_leaves(fan_in_factors(cfg))):
+                if f != 1.0:
+                    p.mul_(f)
+        t0 = sync_clock(torch)
+        errs = slots_consistency(torch, cfg, spec, params, gen, dev)
+        cb, cs, cn = spec["check"]
+        what = (f"prefill(x[:{cs}]) + {cn} decode steps vs "
+                f"prefill(x[:{cs + cn}])" + (" (capacity factor 8.0)"
+                                             if cfg.moe else ""))
+        say(f"    {what}, batch {cb}, weights at std 1/sqrt(fan-in): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" of max|reference| (limit 2e-3) in "
+            f"{sync_clock(torch) - t0:.1f} s")
+        bad = {k: v for k, v in errs.items() if not v <= 2e-3}
+        if bad:
+            fail(f"phase 12 {cfg.name}: prefill/decode consistency {bad} "
+                 f"> 2e-3")
+        del params, tokens, src, ids
+        torch.cuda.empty_cache()
+    return total, by_shape
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
-                lm_counts, serving, tables, sharded, train_counts, seed):
+                lm_counts, serving, tables, sharded, train_counts, slots,
+                seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import bin_readout_cuda
     from repro_torch.kernels.binning.ops import _beta_to_layout
@@ -4070,6 +4352,13 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         tally["flash_decode"], decode_serve_times(
             torch, data[0].device, seed, tally["flash_decode"]),
         lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
+    slots_counts, slots_shapes = slots
+    extra.setdefault("flash_decode", {})["lm_slots_by_shape"] = \
+        by_shape_entries(
+            slots_shapes.get("flash_decode", {}), decode_serve_times(
+                torch, data[0].device, seed,
+                slots_shapes.get("flash_decode", {}), label="phase 12"),
+            lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
     decode_long_times(torch, data[0].device, seed)
     serve_graph_times(torch, serving)
     for name in SERVE_KERNELS:
@@ -4101,6 +4390,7 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
             entries[-1]["by_shape"] = by_shape[name]
         entries[-1].update(extra.get(name, {}))
         entries[-1]["train_launches"] = train_counts[name]
+        entries[-1]["lm_slots_launches"] = slots_counts.get(name, 0)
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}; {launches[name]} "
@@ -4151,9 +4441,10 @@ def main(argv=None) -> int:
     import torch.distributed as dist
     dist.destroy_process_group()
     train_counts = phase_train(torch, dev, args.seed)
+    slots = phase_lm_slots(torch, dev, args.seed)
     entries = phase_times(torch, data, model, counts, errs, dist_state,
                           lm_counts, serving, tables, sharded, train_counts,
-                          args.seed)
+                          slots, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

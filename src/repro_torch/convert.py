@@ -1,7 +1,9 @@
 """Carry state fitted by the JAX package over to the port.
 
 ``lsh_from_reference`` takes the JAX package's ``LSHParams`` (w, z as
-float32, r1, r2 as uint32; anything ``numpy.asarray`` reads) and
+float32, r1, r2 as uint32; anything ``numpy.asarray`` reads),
+``wlsh_attn_from_reference`` its ``WLSHAttnParams`` (proj, w, z float32,
+r1 uint32) and
 ``model_from_reference`` a fitted ``WLSHKRRModel`` (beta, tables,
 table_size, bucket_name).  Both only read attributes and convert through
 numpy, so this module imports neither JAX nor the JAX package.  A converted
@@ -21,6 +23,8 @@ import torch
 from .backend import resolve_device
 from .core.krr import WLSHKRRModel
 from .core.lsh import LSHParams, lsh_params_from_numpy
+from .models.wlsh_attention import (WLSHAttnParams,
+                                    wlsh_attn_params_from_numpy)
 from .optim.adamw import AdamWState
 
 
@@ -32,6 +36,16 @@ def lsh_from_reference(lsh, device=None) -> LSHParams:
         raise ValueError(f"r1/r2 must be uint32, got {r1.dtype}/{r2.dtype}")
     return lsh_params_from_numpy(np.asarray(lsh.w), np.asarray(lsh.z), r1,
                                  r2, dev)
+
+
+def wlsh_attn_from_reference(params, device=None) -> WLSHAttnParams:
+    """The port's WLSHAttnParams from the JAX package's, on ``device``."""
+    r1 = np.asarray(params.r1)
+    if r1.dtype != np.uint32:
+        raise ValueError(f"r1 must be uint32, got {r1.dtype}")
+    return wlsh_attn_params_from_numpy(
+        np.asarray(params.proj), np.asarray(params.w), np.asarray(params.z),
+        r1, resolve_device(device))
 
 
 def _tensor(a, dtype, device):

@@ -21,9 +21,11 @@ from ..backend import resolve_device
 _A, _C = 4097, 1231  # affine recurrence constants
 
 
-def _generator(seed: int, step: int) -> torch.Generator:
-    """A CPU generator whose stream is fixed by (seed, step) alone."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+def step_generator(seed: int, step: int, *stream: int) -> torch.Generator:
+    """A CPU generator whose stream is fixed by (seed, step) alone, or by
+    (seed, step, *stream) for another draw of the same step."""
+    state = np.random.SeedSequence([seed, step, *stream]).generate_state(
+        1, np.uint64)
     return torch.Generator().manual_seed(int(state[0]) >> 1)
 
 
@@ -38,7 +40,7 @@ def synthetic_lm_batch(seed: int, step: int, *, batch: int, seq: int,
     column is masked with -1 (ignored by ``chunked_xent``).
     """
     dev = resolve_device(device)
-    gen = _generator(seed, step)
+    gen = step_generator(seed, step)
     prev = torch.randint(0, vocab, (batch,), generator=gen)
     noise_mask = torch.rand((batch, seq), generator=gen) < noise
     noise_tok = torch.randint(0, vocab, (batch, seq), generator=gen)

@@ -5,8 +5,10 @@ tokens one step at a time against the ring-buffer caches.
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 32
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
-``cuda``; without a card that raises, there is no fallback).  Weights and the
-prompt are random from ``--seed``, in float32 as the JAX CLI serves.
+``cuda``; without a card that raises, there is no fallback).  Weights, the
+prompt and, for whisper and the VLM, the encoder frames or image patches
+(``steps.source_inputs``) are random from ``--seed``, in float32 as the JAX
+CLI serves.
 Greedy decoding at ``--temperature 0``, else sampling from a generator
 seeded from ``--seed``.  Prints prefill ms, decode tok/s and the first
 sample ids.
@@ -22,7 +24,7 @@ from ..backend import resolve_device
 from ..configs import registry
 from ..configs.base import ModelConfig
 from ..models import model
-from .steps import make_decode_step, make_prefill_step
+from .steps import make_decode_step, make_prefill_step, source_inputs
 
 
 def _clock(dev: torch.device) -> float:
@@ -45,17 +47,19 @@ def sample(logits: torch.Tensor, temperature: float,
 @torch.inference_mode()
 def generate(cfg: ModelConfig, params: dict, tokens: torch.Tensor, gen: int,
              *, temperature: float = 0.0, generator: torch.Generator,
-             dtype=torch.float32):
+             dtype=torch.float32, source: dict | None = None):
     """Prefill ``tokens`` (B, S), then decode until ``gen`` tokens per row.
-    Returns (ids (B, gen) int32, prefill seconds, decode seconds), each time
-    ended by a device synchronize; the first id comes from the prefill
-    logits, the other gen - 1 from decode steps."""
+    ``source`` holds the batch's cross-attention source for the prefill
+    (``frames`` or ``patches``, see ``steps.source_inputs``), where the
+    arch has one.  Returns (ids (B, gen) int32, prefill seconds, decode
+    seconds), each time ended by a device synchronize; the first id comes
+    from the prefill logits, the other gen - 1 from decode steps."""
     dev = tokens.device
     prefill = make_prefill_step(cfg, max_cache_len=tokens.shape[1] + gen,
                                 dtype=dtype)
     decode = make_decode_step(cfg, dtype=dtype)
     t0 = _clock(dev)
-    logits, cache, pos = prefill(params, {"tokens": tokens})
+    logits, cache, pos = prefill(params, {"tokens": tokens, **(source or {})})
     t_prefill = _clock(dev) - t0
     tok = sample(logits, temperature, generator)[:, None]
     out = [tok]
@@ -93,9 +97,10 @@ def main(argv=None) -> int:
     params = model.init(cfg, gen, torch.float32)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    source = source_inputs(cfg, args.batch, gen)
     ids, t_prefill, t_decode = generate(
         cfg, params, tokens, args.gen, temperature=args.temperature,
-        generator=gen)
+        generator=gen, source=source)
     tps = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
     print(f"[serve] {cfg.name} on {dev}: prefill {args.batch}x"
           f"{args.prompt_len} in {t_prefill * 1e3:.1f} ms; decode "

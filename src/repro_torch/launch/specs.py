@@ -1,0 +1,161 @@
+"""Abstract inputs and useful-FLOP accounting for every (architecture x
+shape) cell.  The port of ``repro.launch.specs``, without its XLA parts.
+
+``batch_specs`` and ``decode_specs`` give ``device="meta"`` tensors, the
+PyTorch counterpart of ``jax.ShapeDtypeStruct``: shape and dtype, no
+storage.  ``useful_flops`` is the model-FLOP numerator of a roofline share.
+
+The JAX module's ``*_shardings`` functions (``batch_shardings``,
+``param_shardings``, ``cache_shardings``, ``scalar_sharding``,
+``vec_sharding``) and ``batch_axes`` have no counterpart: the port runs the
+LM on one card and shards nothing (ROADMAP, beside ``sharding.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeSpec
+from ..models import model
+from ..models.mamba2 import mamba2_dims
+from ..models.params import tree_leaves
+
+META = torch.device("meta")
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs
+# ---------------------------------------------------------------------------
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec,
+                dtype=torch.bfloat16) -> dict:
+    """Meta tensors of a train/prefill batch: tokens (and labels) int32,
+    the encoder's frames or the VLM's patches in ``dtype``."""
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": torch.empty((b, s), dtype=torch.int32, device=META)}
+    if shape.kind == "train":
+        specs["labels"] = torch.empty((b, s), dtype=torch.int32, device=META)
+    if cfg.encoder is not None:
+        specs["frames"] = torch.empty((b, cfg.encoder.n_frames, cfg.d_model),
+                                      dtype=dtype, device=META)
+    elif cfg.cross_attn_source_len:
+        specs["patches"] = torch.empty(
+            (b, cfg.cross_attn_source_len, cfg.d_model), dtype=dtype,
+            device=META)
+    return specs
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16):
+    """(cache, tokens (B,1), pos (B,)) meta tensors of a decode cell.  The
+    cache is ``model.init_cache``'s: its recurrent states float32, as the
+    prefill emits them, the rest in ``dtype`` (the JAX package's
+    ``abstract_cache`` puts every leaf in ``dtype``)."""
+    b, s = shape.global_batch, shape.seq_len
+    cache = model.init_cache(cfg, b, s, dtype, device=META)
+    return (cache, torch.empty((b, 1), dtype=torch.int32, device=META),
+            torch.empty((b,), dtype=torch.int32, device=META))
+
+
+# ---------------------------------------------------------------------------
+# useful-FLOP accounting (model FLOPs for the roofline share)
+# ---------------------------------------------------------------------------
+
+def _count(specs, pred) -> int:
+    """Parameters of the leaves whose path (as ``jax.tree_util.keystr``
+    writes it) satisfies ``pred``."""
+    return sum(math.prod(leaf.shape) for path, leaf in tree_leaves(specs)
+               if pred(path))
+
+
+def matmul_params(cfg: ModelConfig) -> tuple[int, int]:
+    """(active, total) matmul parameters: embedding/unembedding tables and
+    norm scales excluded; MoE experts scaled by top_k/n_experts for
+    'active'."""
+    specs = model.param_specs(cfg)
+
+    def is_table(k):
+        return ("embed" in k and "table" in k) or \
+            ("unembed" in k and "table" in k)
+
+    def is_norm(k):
+        return "norm" in k or "ln_x" in k or k.endswith("scale']")
+
+    total_all = _count(specs, lambda k: not (is_table(k) or is_norm(k)))
+    moe_w = _count(specs, lambda k: ("w_gate" in k or "w_up" in k or
+                                     "w_down" in k) and "ffn" in k)
+    if cfg.moe is not None and moe_w:
+        active = total_all - moe_w + moe_w * cfg.moe.top_k // cfg.moe.n_experts
+    else:
+        active = total_all
+    return active, total_all
+
+
+def _attn_flops_token(cfg: ModelConfig, t_ctx: float) -> float:
+    """Score+value FLOPs for ONE query token against t_ctx keys, all
+    layers."""
+    per_layer = 4.0 * t_ctx * cfg.n_heads * cfg.head_dim   # 2 matmuls x 2 flop
+    total = 0.0
+    for s in cfg.layer_pattern:
+        reps = cfg.n_groups
+        if s.kind == "attn":
+            eff = min(t_ctx, s.window) if s.window else t_ctx
+            total += per_layer / t_ctx * eff * reps
+        if s.shared_attn:
+            win = s.window or 4096
+            total += per_layer / t_ctx * min(t_ctx, win) * reps
+        if s.cross_attn:
+            total += 4.0 * cfg.cross_attn_source_len * cfg.n_heads * \
+                cfg.head_dim * reps
+    return total
+
+
+def _ssm_flops_token(cfg: ModelConfig) -> float:
+    if cfg.ssm is None:
+        return 0.0
+    total = 0.0
+    for s in cfg.layer_pattern:
+        if s.kind == "mamba2":
+            dims = mamba2_dims(cfg.d_model, cfg.ssm)
+            total += 4.0 * dims.n_heads * dims.head_dim * dims.state * \
+                cfg.n_groups
+        elif s.kind == "rwkv6":
+            total += 4.0 * cfg.n_heads * cfg.head_dim ** 2 * cfg.n_groups
+    return total
+
+
+def _encoder_params(cfg: ModelConfig) -> int:
+    return _count(model.param_specs(cfg),
+                  lambda k: "encoder" in k and "norm" not in k)
+
+
+def useful_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
+    """Model FLOPs of the cell: 6 N_active per token for train (2 forward +
+    4 backward), 2 N_active per token for prefill/decode, plus attention,
+    SSM and logits terms."""
+    b, s = shape.global_batch, shape.seq_len
+    n_active, _ = matmul_params(cfg)
+    logits_flops_tok = 2.0 * cfg.vocab_size * cfg.d_model
+    if shape.kind == "train":
+        tokens = b * s
+        avg_ctx = s / 2.0   # causal average context
+        fwd_tok = 2.0 * n_active + _attn_flops_token(cfg, avg_ctx) + \
+            _ssm_flops_token(cfg) + logits_flops_tok
+        flops = 3.0 * fwd_tok * tokens          # bwd = 2x fwd
+        if cfg.encoder is not None:
+            flops += 3.0 * 2.0 * _encoder_params(cfg) * b * \
+                cfg.encoder.n_frames
+        return flops
+    if shape.kind == "prefill":
+        tokens = b * s
+        avg_ctx = s / 2.0
+        fwd_tok = 2.0 * n_active + _attn_flops_token(cfg, avg_ctx) + \
+            _ssm_flops_token(cfg)
+        flops = fwd_tok * tokens + logits_flops_tok * b   # last-token logits
+        if cfg.encoder is not None:
+            flops += 2.0 * _encoder_params(cfg) * b * cfg.encoder.n_frames
+        return flops
+    # decode: one token per sequence against a seq_len cache
+    fwd_tok = 2.0 * n_active + _attn_flops_token(cfg, float(s)) + \
+        _ssm_flops_token(cfg) + logits_flops_tok
+    return fwd_tok * b

@@ -96,6 +96,24 @@ def make_decode_step(cfg: ModelConfig, dtype=torch.bfloat16):
     return step
 
 
+def source_inputs(cfg: ModelConfig, batch: int,
+                  generator: torch.Generator) -> dict:
+    """The cross-attention source of a batch of ``batch`` rows, on the
+    generator's device, as the JAX CLIs draw it: ``frames`` (B, n_frames,
+    d_model) for an encoder, ``patches`` (B, source_len, d_model) for a
+    VLM, each 0.02 times a standard normal in float32; empty for the other
+    archs."""
+    if cfg.encoder is not None:
+        name, length = "frames", cfg.encoder.n_frames
+    elif cfg.cross_attn_source_len:
+        name, length = "patches", cfg.cross_attn_source_len
+    else:
+        return {}
+    x = torch.randn((batch, length, cfg.d_model), generator=generator,
+                    device=generator.device)
+    return {name: 0.02 * x}
+
+
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,
                      dtype=torch.float32):
     """(params, AdamW state) with parameters drawn from ``generator`` on its

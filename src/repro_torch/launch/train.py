@@ -10,8 +10,10 @@ The flags are those of ``repro.launch.train`` plus ``--device`` (default
 uses the reduced same-family config; omit it on the card to train the full
 config.  The loop resumes from the newest complete checkpoint under
 ``--ckpt-dir``, so rerunning the same command after a crash continues the
-run; ``--fail-at`` injects failures to exercise that path.  Archs with
-other than dense attention slots raise before any step.  Exits 0 when the
+run; ``--fail-at`` injects failures to exercise that path.  Whisper's
+encoder frames and the VLM's image patches are drawn per step from
+(``--seed``, step) (``steps.source_inputs``), so a replayed step sees the
+same batch.  Exits 0 when the
 mean of the last 10 losses is below the mean of the first 10, else 2.
 """
 from __future__ import annotations
@@ -26,10 +28,11 @@ import torch
 from ..backend import resolve_device
 from ..configs import registry
 from ..data import synthetic_lm_batch
+from ..data.tokens import step_generator
 from ..models import model
 from ..optim import AdamWConfig
 from ..runtime import FailureInjector, RestartableLoop, StragglerWatchdog
-from .steps import init_train_state, make_train_step
+from .steps import init_train_state, make_train_step, source_inputs
 
 
 def build(arch: str, *, smoke: bool, steps: int, lr: float, dtype,
@@ -83,6 +86,9 @@ def main(argv=None) -> int:
         batch = synthetic_lm_batch(args.seed, step, batch=args.batch,
                                    seq=args.seq, vocab=cfg.vocab_size,
                                    device=dev)
+        src = source_inputs(cfg, args.batch,
+                            step_generator(args.seed, step, 1))
+        batch.update({k: v.to(dev) for k, v in src.items()})
         p, o, metrics = step_fn(state["params"], state["opt"], batch)
         return {"params": p, "opt": o}, metrics
 

@@ -1,6 +1,7 @@
-"""GQA attention: prefill (query-chunked) and decode (one token against a
-ring-buffer KV cache), with causal / sliding-window masks, optional qk-norm
-and logit softcap.  The port of ``repro.models.attention``.
+"""GQA attention: prefill (query-chunked), decode (one token against a
+ring-buffer KV cache) and cross-attention decode (against the source's
+keys and values), with causal / sliding-window masks, optional qk-norm and
+logit softcap.  The port of ``repro.models.attention``.
 
 Full-sequence attention expands the KV heads to the query heads before the
 score product, as the JAX function does, so scores are laid out
@@ -166,5 +167,21 @@ def decode_attention(params: dict, x: Tensor, cache_k: Tensor,
     # by construction, so the mask is pure validity
     out = decode_attend_op(q[:, 0], cache_k, cache_v, ring_valid(pos, tc),
                            softcap=softcap)
+    return torch.einsum("bshe,hed->bsd", out[:, None].to(dt),
+                        params["wo"].to(dt))
+
+
+def cross_decode_attention(params: dict, x: Tensor, cross_k: Tensor,
+                           cross_v: Tensor, *, softcap: float = 0.0,
+                           norm_eps: float = 1e-5) -> Tensor:
+    """Decode-time cross-attention against the source's keys and values,
+    written by the prefill and only read here.  x (B,1,Dm); cross_{k,v}
+    (B,L,KV,D).  Every source row is valid: the flash-decode op over an
+    all-ones mask, the JAX function's unmasked softmax."""
+    dt = x.dtype
+    b, l = cross_k.shape[:2]
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
+    valid = torch.ones((b, l), dtype=torch.int32, device=cross_k.device)
+    out = decode_attend_op(q[:, 0], cross_k, cross_v, valid, softcap=softcap)
     return torch.einsum("bshe,hed->bsd", out[:, None].to(dt),
                         params["wo"].to(dt))

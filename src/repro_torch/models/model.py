@@ -4,22 +4,31 @@ functions.  The port of ``repro.models.model``.
 The layer stack is ``cfg.layer_pattern`` repeated ``cfg.n_groups`` times, with
 per-slot parameters stacked on a leading group axis as in the JAX package;
 here it is a Python loop over the groups (the JAX package scans them).
-Decode state is a tree of ring-buffer KV caches built from the same
-ParamSpec machinery as the parameters (see ``models/attention.py``);
-``decode_step`` writes into it in place.
+Heterogeneous stacks are patterns: gemma3's local:global attention,
+zamba2's mamba2 slots with one shared attention block (one parameter set
+applied at every third slot), llama-3.2-vision's cross-attention every
+fifth slot over image patches, whisper's decoder with cross-attention over
+its encoder's states (``_encode``), and the MoE, mamba2 and rwkv6 slots.
 
-Training: ``loss_fn`` is the forward plus ``chunked_xent``, and autograd
-gives the gradient.  Where autograd records (``torch.is_grad_enabled()``),
+Decode state is a tree built from the same ParamSpec machinery as the
+parameters: ring-buffer KV caches for attention (see
+``models/attention.py``), the shared attention's ring, the cross-attention
+source's keys and values (written by the prefill, read only), and the
+recurrent states of the mamba2 (conv window, ssm state) and rwkv6 (wkv
+state, two token-shift rows) slots.  The recurrent states are float32 and
+the conv window is in the compute dtype, as the JAX prefill emits them;
+``init_cache`` makes them so.  ``decode_step`` writes every state into the
+cache in place.
+
+Training: ``loss_fn`` is the forward plus ``chunked_xent`` plus
+``AUX_LOSS_WEIGHT`` times the MoE auxiliary loss, and autograd gives the
+gradient.  Where autograd records (``torch.is_grad_enabled()``),
 activations are rematerialized as the JAX package's ``jax.checkpoint`` does
 (``torch.utils.checkpoint``, non-reentrant): each slot when the pattern's
-period is above 4 (gemma3's 26-slot pattern is one group), else each group,
-and each chunk of the cross-entropy, so one chunk's (B, 512, V) float32
-logits is live at a time.
-
-Supported: dense attention slots (``kind='attn'``, global or windowed) with
-no MoE, cross-attention or shared attention, and no encoder: phi3-mini-3.8b,
-qwen3-14b, gemma3-1b and command-r-plus-104b.  Other slots raise
-``NotImplementedError``.
+period is above 4 (gemma3's 26-slot pattern is one group,
+llama-3.2-vision's period is 5), else each group; each encoder layer; each
+64-step chunk of the rwkv6 recurrence; and each chunk of the cross-entropy,
+so one chunk's (B, 512, V) float32 logits is live at a time.
 """
 from __future__ import annotations
 
@@ -27,8 +36,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
-from .attention import attn_specs, decode_attention, multihead_attention
-from .layers import embed_specs, mlp, mlp_specs, rmsnorm, rmsnorm_specs
+from . import mamba2 as m2
+from . import rwkv6 as rw
+from .attention import (attn_specs, cross_decode_attention, decode_attention,
+                        multihead_attention)
+from .layers import (embed_specs, mlp, mlp_specs, rmsnorm, rmsnorm_specs,
+                     sinusoidal_positions)
+from .moe import moe_ffn, moe_specs
 from .params import ParamSpec, init_params, stack_specs, tree_map
 from .params import count_params as _count_specs
 
@@ -36,23 +50,12 @@ Tensor = torch.Tensor
 
 AUX_LOSS_WEIGHT = 0.01
 XENT_CHUNK = 512
+# decode states held in float32 whatever the compute dtype
+F32_STATES = frozenset({"ssm", "wkv", "tm_shift", "cm_shift"})
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet, naming its ROADMAP item."""
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder is not ported yet (ROADMAP §A item 9)")
-    for slot in cfg.layer_pattern:
-        if slot.kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: {slot.kind} slots are not ported yet "
-                f"(ROADMAP §A item 9)")
-        for flag in ("moe", "cross_attn", "shared_attn"):
-            if getattr(slot, flag):
-                raise NotImplementedError(
-                    f"{cfg.name}: {flag} slots are not ported yet "
-                    f"(ROADMAP §A item 9)")
+def _use_rope(cfg: ModelConfig) -> bool:
+    return cfg.family != "audio"
 
 
 def cast_params(params: dict, dtype) -> dict:
@@ -62,23 +65,40 @@ def cast_params(params: dict, dtype) -> dict:
                     params)
 
 
+def _shared_window(cfg: ModelConfig) -> int:
+    for s in cfg.layer_pattern:
+        if s.shared_attn and s.window:
+            return s.window
+    return 4096
+
+
 # ---------------------------------------------------------------------------
 # parameter specs
 # ---------------------------------------------------------------------------
 
 def _slot_specs(cfg: ModelConfig, slot: LayerSpec) -> dict:
     d = cfg.d_model
-    return {
-        "norm1": rmsnorm_specs(d),
-        "attn": attn_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                           cfg.use_qk_norm),
-        "norm2": rmsnorm_specs(d),
-        "ffn": mlp_specs(d, cfg.d_ff),
-    }
+    s: dict = {"norm1": rmsnorm_specs(d)}
+    if slot.kind == "attn":
+        s["attn"] = attn_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                               cfg.use_qk_norm)
+        s["norm2"] = rmsnorm_specs(d)
+        s["ffn"] = moe_specs(d, cfg.moe) if slot.moe else mlp_specs(d, cfg.d_ff)
+    elif slot.kind == "mamba2":
+        s["mixer"] = m2.mamba2_specs(d, cfg.ssm)
+    elif slot.kind == "rwkv6":
+        s["mixer"] = rw.rwkv6_specs(d, cfg.n_heads, cfg.head_dim, cfg.d_ff)
+        s["norm2"] = rmsnorm_specs(d)
+    else:
+        raise ValueError(f"unknown slot kind {slot.kind}")
+    if slot.cross_attn:
+        s["cross_norm"] = rmsnorm_specs(d)
+        s["cross_attn"] = attn_specs(d, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim)
+    return s
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _require_dense(cfg)
     d = cfg.d_model
     slots = {f"slot{i}": _slot_specs(cfg, s)
              for i, s in enumerate(cfg.layer_pattern)}
@@ -87,9 +107,25 @@ def param_specs(cfg: ModelConfig) -> dict:
         "groups": stack_specs(slots, cfg.n_groups),
         "final_norm": rmsnorm_specs(d),
     }
+    if cfg.has_shared_attn:
+        specs["shared"] = {
+            "norm": rmsnorm_specs(d),
+            "attn": attn_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        }
     if not cfg.tie_embeddings:
         specs["unembed"] = {"table": ParamSpec((cfg.vocab_size, d),
                                                ("vocab", "embed"), scale=0.02)}
+    if cfg.encoder is not None:
+        enc_slot = {
+            "norm1": rmsnorm_specs(d),
+            "attn": attn_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+            "norm2": rmsnorm_specs(d),
+            "ffn": mlp_specs(d, cfg.d_ff),
+        }
+        specs["encoder"] = {
+            "groups": stack_specs({"slot0": enc_slot}, cfg.encoder.n_layers),
+            "final_norm": rmsnorm_specs(d),
+        }
     return specs
 
 
@@ -106,27 +142,67 @@ def _cache_len(seq_len: int, window: int) -> int:
     return seq_len if window == 0 else min(seq_len, window)
 
 
-def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    _require_dense(cfg)
+def _slot_cache_specs(cfg: ModelConfig, slot: LayerSpec, batch: int,
+                      seq_len: int) -> dict:
     kv, dh = cfg.n_kv_heads, cfg.head_dim
     kv_axes = (None, "batch", "seq_shard", "kv_heads", "head_dim")
-    out = {}
-    for i, slot in enumerate(cfg.layer_pattern):
+    c: dict = {}
+    if slot.kind == "attn":
         tc = _cache_len(seq_len, slot.window)
-        shape = (cfg.n_groups, batch, tc, kv, dh)
-        out[f"slot{i}"] = {"k": ParamSpec(shape, kv_axes, init="zeros"),
-                           "v": ParamSpec(shape, kv_axes, init="zeros")}
-    return out
+        c["k"] = ParamSpec((cfg.n_groups, batch, tc, kv, dh), kv_axes,
+                           init="zeros")
+        c["v"] = ParamSpec((cfg.n_groups, batch, tc, kv, dh), kv_axes,
+                           init="zeros")
+    elif slot.kind == "mamba2":
+        dims = m2.mamba2_dims(cfg.d_model, cfg.ssm)
+        c["conv"] = ParamSpec((cfg.n_groups, batch, dims.conv_width - 1,
+                               dims.conv_dim), (None, "batch", None, "mlp"),
+                              init="zeros")
+        c["ssm"] = ParamSpec((cfg.n_groups, batch, dims.n_heads,
+                              dims.head_dim, dims.state),
+                             (None, "batch", "ssm_heads", None, None),
+                             init="zeros")
+    elif slot.kind == "rwkv6":
+        c["wkv"] = ParamSpec((cfg.n_groups, batch, cfg.n_heads, cfg.head_dim,
+                              cfg.head_dim),
+                             (None, "batch", "heads", None, None), init="zeros")
+        c["tm_shift"] = ParamSpec((cfg.n_groups, batch, cfg.d_model),
+                                  (None, "batch", None), init="zeros")
+        c["cm_shift"] = ParamSpec((cfg.n_groups, batch, cfg.d_model),
+                                  (None, "batch", None), init="zeros")
+    if slot.shared_attn:
+        tc = _cache_len(seq_len, _shared_window(cfg))
+        c["shared_k"] = ParamSpec((cfg.n_groups, batch, tc, kv, dh), kv_axes,
+                                  init="zeros")
+        c["shared_v"] = ParamSpec((cfg.n_groups, batch, tc, kv, dh), kv_axes,
+                                  init="zeros")
+    if slot.cross_attn:
+        src_axes = (None, "batch", None, "kv_heads", "head_dim")
+        l = cfg.cross_attn_source_len
+        c["cross_k"] = ParamSpec((cfg.n_groups, batch, l, kv, dh), src_axes,
+                                 init="zeros")
+        c["cross_v"] = ParamSpec((cfg.n_groups, batch, l, kv, dh), src_axes,
+                                 init="zeros")
+    return c
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    return {f"slot{i}": _slot_cache_specs(cfg, s, batch, seq_len)
+            for i, s in enumerate(cfg.layer_pattern)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.float32, device=None):
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=dtype, device=device),
-                    cache_specs(cfg, batch, seq_len))
+    """Zero decode state: the recurrent states (``F32_STATES``) in float32,
+    the rest in ``dtype``."""
+    return {slot: {name: torch.zeros(
+        s.shape, dtype=torch.float32 if name in F32_STATES else dtype,
+        device=device) for name, s in specs.items()}
+        for slot, specs in cache_specs(cfg, batch, seq_len).items()}
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (prefill)
+# full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _ring_from_prefill(k: Tensor, tc: int) -> Tensor:
@@ -140,23 +216,76 @@ def _ring_from_prefill(k: Tensor, tc: int) -> Tensor:
 
 
 def _apply_slot_full(cfg: ModelConfig, slot: LayerSpec, sp: dict, x: Tensor,
-                     *, positions: Tensor, k_pos: Tensor, causal: bool,
-                     emit_cache: bool, cache_len: int):
-    """One pattern slot over a full sequence.  Returns (x, cache_dict)."""
+                     *, positions: Tensor, k_pos: Tensor,
+                     cross_src: Tensor | None, shared_params: dict | None,
+                     causal: bool, emit_cache: bool, cache_len: int):
+    """One pattern slot over a full sequence.  Returns (x, cache_dict, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache: dict = {}
-    h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
-    y, (k, v) = multihead_attention(
-        sp["attn"], h, h, q_pos=positions, k_pos=k_pos, causal=causal,
-        window=slot.window, softcap=cfg.attn_logit_softcap,
-        qk_norm=cfg.use_qk_norm, rope_theta=cfg.rope_theta,
-        norm_eps=cfg.norm_eps, return_kv=True)
-    x = x + y
-    if emit_cache:
-        tc = _cache_len(cache_len, slot.window)
-        cache["k"] = _ring_from_prefill(k, tc)
-        cache["v"] = _ring_from_prefill(v, tc)
-    h = rmsnorm(sp["norm2"], x, cfg.norm_eps)
-    return x + mlp(sp["ffn"], h), cache
+    rope = cfg.rope_theta if _use_rope(cfg) else 0.0
+    if slot.kind == "attn":
+        h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
+        y, (k, v) = multihead_attention(
+            sp["attn"], h, h, q_pos=positions, k_pos=k_pos, causal=causal,
+            window=slot.window, softcap=cfg.attn_logit_softcap,
+            qk_norm=cfg.use_qk_norm, rope_theta=rope, norm_eps=cfg.norm_eps,
+            return_kv=True)
+        x = x + y
+        if emit_cache:
+            tc = _cache_len(cache_len, slot.window)
+            cache["k"] = _ring_from_prefill(k, tc)
+            cache["v"] = _ring_from_prefill(v, tc)
+    elif slot.kind == "mamba2":
+        h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
+        y, (conv_st, ssm_st) = m2.mamba2_block(sp["mixer"], h, cfg.ssm)
+        x = x + y
+        if emit_cache:
+            cache["conv"], cache["ssm"] = conv_st, ssm_st
+    elif slot.kind == "rwkv6":
+        h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
+        y, (tm_shift, wkv_st) = rw.time_mix(sp["mixer"], h)
+        x = x + y
+        h2 = rmsnorm(sp["norm2"], x, cfg.norm_eps)
+        y2, cm_shift = rw.channel_mix(sp["mixer"], h2)
+        x = x + y2
+        if emit_cache:
+            cache["wkv"], cache["tm_shift"], cache["cm_shift"] = \
+                wkv_st, tm_shift, cm_shift
+
+    if slot.shared_attn:
+        h = rmsnorm(shared_params["norm"], x, cfg.norm_eps)
+        win = _shared_window(cfg)
+        y, (k, v) = multihead_attention(
+            shared_params["attn"], h, h, q_pos=positions, k_pos=k_pos,
+            causal=causal, window=win, rope_theta=rope, norm_eps=cfg.norm_eps,
+            return_kv=True)
+        x = x + y
+        if emit_cache:
+            tc = _cache_len(cache_len, win)
+            cache["shared_k"] = _ring_from_prefill(k, tc)
+            cache["shared_v"] = _ring_from_prefill(v, tc)
+
+    if slot.cross_attn:
+        h = rmsnorm(sp["cross_norm"], x, cfg.norm_eps)
+        l = cross_src.shape[1]
+        y, (ck, cv) = multihead_attention(
+            sp["cross_attn"], h, cross_src, q_pos=positions,
+            k_pos=torch.arange(l, dtype=torch.int32, device=x.device),
+            causal=False, rope_theta=0.0, norm_eps=cfg.norm_eps,
+            return_kv=True)
+        x = x + y
+        if emit_cache:
+            cache["cross_k"], cache["cross_v"] = ck, cv
+
+    if slot.kind == "attn":
+        h = rmsnorm(sp["norm2"], x, cfg.norm_eps)
+        if slot.moe:
+            y, a = moe_ffn(sp["ffn"], h, cfg.moe)
+            aux = aux + a
+        else:
+            y = mlp(sp["ffn"], h)
+        x = x + y
+    return x, cache, aux
 
 
 def _group(tree: dict, g: int) -> dict:
@@ -165,73 +294,121 @@ def _group(tree: dict, g: int) -> dict:
 
 
 def _backbone_full(cfg: ModelConfig, params: dict, h: Tensor,
-                   positions: Tensor, *, causal: bool, emit_cache: bool,
-                   cache_len: int):
+                   positions: Tensor, *, cross_src: Tensor | None,
+                   causal: bool, emit_cache: bool, cache_len: int):
     """The pattern groups over a full sequence, one after the other.
-    Returns (hidden, caches stacked on the group axis or None).  Where
+    Returns (hidden, aux summed over slots and groups, caches stacked on the
+    group axis or None).  Each group's caches are copied into the stacked
+    tree as the group ends, so the stack is never held twice.  Where
     autograd records, each slot (period > 4) or each group is
     rematerialized in the backward pass."""
     k_pos = torch.arange(h.shape[1], dtype=positions.dtype, device=h.device)
+    shared = params.get("shared")
     remat = torch.is_grad_enabled()
     remat_slots = cfg.period > 4
 
     def slot_fn(slot, sp, x):
         return _apply_slot_full(cfg, slot, sp, x, positions=positions,
-                                k_pos=k_pos, causal=causal,
+                                k_pos=k_pos, cross_src=cross_src,
+                                shared_params=shared, causal=causal,
                                 emit_cache=emit_cache, cache_len=cache_len)
 
     def group_fn(gp, x, slot_remat):
         caches = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, slot in enumerate(cfg.layer_pattern):
             if slot_remat:
-                x, caches[f"slot{i}"] = checkpoint(
+                x, caches[f"slot{i}"], a = checkpoint(
                     slot_fn, slot, gp[f"slot{i}"], x, use_reentrant=False)
             else:
-                x, caches[f"slot{i}"] = slot_fn(slot, gp[f"slot{i}"], x)
-        return x, caches
+                x, caches[f"slot{i}"], a = slot_fn(slot, gp[f"slot{i}"], x)
+            aux = aux + a
+        return x, caches, aux
 
-    cache_list = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    stacked = None
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
         if remat and not remat_slots:
-            h, caches = checkpoint(group_fn, gp, h, False,
-                                   use_reentrant=False)
+            h, caches, a = checkpoint(group_fn, gp, h, False,
+                                      use_reentrant=False)
         else:
-            h, caches = group_fn(gp, h, remat)
-        cache_list.append(caches)
+            h, caches, a = group_fn(gp, h, remat)
+        aux = aux + a
+        if emit_cache:
+            if stacked is None:
+                stacked = tree_map(lambda c: c.new_empty(
+                    (cfg.n_groups,) + tuple(c.shape)), caches)
+            tree_map(lambda dst, c: dst[g].copy_(c), stacked, caches)
+        del caches
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    if not emit_cache:
-        return h, None
-    stacked = {slot: {name: torch.stack([c[slot][name] for c in cache_list])
-                      for name in cache_list[0][slot]}
-               for slot in cache_list[0]}
-    return h, stacked
+    return h, aux, stacked
 
 
-def _embed_tokens(params: dict, tokens: Tensor, dtype) -> Tensor:
-    return params["embed"]["table"].to(dtype)[tokens]
+def _encode(cfg: ModelConfig, params: dict, frames: Tensor) -> Tensor:
+    """Whisper-style bidirectional encoder over precomputed frame
+    embeddings (B, L, Dm), sinusoidal positions added; each layer
+    rematerialized where autograd records."""
+    enc = params["encoder"]
+    b, l, _ = frames.shape
+    pos = torch.arange(l, dtype=torch.int32, device=frames.device)
+    h = frames + sinusoidal_positions(pos, cfg.d_model)[None].to(frames.dtype)
+
+    def layer(sp, x):
+        hn = rmsnorm(sp["norm1"], x, cfg.norm_eps)
+        x = x + multihead_attention(
+            sp["attn"], hn, hn, q_pos=pos[None].expand(b, -1), k_pos=pos,
+            causal=False, rope_theta=0.0, norm_eps=cfg.norm_eps)
+        return x + mlp(sp["ffn"], rmsnorm(sp["norm2"], x, cfg.norm_eps))
+
+    remat = torch.is_grad_enabled()
+    for g in range(cfg.encoder.n_layers):
+        sp = _group(enc["groups"], g)["slot0"]
+        h = (checkpoint(layer, sp, h, use_reentrant=False) if remat
+             else layer(sp, h))
+    return rmsnorm(enc["final_norm"], h, cfg.norm_eps)
+
+
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: Tensor,
+                  positions: Tensor, dtype) -> Tensor:
+    h = params["embed"]["table"].to(dtype)[tokens]
+    if not _use_rope(cfg):
+        h = h + sinusoidal_positions(positions, cfg.d_model).to(dtype)
+    return h
+
+
+def _cross_source(cfg: ModelConfig, params: dict, batch: dict[str, Tensor],
+                  dtype) -> Tensor | None:
+    """The cross-attention source: the encoder's states over ``frames``
+    (whisper), the image ``patches`` as given (VLM), or None."""
+    if cfg.encoder is not None:
+        return _encode(cfg, params, batch["frames"].to(dtype))
+    if cfg.cross_attn_source_len:
+        return batch["patches"].to(dtype)
+    return None
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict[str, Tensor], *,
             emit_cache: bool = False, max_cache_len: int = 0,
             dtype=torch.bfloat16):
     """Full-sequence forward.  Returns (hidden (B,S,D), aux, caches); aux is
-    the auxiliary loss, a float32 zero for the dense slots.
+    the MoE auxiliary loss summed over slots and groups, a float32 scalar
+    (zero without MoE slots).  ``batch`` holds ``tokens`` and, for whisper,
+    ``frames`` (B, n_frames, D), for a VLM ``patches`` (B, L, D).
 
     ``max_cache_len`` sizes the emitted decode caches (>= prompt length +
     planned decode steps); defaults to the prompt length.
     """
-    _require_dense(cfg)
     tokens = batch["tokens"]
     params = cast_params(params, dtype)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, -1)
-    h = _embed_tokens(params, tokens, dtype)
-    h, caches = _backbone_full(cfg, params, h, positions, causal=True,
-                               emit_cache=emit_cache,
-                               cache_len=max(max_cache_len, s))
-    return h, torch.zeros((), dtype=torch.float32, device=h.device), caches
+    h = _embed_tokens(cfg, params, tokens, positions, dtype)
+    cross_src = _cross_source(cfg, params, batch, dtype)
+    return _backbone_full(cfg, params, h, positions, cross_src=cross_src,
+                          causal=True, emit_cache=emit_cache,
+                          cache_len=max(max_cache_len, s))
 
 
 def _logit_table(cfg: ModelConfig, params: dict) -> Tensor:
@@ -330,32 +507,75 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict[str, Tensor], *,
 # decode
 # ---------------------------------------------------------------------------
 
-def _apply_slot_decode(cfg: ModelConfig, sp: dict, x: Tensor, *, pos: Tensor,
-                       cache: dict) -> Tensor:
-    h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
-    x = x + decode_attention(sp["attn"], h, cache["k"], cache["v"], pos=pos,
-                             softcap=cfg.attn_logit_softcap,
-                             qk_norm=cfg.use_qk_norm,
-                             rope_theta=cfg.rope_theta,
-                             norm_eps=cfg.norm_eps)
-    h = rmsnorm(sp["norm2"], x, cfg.norm_eps)
-    return x + mlp(sp["ffn"], h)
+def _apply_slot_decode(cfg: ModelConfig, slot: LayerSpec, sp: dict,
+                       x: Tensor, *, pos: Tensor, cache: dict,
+                       shared_params: dict | None) -> Tensor:
+    """One pattern slot for one token.  Returns x; every state of the
+    slot's ``cache`` (views into the group's cache) is updated IN PLACE,
+    the cross-attention keys and values only read."""
+    rope = cfg.rope_theta if _use_rope(cfg) else 0.0
+    if slot.kind == "attn":
+        h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
+        x = x + decode_attention(sp["attn"], h, cache["k"], cache["v"],
+                                 pos=pos, softcap=cfg.attn_logit_softcap,
+                                 qk_norm=cfg.use_qk_norm, rope_theta=rope,
+                                 norm_eps=cfg.norm_eps)
+    elif slot.kind == "mamba2":
+        h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
+        y, (conv_st, ssm_st) = m2.mamba2_block(
+            sp["mixer"], h, cfg.ssm, conv_state=cache["conv"],
+            ssm_state=cache["ssm"], decode=True)
+        x = x + y
+        cache["conv"].copy_(conv_st)
+        cache["ssm"].copy_(ssm_st)
+    elif slot.kind == "rwkv6":
+        h = rmsnorm(sp["norm1"], x, cfg.norm_eps)
+        y, (tm_shift, wkv_st) = rw.time_mix(
+            sp["mixer"], h, shift_state=cache["tm_shift"],
+            wkv_state=cache["wkv"], decode=True)
+        x = x + y
+        h2 = rmsnorm(sp["norm2"], x, cfg.norm_eps)
+        y2, cm_shift = rw.channel_mix(sp["mixer"], h2,
+                                      shift_state=cache["cm_shift"])
+        x = x + y2
+        cache["wkv"].copy_(wkv_st)
+        cache["tm_shift"].copy_(tm_shift)
+        cache["cm_shift"].copy_(cm_shift)
+
+    if slot.shared_attn:
+        h = rmsnorm(shared_params["norm"], x, cfg.norm_eps)
+        x = x + decode_attention(shared_params["attn"], h, cache["shared_k"],
+                                 cache["shared_v"], pos=pos, rope_theta=rope,
+                                 norm_eps=cfg.norm_eps)
+
+    if slot.cross_attn:
+        h = rmsnorm(sp["cross_norm"], x, cfg.norm_eps)
+        x = x + cross_decode_attention(sp["cross_attn"], h, cache["cross_k"],
+                                       cache["cross_v"], norm_eps=cfg.norm_eps)
+
+    if slot.kind == "attn":
+        h = rmsnorm(sp["norm2"], x, cfg.norm_eps)
+        x = x + (moe_ffn(sp["ffn"], h, cfg.moe)[0] if slot.moe
+                 else mlp(sp["ffn"], h))
+    return x
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: Tensor,
                 pos: Tensor, *, dtype=torch.bfloat16):
     """One serving step: tokens (B,1) int, pos (B,) absolute positions.
     Returns (logits (B,V) f32, cache).  The cache is updated IN PLACE (the
-    new token's key and value are written into its ring rows) and returned
-    as the same object; clone it first to keep the old state."""
-    _require_dense(cfg)
+    new token's keys and values written into their ring rows, the recurrent
+    states overwritten) and returned as the same object; clone it first to
+    keep the old state."""
     params = cast_params(params, dtype)
-    h = _embed_tokens(params, tokens, dtype)
+    h = _embed_tokens(cfg, params, tokens, pos[:, None], dtype)
+    shared = params.get("shared")
     for g in range(cfg.n_groups):
         gp, gc = _group(params["groups"], g), _group(cache, g)
-        for i in range(cfg.period):
-            h = _apply_slot_decode(cfg, gp[f"slot{i}"], h, pos=pos,
-                                   cache=gc[f"slot{i}"])
+        for i, slot in enumerate(cfg.layer_pattern):
+            h = _apply_slot_decode(cfg, slot, gp[f"slot{i}"], h, pos=pos,
+                                   cache=gc[f"slot{i}"],
+                                   shared_params=shared)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = h[:, 0].float() @ _logit_table(cfg, params).float().T
     return logits, cache

@@ -23,22 +23,47 @@ import torch
 ROUNDING = 2.0 ** -8       # one rounding to bf16 (8 significant bits)
 
 
+def fan_in_factors(cfg) -> dict:
+    """The factor ``fan_in_scale`` multiplies each leaf by, as a tree of
+    floats of the parameters' structure (1.0 where a leaf is left as it
+    is), from the specs alone: a caller can scale a tree too large to copy
+    in place."""
+    from ..models.model import param_specs
+
+    def factor(spec, path, stacked):
+        if not stacked or spec.init != "normal" or spec.scale is not None:
+            return 1.0
+        shape = spec.shape[1:]                  # without the group axis
+        if "ffn" in path and len(shape) == 3:   # experts (E, in, out)
+            fan = shape[1]
+        elif path[-1] in ("wo", "w_o"):
+            fan = shape[0] * shape[1]
+        else:
+            fan = shape[0]
+        return (spec.shape[0] / fan) ** 0.5
+
+    def walk(spec, path, stacked):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], path + (k,), stacked or k == "groups")
+                    for k in spec}
+        return factor(spec, path, stacked)
+    return walk(param_specs(cfg), (), False)
+
+
 def fan_in_scale(cfg, params):
     """``params`` (tensors or numpy arrays, as the init draws them) with
-    each stacked normal weight rescaled from std 1/sqrt(groups) to
-    1/sqrt(its fan-in): d_model for wq, wk, wv, w_gate and w_up, d_ff for
-    w_down, heads x head_dim for wo.  Other leaves are returned as they
-    are."""
-    from ..models.model import param_specs
+    each stacked normal weight (under a ``groups`` key: the layer stack and
+    the encoder's) rescaled from std 1/sqrt(groups) to 1/sqrt(its fan-in):
+    the first axis after the group axis (d_model for wq, wk, wv, w_gate,
+    w_up, the mamba2 and rwkv6 input projections; d_ff for w_down;
+    d_inner for mamba2's out_proj), heads x head_dim for wo and rwkv6's
+    w_o, and for the MoE experts (E, in, out) the axis after the expert
+    axis.  Leaves drawn at a scale of their own (router, LoRA, conv), the
+    zeros and ones, and the unstacked leaves (tables, the shared attention
+    block) are returned as they are."""
     from ..models.params import tree_map
-
-    def rescale(p, spec):
-        if spec.init != "normal" or spec.scale is not None or p.ndim < 3:
-            return p
-        wo = p.ndim == 4 and p.shape[-1] == cfg.d_model
-        fan = p.shape[1] * (p.shape[2] if wo else 1)
-        return p * (p.shape[0] / fan) ** 0.5
-    return tree_map(rescale, params, param_specs(cfg))
+    return tree_map(lambda p, f: p if f == 1.0 else p * f, params,
+                    fan_in_factors(cfg))
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -623,13 +623,19 @@ def test_bad_arguments_raise(cuda):
                      scatter_plan(2, 10, 1 << 20, 1, tile_bytes=1 << 20))
 
 
-# (B, KV, G, D, T): gemma3-1b, qwen3-14b, phi3-mini-3.8b, command-r-plus-104b
-# kv-head shapes; T not a multiple of the 32-row tile, and T = 1; D = 64;
-# one long cache (more splits than a cluster: combined through device
-# memory)
+# (B, KV, G, D, T): gemma3-1b, qwen3-14b (and llama4-scout),
+# phi3-mini-3.8b, command-r-plus-104b kv-head shapes; T not a multiple of
+# the 32-row tile, and T = 1; D = 64; one long cache (more splits than a
+# cluster: combined through device memory); then zamba2-7b's shared
+# attention (D = 112, not a size of the bf16 mma path), mixtral-8x22b,
+# whisper-large-v3's self- and cross-attention (T = 1500 source rows) and
+# llama-3.2-vision-90b's cross-attention (T = 1024 patches)
 DECODE_SHAPES = [(3, 1, 4, 256, 2112), (2, 8, 5, 128, 517),
                  (2, 32, 1, 96, 300), (2, 8, 12, 128, 1000), (4, 2, 3, 16, 1),
-                 (2, 4, 8, 64, 700), (1, 1, 4, 256, 8191)]
+                 (2, 4, 8, 64, 700), (1, 1, 4, 256, 8191),
+                 (2, 32, 1, 112, 777), (2, 8, 6, 128, 1001),
+                 (2, 20, 1, 64, 448), (2, 20, 1, 64, 1500),
+                 (2, 8, 8, 128, 1024)]
 
 
 @pytest.mark.parametrize("lens", ["random", "one", "wrapped", "none"])
@@ -685,24 +691,35 @@ def test_flash_decode_bad_arguments_raise(cuda):
                           valid)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-14b", "zamba2-7b",
+                                  "rwkv6-1.6b", "mixtral-8x22b",
+                                  "whisper-large-v3"])
 def test_decode_on_card_matches_cpu(cuda, arch):
     """prefill + 6 decode steps of the smoke config on the card against the
-    same on the CPU (the same weights); B9 launched once per layer per step."""
+    same on the CPU (the same weights, whisper's frames the same); B9
+    launched once per attention, shared-attention and cross-attention
+    layer per step."""
     from repro_torch.configs import registry
+    from repro_torch.launch.steps import source_inputs
     from repro_torch.models import model as TM
     from repro_torch.models.params import tree_map
     cfg = registry.smoke_config(arch)
     params = TM.init(cfg, torch.Generator().manual_seed(0))
+    src = source_inputs(cfg, 3, torch.Generator().manual_seed(2))
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (3, 14))).long()
+    per_step = cfg.n_groups * sum(
+        (s.kind == "attn") + s.shared_attn + s.cross_attn
+        for s in cfg.layer_pattern)
     out = {}
     for dev in ("cpu", cuda):
         p = tree_map(lambda a: a.to(dev), params)
         tk = toks.to(dev)
+        batch = {"tokens": tk[:, :8], **{k: v.to(dev)
+                                         for k, v in src.items()}}
         reset_launch_counts()
-        logits, cache, pos = TM.prefill(cfg, p, {"tokens": tk[:, :8]},
-                                        max_cache_len=14, dtype=torch.float32)
+        logits, cache, pos = TM.prefill(cfg, p, batch, max_cache_len=14,
+                                        dtype=torch.float32)
         steps = [logits]
         for t in range(8, 14):
             logits, cache = TM.decode_step(cfg, p, cache, tk[:, t:t + 1], pos,
@@ -711,7 +728,7 @@ def test_decode_on_card_matches_cpu(cuda, arch):
             steps.append(logits)
         out[str(dev)] = torch.stack(steps).cpu()
         if dev != "cpu":
-            assert launch_counts()["flash_decode"] == 6 * cfg.n_layers
+            assert launch_counts()["flash_decode"] == 6 * per_step
     scale = float(out["cpu"].abs().max())
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4 * scale,
                                rtol=0)

@@ -338,17 +338,6 @@ def test_remat_follows_the_reference(monkeypatch, arch, calls):
     assert seen == []
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "zamba2-7b",
-                                  "whisper-large-v3"])
-def test_unported_archs_name_their_roadmap_item(arch):
-    cfg = registry.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 9"):
-        TM.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 2, dtype=torch.long),
-                             "labels": torch.zeros(1, 2, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 9"):
-        TS.init_train_state(cfg, torch.Generator())
-
-
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
