@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
 predict and the distributed step, LM serving, KRR serving, the paper's
-Tables 1 and 2, sharded KRR serving, LM training, and LM serving of the
-MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs.
+Tables 1 and 2, sharded KRR serving, LM training, LM serving of the
+MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs, and the
+dense LMs served on (data, model) grids of ranks.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -53,15 +54,19 @@ non-zero:
    attention (KV 32, G 1, D 112), mixtral-8x22b (KV 8, G 6, D 128),
    whisper-large-v3's self-attention (KV 20, G 1, D 64) and
    cross-attention (T 1500), llama-3.2-vision-90b's cross-attention (KV
-   8, G 8, D 128, T 1024) and llama4-scout-17b-a16e (KV 8, G 5, D 128);
+   8, G 8, D 128, T 1024) and llama4-scout-17b-a16e (KV 8, G 5, D 128),
+   and one rank's heads on phase 13's grids: gemma3-1b at model 2 (KV 1,
+   G 2, D 256) and qwen3-14b at model 4 (KV 2, G 5, D 128);
    each with random lengths, one valid row, a wrapped ring and no valid
    row, T not a multiple of the tile: 1e-5 of max|out| (f32), 1e-4
    (bf16); and at phase 7's two shapes (T 512 and 2112) and the long
    cache, each called twice in a row and on two streams.
 3. Main phase: ``wlsh_krr_fit`` then ``wlsh_krr_predict`` at the repo's
-   ``wlsh_krr`` config (n = 2^22, d = 64, m = 64, B = 2^23, rect,
+   ``wlsh_krr`` config (``repro_torch.configs.wlsh_krr``, whose sizes
+   phases 2, 3 and 6 read: n = 2^22, d = 64, m = 64, B = 2^23, rect,
    Gamma(2, 1), lam = 1, no preconditioner, 32 PCG iterations as the
-   config's fixed-iteration step), then 2^20 queries in batches of 2^18.
+   config's fixed-iteration step, the bf16 wire of phase 6 (c)), then 2^20
+   queries in batches of 2^18.
    Launch counts are reset just before and read just after; a kernel of
    the path (B1, B2, B3, the readout) not launched fails the run.
    Predictions must be finite and match the plain path on the first 4096
@@ -240,6 +245,33 @@ non-zero:
    logits, conv and ssm states and the shared attention's rows; mixtral
    at batch 2, a 1024-token prompt and capacity factor 8.0.  Its launches
    are listed apart in the ``kernels`` line (``lm_slots_launches``).
+13. The dense LMs served on (data, model) grids of ranks
+   (``repro_torch.models.sharded``: the JAX package's sharding rules,
+   column- and row-parallel products, the vocab-parallel table, the FSDP
+   and head_dim gathers), f32, random weights from the seed rescaled to
+   std 1/sqrt(fan-in).  Each grid's reference is the one-process port on
+   the card on the same weights, run first, its logits moved to the host
+   and its memory freed before the grid starts; the grids restore each
+   rank's blocks with ``restore_resharded`` by ``param_shardings`` from one
+   checkpoint a model, written once into a temporary directory (18 GiB
+   free needed).  (a) phase 7's run (gemma3-1b uncut, batch 8, a
+   2048-token prompt, 64 tokens) on a 1x1 grid over NCCL through
+   ``generate(mesh=)``: tokens equal the reference's, logits within 1e-5
+   of max|logit| (whether bitwise printed), B9 26 times a decode step;
+   collectives of the run, and of one prefill and one decode step, by
+   kind.  (c) gemma3-1b uncut on a 2x2 grid and (b) qwen3-14b at full
+   width cut to 8 of its 40 layers on a 1x4 grid, each four processes
+   spawned on the one card over gloo (NCCL refuses two ranks on one
+   device; their times are of ranks sharing one card, not of a grid):
+   batch 8 (4 a data rank), a 512-token prompt, 4 decode steps (c), and
+   batch 4, 512, 16 steps (b), the steps fed the reference's greedy
+   tokens; every step's logits within 2e-3 of max|logit| on every rank,
+   each rank's parameter bytes equal to ``launch.specs.shard_bytes``, B9
+   launched layers x steps on every rank at the local (B 4, KV 1, G 2, D
+   256) and (B 4, KV 2, G 5, D 128).  Printed for each grid: prefill ms,
+   decode ms a step, peak device memory a rank, collective calls and
+   bytes a step by kind.  Its launches are listed apart in the
+   ``kernels`` line (``mesh_launches``).
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -292,9 +324,10 @@ non-zero:
    at phase 9's largest shape (``tables_ms``; B3's beside index_add_ on
    the same inputs, forest's layout, ``tables_library_ms``).  Phase 11's
    counted run is listed as ``train_launches``, phase 12's as
-   ``lm_slots_launches``; B9 at every shape phase 12 launched it at, by
-   torch.profiler beside scaled_dot_product_attention on the same cache
-   (``lm_slots_by_shape``).  Last, one replay of each of phase 8's graphs: by
+   ``lm_slots_launches``, phase 13's as ``mesh_launches``; B9 at every
+   shape phase 12 and phase 13 launched it at, by torch.profiler beside
+   scaled_dot_product_attention on the same cache (``lm_slots_by_shape``,
+   ``mesh_by_shape``).  Last, one replay of each of phase 8's graphs: by
    CUDA events back to back, and its kernels' device time by
    torch.profiler over the warm path's wall (the device-busy share).
 
@@ -315,9 +348,11 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-MAIN = dict(n=1 << 22, n_query=1 << 20, batch=1 << 18, d=64, m=64,
-            table_size=1 << 23, lam=1.0, maxiter=32)
-PARITY_NS = (1 << 16, MAIN["n"])
+# phase 3's queries, answered in batches; main() adds the wlsh_krr config's
+# sizes (repro_torch.configs.wlsh_krr: n, d, m, B, bucket, PDF shape, lam,
+# iterations, wire dtype; ``krr_sizes``), which phases 2, 3 and 6 read
+MAIN = dict(n_query=1 << 20, batch=1 << 18)
+PARITY_SMALL = 1 << 16     # phase 2's first n; its second is MAIN["n"]
 # phase 2 routings at n = 2^16 (owners, cap_factor): one rank, one that
 # drops buckets past capacity, and 2 and 4 owners built on the one card
 SMALL_ROUTINGS = ((1, 2.0), (1, 0.1), (2, 2.0), (4, 2.0))
@@ -403,7 +438,15 @@ DECODE_PARITY = (("gemma3-1b", 8, 1, 4, 256, 2112, "float32"),
                  ("llama-3.2-vision-90b cross", 8, 8, 8, 128, 1024,
                   "bfloat16"),
                  ("llama4-scout-17b-a16e", 4, 8, 5, 128, 1001, "float32"),
-                 ("llama4-scout-17b-a16e", 4, 8, 5, 128, 1001, "bfloat16"))
+                 ("llama4-scout-17b-a16e", 4, 8, 5, 128, 1001, "bfloat16"),
+                 # one rank's heads on phase 13's grids: gemma3-1b at model
+                 # 2 (its one kv head, two query heads a rank; 516-row
+                 # global caches) and qwen3-14b at model 4 (two kv heads,
+                 # ten query heads a rank; 528 rows)
+                 ("gemma3-1b on 2x2", 4, 1, 2, 256, 516, "float32"),
+                 ("gemma3-1b on 2x2", 4, 1, 2, 256, 516, "bfloat16"),
+                 ("qwen3-14b on 1x4", 4, 2, 5, 128, 528, "float32"),
+                 ("qwen3-14b on 1x4", 4, 2, 5, 128, 528, "bfloat16"))
 # B9 at the gemma3-1b serve run's shapes (phase 7: batch 8, the local layers'
 # 512-row rings and the global layers' 2112-row caches; splits combined in a
 # cluster) and at one long cache (splits combined through device memory by
@@ -421,6 +464,16 @@ DECODE_TIMED = (("gemma3-1b global", 1, 4, 256, "float32"),
                 ("gemma3-1b global", 1, 4, 256, "bfloat16"),
                 ("qwen3-14b", 8, 5, 128, "bfloat16"))
 DECODE_GIB = 60
+
+
+def krr_sizes(torch) -> dict:
+    """The ``wlsh_krr`` config's sizes, as MAIN keys."""
+    from repro_torch.configs.wlsh_krr import CONFIG
+    wire = {"bf16": torch.bfloat16, "f32": torch.float32}
+    return dict(n=CONFIG.n_points, d=CONFIG.dim, m=CONFIG.m,
+                table_size=CONFIG.table_size, lam=CONFIG.lam,
+                maxiter=CONFIG.cg_iters, bucket=CONFIG.bucket,
+                pdf_shape=CONFIG.pdf_shape, wire=wire[CONFIG.wire_dtype])
 
 
 def fail(msg: str):
@@ -956,7 +1009,7 @@ def phase_parity(torch, x, xq, seed):
     say(f"== phase 2: per-kernel parity at full width (d={MAIN['d']}, "
         f"m={MAIN['m']})")
     errs = {}
-    for n in PARITY_NS:
+    for n in (PARITY_SMALL, MAIN["n"]):
         table_size = MAIN["table_size"] if n == MAIN["n"] else \
             T.default_table_size(n)
         rng = np.random.default_rng(seed + n)
@@ -1090,10 +1143,11 @@ def phase_main(torch, data, seed):
     from repro_torch.kernels.featurize import featurize_ref
     say("== phase 3: main path at the wlsh_krr config")
     x, y, xq = data
+    pdf = T.GammaPDF(MAIN["pdf_shape"], 1.0)
+    f = T.get_bucket_fn(MAIN["bucket"])
     lsh = T.sample_lsh_params(np.random.default_rng(seed), MAIN["m"],
-                              MAIN["d"], T.GammaPDF(2.0, 1.0),
-                              device=x.device)
-    spec = T.WLSHKernelSpec(bucket=T.RECT, pdf=T.GammaPDF(2.0, 1.0))
+                              MAIN["d"], pdf, device=x.device)
+    spec = T.WLSHKernelSpec(bucket=f, pdf=pdf)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = sync_clock(torch)
@@ -1139,7 +1193,7 @@ def phase_main(torch, data, seed):
         fail(f"predictions: shape {tuple(pred.shape)} or non-finite")
     # the plain path on the first queries: plain featurize + plain gather
     nq = 4096
-    feats = featurize_ref(xq[:nq], *model.lsh, f=T.RECT,
+    feats = featurize_ref(xq[:nq], *model.lsh, f=f,
                           table_size=model.table_size)
     plain = (feats[5] * gather_ref(feats[4], model.tables)).mean(0)
     err = max_err(pred[:nq], plain)
@@ -1193,8 +1247,10 @@ def phase_distributed(torch, data, seed, main_pred):
     mesh = make_host_mesh(device=dev)
     say(f"  process group: {dist.get_backend()}, world {dist.get_world_size()}"
         f", grid {mesh.data} data x {mesh.model} model")
+    f, wire = T.get_bucket_fn(MAIN["bucket"]), MAIN["wire"]
     lsh = T.sample_lsh_params(np.random.default_rng(seed), MAIN["m"],
-                              MAIN["d"], T.GammaPDF(2.0, 1.0), device=dev)
+                              MAIN["d"], T.GammaPDF(MAIN["pdf_shape"], 1.0),
+                              device=dev)
     base = dict(m=MAIN["m"], table_size=MAIN["table_size"], lam=MAIN["lam"],
                 cg_iters=MAIN["maxiter"])
     counts, shapes, report = {}, {}, {}
@@ -1227,8 +1283,8 @@ def phase_distributed(torch, data, seed, main_pred):
 
     # (a) psum, split matvec off the layout: B1, B3, B6
     cfg_a = D.KRRStepConfig(**base, fused=False, blocked_split=True)
-    step_a = D.make_krr_step(mesh, cfg_a, T.RECT)
-    predict_a = D.make_krr_predict(mesh, cfg_a, T.RECT)
+    step_a = D.make_krr_step(mesh, cfg_a, f)
+    predict_a = D.make_krr_predict(mesh, cfg_a, f)
 
     def path_a():
         beta, res, tables = step_a(x, y, lsh)
@@ -1242,7 +1298,7 @@ def phase_distributed(torch, data, seed, main_pred):
 
     # (b) psum with the point kernels: B5, B4 (the readout)
     step_b = D.make_krr_step(mesh, D.KRRStepConfig(
-        **base, fused=False, blocked_split=False), T.RECT)
+        **base, fused=False, blocked_split=False), f)
     beta_b, res_b, _ = run("b", "psum step blocked_split=False",
                            lambda: step_b(x, y, lsh),
                            ("featurize", "bin_scatter", "bin_readout"))
@@ -1255,10 +1311,10 @@ def phase_distributed(torch, data, seed, main_pred):
 
     def path_c():
         beta, res, table, stats = D.run_krr_step_resilient(
-            mesh, cfg_c, T.RECT, x, y, lsh, payload_dtype=torch.bfloat16)
+            mesh, cfg_c, f, x, y, lsh, payload_dtype=wire)
         for dedup in (True, False):
             pred_hj[dedup] = D.make_krr_predict_hashjoin(
-                mesh, cfg_c, T.RECT, payload_dtype=torch.bfloat16,
+                mesh, cfg_c, f, payload_dtype=wire,
                 dedup=dedup)(xq, lsh, table)
         return beta, res, stats
 
@@ -1273,18 +1329,17 @@ def phase_distributed(torch, data, seed, main_pred):
 
     # comparisons, outside the counted paths; (c)'s step split from the
     # same step on its own
-    step_c = D.make_krr_step_hashjoin(mesh, cfg_c, T.RECT,
-                                      payload_dtype=torch.bfloat16)
+    step_c = D.make_krr_step_hashjoin(mesh, cfg_c, f, payload_dtype=wire)
     run("hj-bf16", "hash-join step (bf16 wire, as in (c))",
         lambda: step_c(x, y, lsh))
     say(f"      step split ms: {split(step_c)}")
-    step_hj = D.make_krr_step_hashjoin(mesh, cfg_c, T.RECT,
+    step_hj = D.make_krr_step_hashjoin(mesh, cfg_c, f,
                                        payload_dtype=torch.float32)
     beta_hj, _, _, stats_hj = run("hj-f32", "hash-join step (f32 wire)",
                                   lambda: step_hj(x, y, lsh))
     say(f"      step split ms: {split(step_hj)}; StepStats "
         f"{int(stats_hj.overflow_dropped)}, {int(stats_hj.wire_nonfinite)}")
-    step_f = D.make_krr_step(mesh, cfg_c, T.RECT)
+    step_f = D.make_krr_step(mesh, cfg_c, f)
     beta_f, _, _ = run("fused", "psum step fused (one data rank)",
                        lambda: step_f(x, y, lsh))
     say(f"      step split ms: {split(step_f)}")
@@ -3972,7 +4027,8 @@ def profile_train_step(torch, step, state, batch):
 
 
 def slots_config(spec):
-    """The registry config of a phase 12 arch, cut to ``layers``."""
+    """The registry config of a phase 12 arch or a phase 13 grid, cut to
+    ``layers``."""
     import dataclasses
     from repro_torch.configs import registry
     cfg = registry.get_config(spec["arch"])
@@ -4181,9 +4237,423 @@ def phase_lm_slots(torch, dev, seed):
     return total, by_shape
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense LMs served on (data, model) grids of ranks
+# ---------------------------------------------------------------------------
+
+# (a) phase 7's run on a 1x1 grid over NCCL through generate(mesh=); (b)
+# qwen3-14b at full width cut to 8 of its 40 layers on a 1x4 grid and (c)
+# gemma3-1b uncut on a 2x2 grid, each four processes sharing the card over
+# gloo, fed the reference's greedy tokens.  ``b9``: the local (KV, G, D) B9
+# must run at; ``limit``: the logits' limit of max|logit| against the
+# one-process port on the same weights.  gemma3-1b's checkpoint serves (a)
+# and (c); each is written once, into a temporary directory.
+MESH = dict(
+    a=dict(arch="gemma3-1b", layers=None, grid=(1, 1), batch=8, prompt=2048,
+           steps=63, b9=(1, 4, 256), limit=1e-5),
+    c=dict(arch="gemma3-1b", layers=None, grid=(2, 2), batch=8, prompt=512,
+           steps=4, b9=(1, 2, 256), limit=2e-3),
+    b=dict(arch="qwen3-14b", layers=8, grid=(1, 4), batch=4, prompt=512,
+           steps=16, b9=(2, 5, 128), limit=2e-3))
+MESH_DISK_GIB = 18        # qwen3-14b's 8 layers in f32 (16.8 GB), and room
+MESH_TIMEOUT_S = 600.0
+
+
+def fan_in_init(torch, cfg, dev, seed):
+    """Random f32 weights from the seed on ``dev``, each stacked normal
+    weight rescaled in place to std 1/sqrt(fan-in)."""
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.testing.train import fan_in_factors
+    params = TM.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                     torch.float32)
+    with torch.no_grad():
+        for (_, p), (_, f) in zip(tree_leaves(params),
+                                  tree_leaves(fan_in_factors(cfg))):
+            if f != 1.0:
+                p.mul_(f)
+    return params
+
+
+def mesh_reference(torch, cfg, params, tokens, steps):
+    """The one-process port's prefill of ``tokens`` and ``steps`` greedy
+    decode steps, f32: (ids (B, steps + 1), [logits of the prefill and
+    each step]) on the host."""
+    from repro_torch.models import model as TM
+    logits = []
+    with torch.inference_mode():
+        lg, cache, pos = TM.prefill(cfg, params, {"tokens": tokens},
+                                    max_cache_len=tokens.shape[1] + steps,
+                                    dtype=torch.float32)
+        ids = [torch.argmax(lg, -1)]
+        logits.append(lg.cpu())
+        for _ in range(steps):
+            lg, cache = TM.decode_step(cfg, params, cache, ids[-1][:, None],
+                                       pos, dtype=torch.float32)
+            pos = pos + 1
+            ids.append(torch.argmax(lg, -1))
+            logits.append(lg.cpu())
+    del cache
+    return torch.stack(ids, 1).cpu(), logits
+
+
+def restore_grid(cfg, ckpt, mesh):
+    """This rank's blocks of the checkpoint's parameters, by
+    ``param_shardings`` (``restore_resharded``, leaf by leaf)."""
+    from repro_torch.checkpoint import restore_resharded
+    from repro_torch.launch.specs import param_shardings
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import tree_leaves
+    placement = dict(tree_leaves(param_shardings(cfg, mesh)))
+    params, _, _ = restore_resharded(ckpt, TM.abstract_params(cfg),
+                                     placement, mesh)
+    return params
+
+
+def write_checkpoint(params, path) -> str:
+    """``params`` saved once (step 0, the JAX package's format) for the
+    grids to restore; returns the directory."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models.params import tree_leaves
+    t0 = time.perf_counter()
+    save_checkpoint(path, 0, params)
+    nb = sum(t.numel() * t.element_size() for _, t in tree_leaves(params))
+    say(f"  checkpoint of {nb / 1e9:.2f} GB written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return path
+
+
+def _mesh_rank(rank, world, device, store, spec, ckpt, tokens, ref_ids,
+               out_dir):
+    """One rank of (b) or (c), in its own process: a gloo group on
+    ``device`` (four ranks share the card), its blocks restored from the
+    checkpoint; the prefill of the global prompt, then the decode steps
+    fed the reference's tokens, each step's logits gathered over the
+    vocab.  Writes its record to out_dir."""
+    sys.path.insert(0, str(REPO / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.launch.specs import shard_bytes
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import sharded
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.sharding import (collective_counts, local_block,
+                                      reset_collective_counts)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(torch.device(device), backend="gloo",
+                           init_method=f"file://{store}", rank=rank,
+                           world_size=world, timeout_s=MESH_TIMEOUT_S)
+    mesh = make_host_mesh(spec["grid"][1], device=dev)
+    cfg = slots_config(spec)
+    t0 = time.perf_counter()
+    params = restore_grid(cfg, ckpt, mesh)
+    res = dict(rank=rank, data_rank=mesh.data_rank,
+               model_rank=mesh.model_rank, backend=dist.get_backend(),
+               restore_s=time.perf_counter() - t0)
+    b, s = tokens.shape
+    n = spec["steps"]
+    res["param_bytes"] = sum(t.numel() * t.element_size()
+                             for _, t in tree_leaves(params))
+    res["shard_bytes"] = shard_bytes(cfg, ShapeSpec("decode", s + n, b,
+                                                    "decode"), mesh)
+    lay = sharded.GridLayout(cfg, mesh)
+    tokens = tokens.to(dev)
+    rows = local_block(torch.arange(b), lay.rows_spec(b, s)[:1], mesh)
+    fed = ref_ids[rows].to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    logits, coll = [], []
+    with torch.inference_mode():
+        reset_collective_counts()
+        t0 = sync_clock(torch)
+        lg, cache, pos = sharded.prefill(lay, params, {"tokens": tokens},
+                                         max_cache_len=s + n,
+                                         dtype=torch.float32)
+        res["prefill_ms"] = (sync_clock(torch) - t0) * 1e3
+        coll.append(collective_counts())
+        logits.append(sharded.gather_logits(lay, lg).cpu())
+        step_ms = []
+        for t in range(n):
+            reset_collective_counts()
+            t0 = sync_clock(torch)
+            lg, cache = sharded.decode_step(lay, params, cache,
+                                            fed[:, t:t + 1], pos,
+                                            dtype=torch.float32)
+            step_ms.append((sync_clock(torch) - t0) * 1e3)
+            coll.append(collective_counts())
+            logits.append(sharded.gather_logits(lay, lg).cpu())
+            pos = pos + 1
+    res.update(rows=rows, logits=logits, collectives=coll, step_ms=step_ms,
+               peak=torch.cuda.max_memory_allocated(dev),
+               counts=launch_counts(),
+               shapes=launch_counts_by_shape()["flash_decode"],
+               kv_index=None if lay.kv_index is None
+               else lay.kv_index.tolist())
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def per_step(colls) -> str:
+    """Collective calls and bytes a step, by kind, from a list of
+    ``collective_counts`` (one a step)."""
+    kinds = sorted({k for c in colls for k in c})
+    n = len(colls)
+    def mean(k, what):
+        return sum(c.get(k, {}).get(what, 0) for c in colls) / n
+    return ", ".join(f"{k} {mean(k, 'calls'):g} calls / "
+                     f"{mean(k, 'bytes') / 2**20:.3f} MiB"
+                     for k in kinds) or "none"
+
+
+def check_logits(what, got, want, limit):
+    """Every step's logits (this rank's rows) within ``limit`` of
+    max|reference|; returns the worst error so measured."""
+    worst = 0.0
+    for t, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not bool(g.isfinite().all()):
+            fail(f"phase 13 {what}: step {t} logits of shape "
+                 f"{tuple(g.shape)} (want {tuple(w.shape)}) or non-finite")
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        worst = max(worst, err)
+        if not err <= limit:
+            fail(f"phase 13 {what}: step {t} logits {err} of max|logit| > "
+                 f"{limit}")
+    return worst
+
+
+def generate_reference(torch, dev, spec, params, tokens, seed):
+    """(a)'s reference: the one-process ``generate`` of phase 7's run on
+    the same weights: (ids, [logits of each step]) on the host."""
+    from repro_torch.launch.serve import generate
+    cfg, n = slots_config(spec), spec["steps"]
+    ref = []
+    t0 = sync_clock(torch)
+    ids, t_pre, t_dec = generate(
+        cfg, params, tokens, n + 1, logits=ref,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    ref = [lg.cpu() for lg in ref]
+    say(f"  (a) reference, one process: prefill {t_pre * 1e3:.2f} ms, "
+        f"decode {t_dec / n * 1e3:.3f} ms a step "
+        f"({sync_clock(torch) - t0:.1f} s with the logits to the host)")
+    return ids.cpu(), ref
+
+
+def mesh_1x1_grid(torch, dev, spec, tokens, ckpt, tmp, seed, ref_ids, ref):
+    """(a): phase 7's run on a one-rank NCCL grid through generate(mesh=),
+    its blocks restored from the checkpoint, against the reference.
+    Returns the run's launches (total, B9's by shape)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import (launch_counts, launch_counts_by_shape,
+                                     reset_launch_counts)
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.sharding import collective_counts, reset_collective_counts
+    cfg = slots_config(spec)
+    n, (b, s) = spec["steps"], tokens.shape
+    init_distributed(dev, backend="nccl", init_method=f"file://{tmp}/pg_a",
+                     rank=0, world_size=1, timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = make_host_mesh(1, device=dev)
+        t0 = sync_clock(torch)
+        params = restore_grid(cfg, ckpt, mesh)
+        t_restore = sync_clock(torch) - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_collective_counts()
+        got = []
+        ids, t_pre, t_dec = generate(
+            cfg, params, tokens, n + 1, logits=got, mesh=mesh,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        counts, shapes = launch_counts(), launch_counts_by_shape()
+        run_coll = collective_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # one prefill and one decode step again, each counted alone
+        colls = []
+        with torch.inference_mode():
+            reset_collective_counts()
+            lg, cache, pos = make_prefill_step(
+                cfg, s + n, torch.float32, mesh=mesh)(params,
+                                                      {"tokens": tokens})
+            colls.append(collective_counts())
+            reset_collective_counts()
+            make_decode_step(cfg, torch.float32, mesh=mesh)(
+                params, cache, ids[:, :1], pos)
+            colls.append(collective_counts())
+        del cache, lg
+    finally:
+        dist.destroy_process_group()
+    if not torch.equal(ids.cpu(), ref_ids):
+        bad = int((ids.cpu() != ref_ids).sum())
+        fail(f"phase 13 (a): {bad} of {ids.numel()} greedy tokens differ "
+             f"from the one-process reference's")
+    got = [g.cpu() for g in got]
+    worst = check_logits("(a)", got, ref, spec["limit"])
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, ref))
+    b9 = counts["flash_decode"]
+    if b9 != cfg.n_layers * n:
+        fail(f"phase 13 (a): flash_decode launched {b9} times, not "
+             f"{cfg.n_layers} per decode step x {n}")
+    kv, g_, d = spec["b9"]
+    if any(k[2:5] != (kv, g_, d) for k in shapes["flash_decode"]):
+        fail(f"phase 13 (a): B9 at {shapes['flash_decode']}, not at local "
+             f"(KV, G, D) = {spec['b9']}")
+    say(f"  (a) 1x1 grid over NCCL ({cfg.name}, batch {b}, prompt {s}, "
+        f"{n + 1} greedy tokens through generate(mesh=)): restore "
+        f"{t_restore:.2f} s; prefill {t_pre * 1e3:.2f} ms, decode "
+        f"{t_dec / n * 1e3:.3f} ms a step; peak device memory "
+        f"{peak / 2**30:.2f} GiB; tokens equal the reference's; logits "
+        f"within {worst:.3g} of max|logit| (limit {spec['limit']:g}), "
+        f"bitwise equal: {bitwise}")
+    say(f"      B9 {b9 / n:g} launches a decode step, by (B, T, KV, G, D, "
+        f"dtype) {shapes['flash_decode']}; collectives over the run "
+        f"{run_coll}; a prefill: {per_step(colls[:1])}; a decode step: "
+        f"{per_step(colls[1:])}")
+    return counts, shapes["flash_decode"]
+
+
+def mesh_spawned(torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label):
+    """(b) or (c): the grid's ranks spawned on the one card over gloo,
+    each against the one-process reference on its rows.  Returns B9's
+    launches over the ranks (total, by shape)."""
+    import torch.multiprocessing as mp
+    from repro_torch.models import model as TM
+    cfg = slots_config(spec)
+    d, m = spec["grid"]
+    world = d * m
+    out_dir = Path(tmp) / f"ranks_{label}"
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(world, str(dev), f"{tmp}/pg_{label}", spec,
+                               ckpt, tokens.cpu(), ref_ids, str(out_dir)),
+             nprocs=world, join=True)
+    t_spawn = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    kv, g_, dd = spec["b9"]
+    worst = 0.0
+    b, s = tokens.shape
+    n = spec["steps"]
+    for r in ranks:
+        want = [w[r["rows"]] for w in ref]
+        worst = max(worst, check_logits(f"({label}) rank {r['rank']}",
+                                        r["logits"], want, spec["limit"]))
+        if r["param_bytes"] != r["shard_bytes"]["params"]:
+            fail(f"phase 13 ({label}): rank {r['rank']} holds "
+                 f"{r['param_bytes']} parameter bytes, shard_bytes says "
+                 f"{r['shard_bytes']['params']}")
+        b9 = r["counts"]["flash_decode"]
+        if b9 != cfg.n_layers * n:
+            fail(f"phase 13 ({label}): rank {r['rank']} launched B9 {b9} "
+                 f"times, not {cfg.n_layers} a step x {n}")
+        if any(k[0] != b // d or k[2:5] != (kv, g_, dd) for k in r["shapes"]):
+            fail(f"phase 13 ({label}): rank {r['rank']} ran B9 at "
+                 f"{r['shapes']}, not at (B {b // d}, KV {kv}, G {g_}, "
+                 f"D {dd})")
+    r0 = ranks[0]
+    whole = 4 * TM.count_params(cfg)
+    say(f"  ({label}) {d}x{m} grid ({cfg.name}"
+        + (f", {cfg.n_layers} of "
+           f"{slots_config(dict(spec, layers=None)).n_layers} layers"
+           if spec["layers"] else "")
+        + f", batch {b}, prompt {s}, {n} decode steps fed the reference's "
+        f"tokens): {world} processes sharing the one card over "
+        f"{r0['backend']} (host-staged collectives: these times are of ranks "
+        f"sharing one card, not of a grid); spawn to exit {t_spawn:.1f} s, "
+        f"restore {max(r['restore_s'] for r in ranks):.1f} s a rank at most")
+    say(f"      logits within {worst:.3g} of max|logit| on every rank "
+        f"(limit {spec['limit']:g}); parameter bytes a rank "
+        + ", ".join(str(r["param_bytes"]) for r in ranks)
+        + f" = shard_bytes, of {whole} unsharded "
+        f"({r0['param_bytes'] / whole:.4f}); kv heads read "
+        + str([r["kv_index"] for r in ranks]))
+    say(f"      rank 0: prefill {r0['prefill_ms']:.1f} ms, decode "
+        f"{sum(r0['step_ms']) / n:.1f} ms a step; peak device memory a "
+        f"rank " + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+        + f" GiB; B9 {r0['counts']['flash_decode'] / n:g} launches a step "
+        f"a rank, by (B, T, KV, G, D, dtype) {r0['shapes']}")
+    say(f"      collectives a rank: prefill {per_step(r0['collectives'][:1])};"
+        f" a decode step {per_step(r0['collectives'][1:])}")
+    counts = {}
+    shapes = {}
+    for r in ranks:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in r["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + v
+    return counts, shapes
+
+
+def phase_mesh(torch, dev, seed):
+    """Phase 13: the dense LMs on (data, model) grids of ranks, each grid
+    against the one-process port on the same weights (run first, its
+    logits to the host, its memory freed before the grid starts).
+    Returns B9's launches (total, by shape) over the grids."""
+    import shutil
+    import tempfile
+    say(f"== phase 13: the dense LMs served on (data, model) grids of ranks "
+        f"(f32, seeded random weights at std 1/sqrt(fan-in)) ({card_line()})")
+    t_start = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        check_disk(tmp, MESH_DISK_GIB, "phase 13")
+        # gemma3-1b: (a) and (c)'s references, then one checkpoint for both
+        a, c = MESH["a"], MESH["c"]
+        cfg = slots_config(a)
+        gen = torch.Generator(device=dev).manual_seed(seed + 13)
+        tok_a = torch.randint(0, cfg.vocab_size, (a["batch"], a["prompt"]),
+                              generator=gen, device=dev)
+        tok_c = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt"]),
+                              generator=gen, device=dev)
+        params = fan_in_init(torch, cfg, dev, seed)
+        ref_a = generate_reference(torch, dev, a, params, tok_a, seed)
+        t0 = sync_clock(torch)
+        ref_c = mesh_reference(torch, cfg, params, tok_c, c["steps"])
+        say(f"  (c) reference, one process: {sync_clock(torch) - t0:.2f} s")
+        ckpt = write_checkpoint(params, f"{tmp}/{cfg.name}")
+        del params
+        torch.cuda.empty_cache()
+        out["a"] = mesh_1x1_grid(torch, dev, a, tok_a, ckpt, tmp, seed,
+                                 *ref_a)
+        del ref_a
+        torch.cuda.empty_cache()
+        out["c"] = mesh_spawned(torch, dev, c, tok_c, ckpt, tmp, *ref_c,
+                                "c")
+        shutil.rmtree(ckpt)
+        # qwen3-14b, 8 of its 40 layers
+        b = MESH["b"]
+        cfg = slots_config(b)
+        tok_b = torch.randint(0, cfg.vocab_size, (b["batch"], b["prompt"]),
+                              generator=gen, device=dev)
+        params = fan_in_init(torch, cfg, dev, seed)
+        t0 = sync_clock(torch)
+        ref_b = mesh_reference(torch, cfg, params, tok_b, b["steps"])
+        say(f"  (b) reference, one process: {sync_clock(torch) - t0:.2f} s")
+        ckpt = write_checkpoint(params, f"{tmp}/{cfg.name}")
+        del params
+        torch.cuda.empty_cache()
+        out["b"] = mesh_spawned(torch, dev, b, tok_b, ckpt, tmp, *ref_b, "b")
+    total, shapes = {}, {}
+    for counts, by_shape in out.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in by_shape.items():
+            shapes[k] = shapes.get(k, 0) + v
+    say(f"  phase 13 {time.perf_counter() - t_start:.1f} s; B9 launches "
+        f"over the grids {total.get('flash_decode', 0)}")
+    return total, shapes
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
                 lm_counts, serving, tables, sharded, train_counts, slots,
-                seed):
+                mesh, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import bin_readout_cuda
     from repro_torch.kernels.binning.ops import _beta_to_layout
@@ -4359,6 +4829,11 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
                 torch, data[0].device, seed,
                 slots_shapes.get("flash_decode", {}), label="phase 12"),
             lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
+    mesh_counts, mesh_shapes = mesh
+    extra["flash_decode"]["mesh_by_shape"] = by_shape_entries(
+        mesh_shapes, decode_serve_times(torch, data[0].device, seed,
+                                        mesh_shapes, label="phase 13"),
+        lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
     decode_long_times(torch, data[0].device, seed)
     serve_graph_times(torch, serving)
     for name in SERVE_KERNELS:
@@ -4391,6 +4866,7 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         entries[-1].update(extra.get(name, {}))
         entries[-1]["train_launches"] = train_counts[name]
         entries[-1]["lm_slots_launches"] = slots_counts.get(name, 0)
+        entries[-1]["mesh_launches"] = mesh_counts.get(name, 0)
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}; {launches[name]} "
@@ -4415,6 +4891,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.data import make_regression
+    MAIN.update(krr_sizes(torch))
 
     t_start = time.perf_counter()
     phase_build(torch)
@@ -4442,9 +4919,10 @@ def main(argv=None) -> int:
     dist.destroy_process_group()
     train_counts = phase_train(torch, dev, args.seed)
     slots = phase_lm_slots(torch, dev, args.seed)
+    mesh = phase_mesh(torch, dev, args.seed)
     entries = phase_times(torch, data, model, counts, errs, dist_state,
                           lm_counts, serving, tables, sharded, train_counts,
-                          slots, args.seed)
+                          slots, mesh, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

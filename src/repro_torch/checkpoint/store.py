@@ -20,17 +20,21 @@ and runs the file write on a worker thread.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
+import struct
 import threading
 import time
+import zipfile
 from typing import Any
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..sharding import local_block, spec_axis
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -194,6 +198,48 @@ def restore_like(directory: str, template: Any, step: int | None = None):
 PLACEMENT_AXES = ("model", "data")
 
 
+class _Members:
+    """The arrays of an ``arrays.npz``, read one at a time: a member stored
+    without compression (``np.savez``'s) is memory-mapped, so a rank's
+    block of it reads only that block's pages; a compressed one is read
+    whole."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._zip = zipfile.ZipFile(path)
+        self.files = {n[:-4] for n in self._zip.namelist()
+                      if n.endswith(".npy")}
+
+    _HEADERS = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        info = self._zip.getinfo(key + ".npy")
+        header = None
+        if info.compress_type == zipfile.ZIP_STORED:
+            with open(self.path, "rb") as fh:
+                fh.seek(info.header_offset)
+                head = fh.read(30)              # the local file header
+                if head[:4] != b"PK\x03\x04":
+                    raise ValueError(f"{self.path}: {key} has no local "
+                                     f"file header")
+                name_len, extra_len = struct.unpack("<HH", head[26:30])
+                fh.seek(info.header_offset + 30 + name_len + extra_len)
+                read = self._HEADERS.get(np.lib.format.read_magic(fh))
+                if read is not None:
+                    header = read(fh) + (fh.tell(),)
+        if header is None or header[2].hasobject or math.prod(
+                header[0]) <= 1:
+            with self._zip.open(info) as fh:
+                return np.lib.format.read_array(fh)
+        shape, fortran, dtype, offset = header
+        return np.memmap(self.path, dtype=dtype, mode="r", offset=offset,
+                         shape=shape, order="F" if fortran else "C")
+
+    def close(self) -> None:
+        self._zip.close()
+
+
 def _map_leaves(tree: Any, fn, path: str = "") -> Any:
     """``tree``'s structure with each leaf replaced by fn(keystr path,
     leaf)."""
@@ -215,47 +261,67 @@ def _map_leaves(tree: Any, fn, path: str = "") -> Any:
 def restore_resharded(directory: str, template: Any, placement: dict,
                       mesh, step: int | None = None):
     """Elastic restore onto this rank of a (model, data) grid: every leaf
-    comes back as this rank's slice of it, on ``mesh.device``, whatever
+    comes back as this rank's block of it, on ``mesh.device``, whatever
     grid (or single host) wrote the checkpoint.  ``placement`` maps a
     leaf's keystr path (``"['tables']"``, ``".lsh.w"``) to its spec, one
-    entry per leading dimension: ``"model"`` (cut into ``mesh.model``
-    parts, mine at ``mesh.model_rank``), ``"data"`` (``mesh.data`` parts at
-    ``mesh.data_rank``) or None; a leaf it does not name is replicated.
-    The JAX package places leaves by JAX shardings; this is the same
-    P(model, data) cut, taken by each rank for itself.  Returns
-    (state, step, meta) with tensor leaves."""
+    entry per dimension from the first (fewer entries leave the trailing
+    dimensions whole): ``"model"`` (cut into ``mesh.model`` parts, mine at
+    ``mesh.model_rank``), ``"data"`` or a tuple of the data axes such as
+    ``("pod", "data")`` (the linear data axis: ``mesh.data`` parts at
+    ``mesh.data_rank``), or None; a leaf it does not name is replicated.
+    So the spec trees of ``launch.specs`` (``param_shardings``, flattened
+    by path) place an LM's leaves.  The JAX package places leaves by JAX
+    shardings; this is the same cut, taken by each rank for itself.  The
+    leaves are read one at a time, each memory-mapped from the file, so a
+    rank reads its blocks' pages and the host holds one block at once.
+    Returns (state, step, meta) with tensor leaves."""
     paths = {p for p, _ in _walk(template, "")}
     unknown = sorted(set(placement) - paths)
     if unknown:
         raise KeyError(f"placement names no leaf of the template: {unknown}")
-    state, step, meta = restore_checkpoint(directory, template, step)
-    parts = {"model": (mesh.model, mesh.model_rank),
-             "data": (mesh.data, mesh.data_rank)}
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoint under {directory}")
+    path = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(path, "meta.json")) as fh:
+        meta = json.load(fh)
 
-    def place(path, arr):
-        arr = np.asarray(arr)
-        spec = tuple(placement.get(path) or ())
+    def place(leaf, arr):
+        spec = tuple(placement.get(leaf) or ())
         if len(spec) > arr.ndim:
-            raise ValueError(f"{path}: spec {spec} has more entries than "
+            raise ValueError(f"{leaf}: spec {spec} has more entries than "
                              f"its {arr.ndim} dimensions")
-        for dim, axis in enumerate(spec):
-            if axis is None:
-                continue
-            if axis not in parts:
-                raise ValueError(f"{path}: unknown axis {axis!r}; expected "
-                                 f"one of {PLACEMENT_AXES} or None")
-            count, index = parts[axis]
-            size = arr.shape[dim]
-            if size % count:
-                raise ValueError(f"{path}: dimension {dim} of size {size} "
-                                 f"does not split into {count} {axis} "
-                                 f"shards")
-            step_ = size // count
-            arr = arr[(slice(None),) * dim
-                      + (slice(index * step_, (index + 1) * step_),)]
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(mesh.device)
+        for axis in spec:
+            try:
+                if axis is not None:
+                    spec_axis(axis)
+            except ValueError:
+                raise ValueError(f"{leaf}: unknown axis {axis!r}; expected "
+                                 f"one of {PLACEMENT_AXES}, the data axes "
+                                 f"('pod', 'data') or None") from None
+        try:
+            block = local_block(arr, spec, mesh)
+        except ValueError as e:
+            raise ValueError(f"{leaf}: {e}") from None
+        # a copy: the block is read out of the file's map here
+        return torch.from_numpy(np.array(block, order="C")).to(mesh.device)
 
-    return _map_leaves(state, place), step, meta
+    with obs.span("io.checkpoint_restore", {"step": step},
+                  to_histogram=obs.histogram(
+                      "io_checkpoint_restore_us",
+                      "checkpoint restore wall time")):
+        npz = _Members(os.path.join(path, "arrays.npz"))
+        try:
+            # _unflatten checks the leaf's shape (a missing one raises)
+            state = _map_leaves(template, lambda leaf, t: place(
+                leaf, _unflatten(t, {leaf: npz[leaf]} if leaf in npz.files
+                                 else {}, leaf)))
+        finally:
+            npz.close()
+        obs.counter("io_checkpoint_restores_total",
+                    "checkpoints restored from disk").inc()
+    return state, step, meta
 
 
 class CheckpointManager:

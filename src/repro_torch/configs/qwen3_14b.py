@@ -2,7 +2,7 @@
 
 40 heads is NOT divisible by the 16-way model axis: the sharding rules engine
 falls back (heads unsharded in compute; head_dim sharded for param storage) —
-see repro/sharding.py and DESIGN.md §6.
+see ``repro_torch.sharding`` and DESIGN.md §6.
 """
 from .base import LayerSpec, ModelConfig
 

@@ -14,6 +14,8 @@ stack's parameter and decode-cache trees (nested dicts of arrays, the stacked
 group axis first) and give tensor trees with the same keys;
 ``adamw_state_from_reference`` takes the JAX package's ``AdamWState`` (step,
 m, v), so a JAX train state continues in the port's train step.
+``local_lm_params`` cuts the JAX package's LM parameters into one rank's
+blocks of a (data, model) grid, by ``launch.specs.param_shardings``.
 """
 from __future__ import annotations
 
@@ -86,6 +88,31 @@ def lm_params_from_reference(params, device=None) -> dict:
     """The port's LM parameter tree from the JAX package's (``model.init``),
     on ``device``."""
     return _tensor_tree(params, resolve_device(device))
+
+
+def local_lm_params(reference_params, cfg, mesh, dtype=torch.float32,
+                    device=None) -> dict:
+    """This rank of ``mesh``'s blocks of the JAX package's LM parameters
+    (nested dicts of arrays, as ``model.init`` gives them), laid out by
+    ``param_shardings(cfg, mesh)``: each leaf is cut on the host and only
+    its block goes to ``device`` in ``dtype``, one leaf at a time, so no
+    rank holds the whole model on its device."""
+    from .launch.specs import param_shardings
+    from .sharding import local_block
+    dev = resolve_device(device)
+
+    def one(ref, spec):
+        a = np.asarray(ref)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        block = np.array(local_block(a, spec, mesh))     # a copy
+        return torch.from_numpy(block).to(device=dev, dtype=dtype)
+
+    def walk(ref, spec):
+        if isinstance(spec, dict):
+            return {k: walk(ref[k], spec[k]) for k in spec}
+        return one(ref, spec)
+    return walk(reference_params, param_shardings(cfg, mesh))
 
 
 def lm_cache_from_reference(cache, device=None) -> dict:

@@ -14,7 +14,13 @@ model) sit where ``make_host_mesh`` puts them, at data index
 index over its data axes (``_axes_linear_index``), and the JAX step's
 collectives over both data axes are the data group's.  So a (pods, data)
 grid is ``make_host_mesh`` over pods x data x model ranks; nothing reads
-the pod index apart.
+the pod index apart.  The sharding rules see the grid through
+``Mesh.axis_sizes`` (``{"data", "model"}``), where a ``("pod", "data")``
+candidate resolves as the linear data axis.  The LM step
+(``models.sharded``) uses the same two groups: the data group for the FSDP
+gathers of ``embed`` and a batch's rows, the model group for the
+column/row-parallel products, the vocab-parallel table and the cross-rank
+argmax.
 
 ``init_distributed`` joins the process group: from ``torchrun``'s
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
@@ -90,6 +96,12 @@ class Mesh(NamedTuple):
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    @property
+    def axis_sizes(self) -> dict[str, int]:
+        """The grid's axis sizes as the sharding rules read them
+        (``sharding.spec_for``): one linear data axis and the model axis."""
+        return {"data": self.data, "model": self.model}
 
 
 def make_host_mesh(model_parallel: int = 1, *, device=None) -> Mesh:

@@ -1,14 +1,15 @@
-"""Abstract inputs and useful-FLOP accounting for every (architecture x
-shape) cell.  The port of ``repro.launch.specs``, without its XLA parts.
+"""Abstract inputs, their layouts over a grid, and useful-FLOP accounting
+for every (architecture x shape) cell.  The port of ``repro.launch.specs``,
+without its XLA parts.
 
 ``batch_specs`` and ``decode_specs`` give ``device="meta"`` tensors, the
 PyTorch counterpart of ``jax.ShapeDtypeStruct``: shape and dtype, no
-storage.  ``useful_flops`` is the model-FLOP numerator of a roofline share.
-
-The JAX module's ``*_shardings`` functions (``batch_shardings``,
-``param_shardings``, ``cache_shardings``, ``scalar_sharding``,
-``vec_sharding``) and ``batch_axes`` have no counterpart: the port runs the
-LM on one card and shards nothing (ROADMAP, beside ``sharding.py``).
+storage.  ``batch_shardings``, ``param_shardings`` and ``cache_shardings``
+give the spec tree (``repro_torch.sharding.spec_for``'s entries per dim)
+that lays each leaf out over a mesh, as the JAX functions give their
+``NamedSharding`` trees; ``models.sharded`` serves the dense LMs by them on
+a (data, model) grid of ranks, and ``shard_bytes`` is the bytes one rank
+holds.  ``useful_flops`` is the model-FLOP numerator of a roofline share.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 from ..configs.base import ModelConfig, ShapeSpec
 from ..models import model
 from ..models.mamba2 import mamba2_dims
-from ..models.params import tree_leaves
+from ..models.params import tree_leaves, tree_map
+from ..sharding import local_shape, spec_for, tree_shardings
 
 META = torch.device("meta")
 
@@ -46,6 +48,17 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSpec,
     return specs
 
 
+def batch_axes(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    axes = {"tokens": ("batch", None)}
+    if shape.kind == "train":
+        axes["labels"] = ("batch", None)
+    if cfg.encoder is not None:
+        axes["frames"] = ("batch", None, None)
+    elif cfg.cross_attn_source_len:
+        axes["patches"] = ("batch", None, None)
+    return axes
+
+
 def decode_specs(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16):
     """(cache, tokens (B,1), pos (B,)) meta tensors of a decode cell.  The
     cache is ``model.init_cache``'s: its recurrent states float32, as the
@@ -55,6 +68,81 @@ def decode_specs(cfg: ModelConfig, shape: ShapeSpec, dtype=torch.bfloat16):
     cache = model.init_cache(cfg, b, s, dtype, device=META)
     return (cache, torch.empty((b, 1), dtype=torch.int32, device=META),
             torch.empty((b,), dtype=torch.int32, device=META))
+
+
+# ---------------------------------------------------------------------------
+# layouts over a mesh (spec trees; a mesh is a dict of axis sizes or a
+# launch.mesh.Mesh)
+# ---------------------------------------------------------------------------
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                    dtype=torch.bfloat16) -> dict:
+    return tree_shardings(batch_axes(cfg, shape),
+                          batch_specs(cfg, shape, dtype), mesh)
+
+
+def param_shardings(cfg: ModelConfig, mesh, dtype=torch.float32) -> dict:
+    return tree_shardings(model.param_axes(cfg),
+                          model.abstract_params(cfg, dtype), mesh)
+
+
+def cache_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                    dtype=torch.bfloat16) -> dict:
+    b, s = shape.global_batch, shape.seq_len
+    return tree_shardings(model.cache_axes(cfg, b, s),
+                          model.abstract_cache(cfg, b, s, dtype), mesh)
+
+
+def scalar_sharding(mesh, axes=()):
+    return spec_for(axes, (1,) * len(axes), mesh)
+
+
+def vec_sharding(mesh, shape, axes):
+    return spec_for(axes, shape, mesh)
+
+
+def _local_bytes(tree, spec_tree, mesh) -> int:
+    """Bytes of one rank's blocks of a meta-tensor tree laid out by
+    ``spec_tree``."""
+    sizes = tree_map(lambda t, spec: math.prod(local_shape(
+        t.shape, spec, mesh)) * t.element_size(), tree, spec_tree)
+    return sum(n for _, n in tree_leaves(sizes))
+
+
+def shard_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                param_dtype=torch.float32,
+                cache_dtype=torch.float32) -> dict[str, int]:
+    """The bytes one rank of ``mesh`` holds for a cell, from the local
+    shapes of meta tensors (no process group, no storage): the parameters
+    in ``param_dtype``; for a train cell the float32 AdamW state (m and v,
+    laid out as the parameters; its step counter is a replicated int32);
+    for prefill and decode the decode cache (``init_cache``'s dtypes with
+    ``cache_dtype``); the batch (a decode cell's tokens (B, 1) and positions
+    (B,)); and their total.  The memory columns of the JAX dry run
+    (argument bytes a device), without its compiler's temporaries."""
+    params = model.abstract_params(cfg, param_dtype)
+    pspec = tree_shardings(model.param_axes(cfg), params, mesh)
+    out = {"params": _local_bytes(params, pspec, mesh)}
+    if shape.kind == "train":
+        f32 = model.abstract_params(cfg, torch.float32)
+        out["opt_state"] = 2 * _local_bytes(f32, pspec, mesh) + 4
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        tok = spec_for(("batch", None), (b, 1), mesh)
+        pos = spec_for(("batch",), (b,), mesh)
+        out["batch"] = 4 * (math.prod(local_shape((b, 1), tok, mesh))
+                            + math.prod(local_shape((b,), pos, mesh)))
+    else:
+        batch = batch_specs(cfg, shape, cache_dtype)
+        out["batch"] = _local_bytes(
+            batch, tree_shardings(batch_axes(cfg, shape), batch, mesh), mesh)
+    if shape.kind != "train":
+        cache = model.abstract_cache(cfg, b, s, cache_dtype)
+        out["cache"] = _local_bytes(
+            cache, tree_shardings(model.cache_axes(cfg, b, s), cache, mesh),
+            mesh)
+    out["total"] = sum(out.values())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..models import model
+from ..models import model, sharded
 from ..models.params import tree_map
 from ..optim import AdamWConfig, adamw_init, adamw_update
 
@@ -80,17 +80,39 @@ def make_eval_step(cfg: ModelConfig, dtype=torch.bfloat16):
 
 
 def make_prefill_step(cfg: ModelConfig, max_cache_len: int = 0,
-                      dtype=torch.bfloat16):
-    """(params, batch) -> (last-token logits, cache, pos)."""
+                      dtype=torch.bfloat16, mesh=None):
+    """(params, batch) -> (last-token logits, cache, pos).  With ``mesh``
+    the step runs on that grid of ranks (``models.sharded.prefill``, its
+    layout built once here): this rank's parameter blocks and the global
+    batch in, its rows' logits over its vocab range, its cache blocks and
+    positions out."""
+    if mesh is not None:
+        lay = sharded.GridLayout(cfg, mesh)
+
+        def grid_step(params, batch):
+            return sharded.prefill(lay, params, batch,
+                                   max_cache_len=max_cache_len, dtype=dtype)
+        return grid_step
+
     def step(params, batch):
         return model.prefill(cfg, params, batch, max_cache_len=max_cache_len,
                              dtype=dtype)
     return step
 
 
-def make_decode_step(cfg: ModelConfig, dtype=torch.bfloat16):
+def make_decode_step(cfg: ModelConfig, dtype=torch.bfloat16, mesh=None):
     """(params, cache, tokens (B,1), pos (B,)) -> (logits, cache); the cache
-    is updated in place."""
+    is updated in place.  With ``mesh``, on that grid
+    (``models.sharded.decode_step``): this rank's rows' tokens and
+    positions and its ``ShardedCache``."""
+    if mesh is not None:
+        lay = sharded.GridLayout(cfg, mesh)
+
+        def grid_step(params, cache, tokens, pos):
+            return sharded.decode_step(lay, params, cache, tokens, pos,
+                                       dtype=dtype)
+        return grid_step
+
     def step(params, cache, tokens, pos):
         return model.decode_step(cfg, params, cache, tokens, pos, dtype=dtype)
     return step

@@ -15,6 +15,13 @@ min(T, W) cache rows; the new token is written at ``pos % Tc`` and validity is
 rebuilt from ``pos`` (all rows valid once the ring has wrapped).  The port
 writes the new row into the caller's cache in place (``index_put_``); the
 JAX function returns a new cache.
+
+On a (data, model) grid (``models.sharded``) the functions run on one
+rank's heads: the head count is ``params["wq"].shape[1]``, and
+``kv_heads`` names, by index into the computed kv heads, the ones the local
+query heads read where the rank's query heads do not own whole kv heads (one
+kv head for the rank, or one a query head): the caches keep every kv head
+the rank computes.
 """
 from __future__ import annotations
 
@@ -89,12 +96,15 @@ def multihead_attention(params: dict, x: Tensor, kv_src: Tensor, *,
                         window: int = 0, softcap: float = 0.0,
                         qk_norm: bool = False, rope_theta: float = 0.0,
                         q_chunk: int = 512, norm_eps: float = 1e-5,
-                        return_kv: bool = False):
+                        return_kv: bool = False,
+                        kv_heads: Tensor | None = None):
     """Full-sequence attention (prefill).
 
     x (B,S,Dm) queries source; kv_src (B,T,Dm) keys/values source.
     rope_theta == 0 disables RoPE.  Queries go in chunks of ``q_chunk``
-    rows, so the scores held at once are (B, H, q_chunk, T).
+    rows, so the scores held at once are (B, H, q_chunk, T).  ``kv_heads``
+    (int64 indices into the computed kv heads) picks the kv heads the
+    query heads group over; the returned keys and values are all of them.
     """
     dt = x.dtype
     b, s, _ = x.shape
@@ -110,6 +120,8 @@ def multihead_attention(params: dict, x: Tensor, kv_src: Tensor, *,
         q = apply_rope(q, q_pos, rope_theta)
         k = apply_rope(k, k_pos[None, :].expand(b, -1), rope_theta)
     kv = (k, v)
+    if kv_heads is not None:
+        k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
     kf = _expand_kv(k, n_heads)
     vf = _expand_kv(v, n_heads)
 
@@ -136,13 +148,15 @@ def ring_valid(pos: Tensor, tc: int) -> Tensor:
 def decode_attention(params: dict, x: Tensor, cache_k: Tensor,
                      cache_v: Tensor, *, pos: Tensor, softcap: float = 0.0,
                      qk_norm: bool = False, rope_theta: float = 0.0,
-                     norm_eps: float = 1e-5) -> Tensor:
+                     norm_eps: float = 1e-5,
+                     kv_heads: Tensor | None = None) -> Tensor:
     """One-token decode against a ring-buffer KV cache.
 
     x (B,1,Dm); cache_{k,v} (B,Tc,KV,D); pos (B,) absolute position of the new
     token.  Tc == window for sliding-window layers, == max seq for global ones.
     Writes the new key and value into row ``pos % Tc`` of the caches IN PLACE
-    and returns y (B,1,Dm).
+    and returns y (B,1,Dm).  ``kv_heads`` (int64 indices into the cache's kv
+    heads) picks the ones the query heads group over.
     """
     dt = x.dtype
     b = x.shape[0]
@@ -163,6 +177,9 @@ def decode_attention(params: dict, x: Tensor, cache_k: Tensor,
     cache_k.index_put_((bidx, widx), k_new[:, 0].to(cache_k.dtype))
     cache_v.index_put_((bidx, widx), v_new[:, 0].to(cache_v.dtype))
 
+    if kv_heads is not None:
+        cache_k = cache_k.index_select(2, kv_heads)
+        cache_v = cache_v.index_select(2, kv_heads)
     # positions are implicit in the rotated keys; ring rows are all in-window
     # by construction, so the mask is pure validity
     out = decode_attend_op(q[:, 0], cache_k, cache_v, ring_valid(pos, tc),

@@ -43,7 +43,8 @@ from .attention import (attn_specs, cross_decode_attention, decode_attention,
 from .layers import (embed_specs, mlp, mlp_specs, rmsnorm, rmsnorm_specs,
                      sinusoidal_positions)
 from .moe import moe_ffn, moe_specs
-from .params import ParamSpec, init_params, stack_specs, tree_map
+from .params import (ParamSpec, abstract, axes_tree, init_params,
+                     stack_specs, tree_map)
 from .params import count_params as _count_specs
 
 Tensor = torch.Tensor
@@ -134,6 +135,16 @@ def init(cfg: ModelConfig, generator: torch.Generator, dtype=torch.float32):
     return init_params(param_specs(cfg), generator, dtype)
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    """The parameter tree as meta tensors: shapes and dtype, no storage."""
+    return abstract(param_specs(cfg), dtype)
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of every parameter (``repro_torch.sharding``)."""
+    return axes_tree(param_specs(cfg))
+
+
 # ---------------------------------------------------------------------------
 # cache specs
 # ---------------------------------------------------------------------------
@@ -199,6 +210,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
         s.shape, dtype=torch.float32 if name in F32_STATES else dtype,
         device=device) for name, s in specs.items()}
         for slot, specs in cache_specs(cfg, batch, seq_len).items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                   dtype=torch.float32):
+    """``init_cache``'s tree as meta tensors (the recurrent states float32,
+    as there)."""
+    return init_cache(cfg, batch, seq_len, dtype, device="meta")
+
+
+def cache_axes(cfg: ModelConfig, batch: int, seq_len: int):
+    """The logical axes of every decode-cache leaf."""
+    return axes_tree(cache_specs(cfg, batch, seq_len))
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +413,7 @@ def _cross_source(cfg: ModelConfig, params: dict, batch: dict[str, Tensor],
 
 def forward(cfg: ModelConfig, params: dict, batch: dict[str, Tensor], *,
             emit_cache: bool = False, max_cache_len: int = 0,
-            dtype=torch.bfloat16):
+            dtype=torch.bfloat16, mesh=None):
     """Full-sequence forward.  Returns (hidden (B,S,D), aux, caches); aux is
     the MoE auxiliary loss summed over slots and groups, a float32 scalar
     (zero without MoE slots).  ``batch`` holds ``tokens`` and, for whisper,
@@ -398,7 +421,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict[str, Tensor], *,
 
     ``max_cache_len`` sizes the emitted decode caches (>= prompt length +
     planned decode steps); defaults to the prompt length.
+
+    With ``mesh`` (a ``launch.mesh.Mesh``) the forward runs on that grid of
+    ranks (``models.sharded``): ``params`` are this rank's blocks, the
+    batch is global, and the hidden rows and caches this rank's.
     """
+    if mesh is not None:
+        from . import sharded
+        return sharded.forward(sharded.GridLayout(cfg, mesh), params, batch,
+                               emit_cache=emit_cache,
+                               max_cache_len=max_cache_len, dtype=dtype)
     tokens = batch["tokens"]
     params = cast_params(params, dtype)
     b, s = tokens.shape
@@ -493,8 +525,15 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict[str, Tensor], *,
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict[str, Tensor], *,
-            max_cache_len: int = 0, dtype=torch.bfloat16):
-    """Returns (last-token logits (B,V) f32, caches, pos (B,) int32)."""
+            max_cache_len: int = 0, dtype=torch.bfloat16, mesh=None):
+    """Returns (last-token logits (B,V) f32, caches, pos (B,) int32).  With
+    ``mesh``, on that grid (``models.sharded.prefill``): this rank's
+    blocks of the parameters and the global batch in; its rows' logits over
+    its vocab range, its cache blocks and its rows' positions out."""
+    if mesh is not None:
+        from . import sharded
+        return sharded.prefill(sharded.GridLayout(cfg, mesh), params, batch,
+                               max_cache_len=max_cache_len, dtype=dtype)
     h, _, caches = forward(cfg, params, batch, emit_cache=True,
                            max_cache_len=max_cache_len, dtype=dtype)
     logits = h[:, -1].float() @ _logit_table(cfg, params).float().T
@@ -561,12 +600,19 @@ def _apply_slot_decode(cfg: ModelConfig, slot: LayerSpec, sp: dict,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: Tensor,
-                pos: Tensor, *, dtype=torch.bfloat16):
+                pos: Tensor, *, dtype=torch.bfloat16, mesh=None):
     """One serving step: tokens (B,1) int, pos (B,) absolute positions.
     Returns (logits (B,V) f32, cache).  The cache is updated IN PLACE (the
     new token's keys and values written into their ring rows, the recurrent
     states overwritten) and returned as the same object; clone it first to
-    keep the old state."""
+    keep the old state.  With ``mesh``, on that grid
+    (``models.sharded.decode_step``): this rank's parameter blocks, its
+    ``ShardedCache`` from the grid's prefill and its rows' tokens and
+    positions."""
+    if mesh is not None:
+        from . import sharded
+        return sharded.decode_step(sharded.GridLayout(cfg, mesh), params,
+                                   cache, tokens, pos, dtype=dtype)
     params = cast_params(params, dtype)
     h = _embed_tokens(cfg, params, tokens, pos[:, None], dtype)
     shared = params.get("shared")

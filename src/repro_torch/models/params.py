@@ -5,8 +5,9 @@ The port keeps the JAX package's shapes and scales (``repro.models.params``)
 but draws its numbers from an explicit ``torch.Generator``: the same seed
 gives other values than ``jax.random``, so tests that compare the two
 packages convert the JAX parameters (``repro_torch.convert``).  The logical
-axes are kept so a spec reads like its counterpart; the port runs on one card
-and shards nothing.
+axes lay the tree out over a (data, model) grid of ranks: ``axes_tree`` gives
+them to ``repro_torch.sharding``, and ``abstract`` the shapes as meta
+tensors, so a layout is computed without allocating.
 """
 from __future__ import annotations
 
@@ -63,6 +64,18 @@ def init_params(specs: Any, generator: torch.Generator,
         return {k: init_params(specs[k], generator, dtype)
                 for k in sorted(specs)}
     return specs.initializer(generator, dtype)
+
+
+def abstract(specs: Any, dtype=torch.float32) -> Any:
+    """The spec tree as meta tensors (shape and dtype, no storage): the
+    counterpart of the JAX package's ``ShapeDtypeStruct`` tree."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), specs)
+
+
+def axes_tree(specs: Any) -> Any:
+    """The logical axes of each spec, as a tree of tuples."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 def stack_specs(spec_tree: Any, n: int) -> Any:

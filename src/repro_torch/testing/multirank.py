@@ -9,7 +9,9 @@ jobs in order and returns each rank's results; ``assemble`` puts the
 per-rank pieces back together into global arrays.  A ``serve`` job runs
 every sharded-serving check of one grid in the same spawn
 (``_serve_job``): rank 0 drives the ``ShardedPredictor`` sessions and
-records what it served, the other ranks run the worker loop.
+records what it served, the other ranks run the worker loop.  An ``lm``
+job serves the dense LMs on the grid (``_lm_job``): each rank's prefill
+and decode logits, its parameter bytes and the collectives of a step.
 """
 from __future__ import annotations
 
@@ -59,16 +61,23 @@ def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
                            rank=rank, world_size=world_size, backend=backend,
                            timeout_s=timeout_s)
     mesh = make_host_mesh(model_parallel, device=dev)
-    lsh = local_lsh(mesh, lsh_params_from_numpy(
-        inputs["w"], inputs["z"], inputs["r1"], inputs["r2"], "cpu"))
-    x, y, xq = (local_tensor(mesh, inputs[k]) for k in ("x", "y", "xq"))
+    if "w" in inputs:
+        lsh = local_lsh(mesh, lsh_params_from_numpy(
+            inputs["w"], inputs["z"], inputs["r1"], inputs["r2"], "cpu"))
+        x, y, xq = (local_tensor(mesh, inputs[k]) for k in ("x", "y", "xq"))
     out = {"data_rank": mesh.data_rank, "model_rank": mesh.model_rank}
     for name, spec in jobs:
+        if spec["mode"] == "lm":
+            out[name] = _lm_job(mesh, spec)
+            continue
+        if spec["mode"] == "serve_cli":
+            out[name] = _cli_job("serve", spec["argv"])
+            continue
         if spec["mode"] == "serve":
             out[name] = _serve_job(mesh, spec)
             continue
         if spec["mode"] == "krr_serve":
-            out[name] = _krr_serve_job(spec["argv"])
+            out[name] = _cli_job("krr_serve", spec["argv"])
             continue
         if spec["mode"] == "serve_rows":
             out[name] = _serve_rows_job(mesh, spec)
@@ -106,6 +115,93 @@ def _run(mesh, spec, f, x, y, xq, lsh) -> dict:
             with_stats=True, dedup=dedup)(xq, lsh, table)
         res[f"pred_dedup{int(dedup)}"] = pred
         res[f"pred_dropped{int(dedup)}"] = dropped
+    return res
+
+
+def _lm_job(mesh, spec) -> dict:
+    """The dense LMs on this grid.  ``spec['cases']``: dicts of 'cfg', the
+    global numpy 'params', 'tokens' (B, S), the decode steps' tokens
+    'steps' (B, n), 'max_cache_len' and 'gen'.  For each case: this
+    rank's rows of the forward's hidden states ('hidden', through
+    ``model.forward(mesh=)``), of the prefill and of each decode step's
+    logits, gathered
+    over the vocab ('prefill', 'decode'), its rows ('rows'), its parameter
+    bytes, its cache blocks' shapes, the kv heads its query heads read, the
+    collectives of the prefill and of each step, ``generate``'s global ids
+    over 'gen' tokens and its own logits.  Also the ranks of the
+    two groups, the cross-rank argmax of ``spec['ties']`` (global (B, V)
+    logits with planted ties across vocab blocks, cut by
+    ``spec['ckpt_case']``'s layout), and the blocks ``restore_resharded``
+    gives by ``param_shardings`` from ``spec['ckpt']``, a checkpoint of
+    that case's parameters, and whether they are exactly
+    ``local_lm_params``' blocks."""
+    from ..convert import local_lm_params
+    from ..launch.serve import generate
+    from ..launch.specs import param_shardings
+    from ..models import model as TM
+    from ..models import sharded
+    from ..models.params import tree_leaves, tree_map
+    from ..sharding import (collective_counts, local_block,
+                            reset_collective_counts)
+    res = {"groups": (dist.get_process_group_ranks(mesh.data_group),
+                      dist.get_process_group_ranks(mesh.model_group)),
+           "cases": {}}
+    for case in spec["cases"]:
+        cfg = case["cfg"]
+        lay = sharded.GridLayout(cfg, mesh)
+        params = local_lm_params(case["params"], cfg, mesh, device="cpu")
+        tokens = torch.from_numpy(case["tokens"]).long()
+        steps = torch.from_numpy(case["steps"]).long()
+        b, s = tokens.shape
+        rows = local_block(np.arange(b), lay.rows_spec(b, s)[:1], mesh)
+        out = {"rows": rows, "param_bytes": sum(
+            t.numel() * t.element_size() for _, t in tree_leaves(params)),
+            "kv_index": None if lay.kv_index is None
+            else lay.kv_index.tolist(), "decode": [], "collectives": []}
+        with torch.inference_mode():
+            out["hidden"] = TM.forward(cfg, params, {"tokens": tokens},
+                                       dtype=torch.float32,
+                                       mesh=mesh)[0].numpy()
+            reset_collective_counts()
+            lg, cache, pos = sharded.prefill(
+                lay, params, {"tokens": tokens},
+                max_cache_len=case["max_cache_len"], dtype=torch.float32)
+            out["collectives"].append(collective_counts())
+            out["prefill"] = sharded.gather_logits(lay, lg).numpy()
+            out["cache_shapes"] = {k: {n: tuple(t.shape) for n, t in v.items()}
+                                   for k, v in cache.items()}
+            for t in range(steps.shape[1]):
+                reset_collective_counts()
+                lg, cache = sharded.decode_step(
+                    lay, params, cache, steps[torch.from_numpy(rows), t:t + 1], pos,
+                    dtype=torch.float32)
+                out["collectives"].append(collective_counts())
+                out["decode"].append(sharded.gather_logits(lay, lg).numpy())
+                pos = pos + 1
+            kept = []
+            ids, _, _ = generate(cfg, params, tokens, case["gen"],
+                                 generator=torch.Generator(), mesh=mesh,
+                                 logits=kept)
+        out["generate"] = ids.numpy()
+        out["generate_logits"] = [sharded.gather_logits(lay, lg).numpy()
+                                  for lg in kept]
+        res["cases"][case["name"]] = out
+        if case["name"] == spec.get("ckpt_case"):
+            from ..checkpoint import restore_resharded
+            flat = dict(tree_leaves(param_shardings(cfg, mesh)))
+            got, _, _ = restore_resharded(spec["ckpt"], case["params"], flat,
+                                          mesh)
+            res["restored_equal"] = all(
+                torch.equal(a, b) for (_, a), (_, b) in
+                zip(tree_leaves(got), tree_leaves(params)))
+            res["restored"] = tree_map(lambda t: t.numpy(), got)
+            ckpt_lay = lay
+    if "ties" in spec:
+        lay = ckpt_lay
+        ties = torch.from_numpy(spec["ties"])
+        block = local_block(ties, (None, "model" if lay.vocab_on else None),
+                            mesh)
+        res["ties"] = sharded.argmax(lay, block).numpy()
     return res
 
 
@@ -227,16 +323,18 @@ def _serve_faults_job(mesh, spec) -> dict:
     return res
 
 
-def _krr_serve_job(argv) -> dict:
-    """``krr_serve.main(argv)`` on every rank of the running group (rank 0
-    fronts, the others serve); rank 0's standard output is kept."""
+def _cli_job(module: str, argv) -> dict:
+    """``launch.<module>.main(argv)`` (``krr_serve``: rank 0 fronts, the
+    others serve; ``serve``: every rank of a ``--mesh`` grid) on every rank
+    of the running group; each rank's standard output is kept."""
     import contextlib
     import io
 
-    from ..launch import krr_serve
+    from ..launch import krr_serve, serve
+    cli = {"krr_serve": krr_serve, "serve": serve}[module]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = krr_serve.main(argv)
+        rc = cli.main(argv)
     return {"rc": rc, "out": buf.getvalue()}
 
 

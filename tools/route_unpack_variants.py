@@ -130,7 +130,8 @@ def main(argv=None) -> int:
     print(f"card: {C.card_line()}", flush=True)
     libs = build(list(VARIANTS))
     dev = torch.device("cuda", 0)
-    n, d, m, ts = (C.MAIN[k] for k in ("n", "d", "m", "table_size"))
+    sizes = C.krr_sizes(torch)
+    n, d, m, ts = (sizes[k] for k in ("n", "d", "m", "table_size"))
     x = torch.from_numpy(make_regression(n, 16, d, rough=0.5,
                                          seed=args.seed)[0]).to(dev)
     lsh = T.sample_lsh_params(np.random.default_rng(args.seed), m, d,
