@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
 predict and the distributed step, LM serving, KRR serving, the paper's
 Tables 1 and 2, sharded KRR serving, LM training, LM serving of the
-MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs, and the
-dense LMs served on (data, model) grids of ranks.
+MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs, and every
+slot kind served on (data, model) grids of ranks.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -56,7 +56,10 @@ non-zero:
    cross-attention (T 1500), llama-3.2-vision-90b's cross-attention (KV
    8, G 8, D 128, T 1024) and llama4-scout-17b-a16e (KV 8, G 5, D 128),
    and one rank's heads on phase 13's grids: gemma3-1b at model 2 (KV 1,
-   G 2, D 256) and qwen3-14b at model 4 (KV 2, G 5, D 128);
+   G 2, D 256) and qwen3-14b at model 4 (KV 2, G 5, D 128), and on phase
+   14's: mixtral-8x22b at model 4 (KV 2, G 6, D 128), zamba2-7b's shared
+   attention (KV 16, G 1, D 112) and whisper's self and cross attention
+   (KV 10, G 1, D 64; T 452 and 1500) at model 2;
    each with random lengths, one valid row, a wrapped ring and no valid
    row, T not a multiple of the tile: 1e-5 of max|out| (f32), 1e-4
    (bf16); and at phase 7's two shapes (T 512 and 2112) and the long
@@ -272,6 +275,26 @@ non-zero:
    decode ms a step, peak device memory a rank, collective calls and
    bytes a step by kind.  Its launches are listed apart in the
    ``kernels`` line (``mesh_launches``).
+14. The other slot kinds served on (data, model) grids of ranks
+   (``models.sharded``: experts, ``ssm_heads`` and rwkv6's heads on
+   'model', the shared block and the encoder gathered at use, cross
+   attention on the rank's kv heads), as phase 13's (b) and (c): f32
+   weights from the seed at std 1/sqrt(fan-in), the one-process reference
+   first, one checkpoint a model (free disk checked before each: mixtral's
+   2 layers are 21.6 GB), four processes on the card over gloo fed the
+   reference's greedy tokens, batch 4.  (a) mixtral-8x22b, 2 of its 56
+   layers, on 1x4 (2 experts a rank), a 512-token prompt, 8 decode steps:
+   the prefill's kept MoE pairs equal on the model ranks and to the
+   reference's; (b) zamba2-7b, 9 of its 81 layers (3 periods, the shared
+   block applied 3 times), on 2x2 (56 ssm heads a rank, FSDP over
+   'data'), 512, 8; (c) rwkv6-1.6b uncut on 1x4 (8 heads a rank), 512, 8;
+   (d) whisper-large-v3 uncut on 2x2 (its encoder over 1500 frames from
+   the seed, 10 heads a rank, the vocab split), a 448-token prompt, 4
+   steps.  Every step's logits within 2e-3 of max|logit| on every rank,
+   parameter bytes a rank ``shard_bytes``', B9 layers x steps a rank at
+   the local (B 4, KV 2, G 6, D 128), (B 2, KV 16, G 1, D 112), none, and
+   (B 2, KV 10, G 1, D 64).  Printed as phase 13's.  Its launches are
+   listed apart in the ``kernels`` line (``slot_grids_launches``).
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -324,11 +347,12 @@ non-zero:
    at phase 9's largest shape (``tables_ms``; B3's beside index_add_ on
    the same inputs, forest's layout, ``tables_library_ms``).  Phase 11's
    counted run is listed as ``train_launches``, phase 12's as
-   ``lm_slots_launches``, phase 13's as ``mesh_launches``; B9 at every
-   shape phase 12 and phase 13 launched it at, by torch.profiler beside
-   scaled_dot_product_attention on the same cache (``lm_slots_by_shape``,
-   ``mesh_by_shape``).  Last, one replay of each of phase 8's graphs: by
-   CUDA events back to back, and its kernels' device time by
+   ``lm_slots_launches``, phase 13's as ``mesh_launches``, phase 14's as
+   ``slot_grids_launches``; B9 at every shape phases 12, 13 and 14
+   launched it at, by torch.profiler beside scaled_dot_product_attention
+   on the same cache (``lm_slots_by_shape``, ``mesh_by_shape``,
+   ``slot_grids_by_shape``).  Last, one replay of each of phase 8's
+   graphs: by CUDA events back to back, and its kernels' device time by
    torch.profiler over the warm path's wall (the device-busy share).
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
@@ -446,7 +470,23 @@ DECODE_PARITY = (("gemma3-1b", 8, 1, 4, 256, 2112, "float32"),
                  ("gemma3-1b on 2x2", 4, 1, 2, 256, 516, "float32"),
                  ("gemma3-1b on 2x2", 4, 1, 2, 256, 516, "bfloat16"),
                  ("qwen3-14b on 1x4", 4, 2, 5, 128, 528, "float32"),
-                 ("qwen3-14b on 1x4", 4, 2, 5, 128, 528, "bfloat16"))
+                 ("qwen3-14b on 1x4", 4, 2, 5, 128, 528, "bfloat16"),
+                 # one rank's heads on phase 14's grids: mixtral-8x22b at
+                 # model 4 (two kv heads, twelve query heads a rank;
+                 # 520-row rings), zamba2-7b's shared attention at model 2
+                 # (16 heads a rank, two rows a data rank), whisper's self
+                 # (452 rows) and cross attention (1500) at model 2
+                 ("mixtral-8x22b on 1x4", 4, 2, 6, 128, 520, "float32"),
+                 ("mixtral-8x22b on 1x4", 4, 2, 6, 128, 520, "bfloat16"),
+                 ("zamba2-7b shared on 2x2", 2, 16, 1, 112, 520, "float32"),
+                 ("zamba2-7b shared on 2x2", 2, 16, 1, 112, 520,
+                  "bfloat16"),
+                 ("whisper-large-v3 self on 2x2", 2, 10, 1, 64, 452,
+                  "float32"),
+                 ("whisper-large-v3 cross on 2x2", 2, 10, 1, 64, 1500,
+                  "float32"),
+                 ("whisper-large-v3 cross on 2x2", 2, 10, 1, 64, 1500,
+                  "bfloat16"))
 # B9 at the gemma3-1b serve run's shapes (phase 7: batch 8, the local layers'
 # 512-row rings and the global layers' 2112-row caches; splits combined in a
 # cluster) and at one long cache (splits combined through device memory by
@@ -4275,20 +4315,25 @@ def fan_in_init(torch, cfg, dev, seed):
     return params
 
 
-def mesh_reference(torch, cfg, params, tokens, steps):
-    """The one-process port's prefill of ``tokens`` and ``steps`` greedy
-    decode steps, f32: (ids (B, steps + 1), [logits of the prefill and
-    each step]) on the host."""
+def mesh_reference(torch, cfg, params, tokens, steps, source=None,
+                   fed=None):
+    """The one-process port's prefill of ``tokens`` (with the
+    cross-attention ``source``, whisper's frames, where given) and
+    ``steps`` greedy decode steps, f32: (ids (B, steps + 1), [logits of
+    the prefill and each step]) on the host.  With ``fed`` (ids of another
+    run) step t is fed ``fed[:, t]`` instead of its own greedy token."""
     from repro_torch.models import model as TM
     logits = []
     with torch.inference_mode():
-        lg, cache, pos = TM.prefill(cfg, params, {"tokens": tokens},
+        lg, cache, pos = TM.prefill(cfg, params,
+                                    {"tokens": tokens, **(source or {})},
                                     max_cache_len=tokens.shape[1] + steps,
                                     dtype=torch.float32)
         ids = [torch.argmax(lg, -1)]
         logits.append(lg.cpu())
-        for _ in range(steps):
-            lg, cache = TM.decode_step(cfg, params, cache, ids[-1][:, None],
+        for t in range(steps):
+            step = ids[-1] if fed is None else fed[:, t].to(tokens.device)
+            lg, cache = TM.decode_step(cfg, params, cache, step[:, None],
                                        pos, dtype=torch.float32)
             pos = pos + 1
             ids.append(torch.argmax(lg, -1))
@@ -4324,12 +4369,14 @@ def write_checkpoint(params, path) -> str:
 
 
 def _mesh_rank(rank, world, device, store, spec, ckpt, tokens, ref_ids,
-               out_dir):
-    """One rank of (b) or (c), in its own process: a gloo group on
-    ``device`` (four ranks share the card), its blocks restored from the
-    checkpoint; the prefill of the global prompt, then the decode steps
-    fed the reference's tokens, each step's logits gathered over the
-    vocab.  Writes its record to out_dir."""
+               out_dir, source=None):
+    """One rank of a spawned grid (phase 13's (b) and (c), phase 14's), in
+    its own process: a gloo group on ``device`` (four ranks share the
+    card), its blocks restored from the checkpoint; the prefill of the
+    global prompt (and the global ``source``, whisper's frames, where
+    given), then the decode steps fed the reference's tokens, each step's
+    logits gathered over the vocab; the MoE pairs of the prefill kept
+    within capacity and all of them.  Writes its record to out_dir."""
     sys.path.insert(0, str(REPO / "src"))
     import torch
     import torch.distributed as dist
@@ -4338,10 +4385,11 @@ def _mesh_rank(rank, world, device, store, spec, ckpt, tokens, ref_ids,
     from repro_torch.launch.mesh import init_distributed, make_host_mesh
     from repro_torch.launch.specs import shard_bytes
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.models import sharded
+    from repro_torch.models import moe, sharded
     from repro_torch.models.params import tree_leaves
     from repro_torch.sharding import (collective_counts, local_block,
                                       reset_collective_counts)
+    from repro_torch.testing.multirank import kv_heads_read
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4363,18 +4411,24 @@ def _mesh_rank(rank, world, device, store, spec, ckpt, tokens, ref_ids,
                                                     "decode"), mesh)
     lay = sharded.GridLayout(cfg, mesh)
     tokens = tokens.to(dev)
+    source = {k: v.to(dev) for k, v in (source or {}).items()}
     rows = local_block(torch.arange(b), lay.rows_spec(b, s)[:1], mesh)
     fed = ref_ids[rows].to(dev)
+    counting, drops, real = moe_drop_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     logits, coll = [], []
     with torch.inference_mode():
         reset_collective_counts()
+        moe._dispatch_row = counting
         t0 = sync_clock(torch)
-        lg, cache, pos = sharded.prefill(lay, params, {"tokens": tokens},
-                                         max_cache_len=s + n,
-                                         dtype=torch.float32)
-        res["prefill_ms"] = (sync_clock(torch) - t0) * 1e3
+        try:
+            lg, cache, pos = sharded.prefill(
+                lay, params, {"tokens": tokens, **source},
+                max_cache_len=s + n, dtype=torch.float32)
+            res["prefill_ms"] = (sync_clock(torch) - t0) * 1e3
+        finally:
+            moe._dispatch_row = real
         coll.append(collective_counts())
         logits.append(sharded.gather_logits(lay, lg).cpu())
         step_ms = []
@@ -4392,8 +4446,9 @@ def _mesh_rank(rank, world, device, store, spec, ckpt, tokens, ref_ids,
                peak=torch.cuda.max_memory_allocated(dev),
                counts=launch_counts(),
                shapes=launch_counts_by_shape()["flash_decode"],
-               kv_index=None if lay.kv_index is None
-               else lay.kv_index.tolist())
+               kv_heads=kv_heads_read(lay),
+               drops=[sum(int(k) for k, _ in drops),
+                      sum(p for _, p in drops)])
     torch.save(res, f"{out_dir}/rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -4413,18 +4468,17 @@ def per_step(colls) -> str:
 
 def check_logits(what, got, want, limit):
     """Every step's logits (this rank's rows) within ``limit`` of
-    max|reference|; returns the worst error so measured."""
-    worst = 0.0
+    max|reference|; returns each step's error (the prefill's first)."""
+    errs = []
     for t, (g, w) in enumerate(zip(got, want)):
         if g.shape != w.shape or not bool(g.isfinite().all()):
-            fail(f"phase 13 {what}: step {t} logits of shape "
+            fail(f"{what}: step {t} logits of shape "
                  f"{tuple(g.shape)} (want {tuple(w.shape)}) or non-finite")
-        err = float((g - w).abs().max()) / float(w.abs().max())
-        worst = max(worst, err)
-        if not err <= limit:
-            fail(f"phase 13 {what}: step {t} logits {err} of max|logit| > "
+        errs.append(float((g - w).abs().max()) / float(w.abs().max()))
+        if not errs[-1] <= limit:
+            fail(f"{what}: step {t} logits {errs[-1]} of max|logit| > "
                  f"{limit}")
-    return worst
+    return errs
 
 
 def generate_reference(torch, dev, spec, params, tokens, seed):
@@ -4495,7 +4549,7 @@ def mesh_1x1_grid(torch, dev, spec, tokens, ckpt, tmp, seed, ref_ids, ref):
         fail(f"phase 13 (a): {bad} of {ids.numel()} greedy tokens differ "
              f"from the one-process reference's")
     got = [g.cpu() for g in got]
-    worst = check_logits("(a)", got, ref, spec["limit"])
+    worst = max(check_logits("phase 13 (a)", got, ref, spec["limit"]))
     bitwise = all(torch.equal(g, w) for g, w in zip(got, ref))
     b9 = counts["flash_decode"]
     if b9 != cfg.n_layers * n:
@@ -4519,9 +4573,16 @@ def mesh_1x1_grid(torch, dev, spec, tokens, ckpt, tmp, seed, ref_ids, ref):
     return counts, shapes["flash_decode"]
 
 
-def mesh_spawned(torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label):
-    """(b) or (c): the grid's ranks spawned on the one card over gloo,
-    each against the one-process reference on its rows.  Returns B9's
+def mesh_spawned(torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label,
+                 source=None, ref_drops=None, phase=13, reordered=None):
+    """A grid of phase 13 ((b), (c)) or 14: its ranks spawned on the one
+    card over gloo, each against the one-process reference on its rows;
+    B9's launches a rank (its layers a step x the steps) at the local
+    (B/data, KV, G, D) of ``spec['b9']`` (none where it is None); with
+    ``ref_drops`` (the reference prefill's (kept, all) MoE pairs) the
+    grid's drops, equal on the ranks of a data index and summed over the
+    data ranks, against them; with ``reordered`` (``reordered_reference``'s
+    logits) the grid's distance from those too (printed).  Returns B9's
     launches over the ranks (total, by shape)."""
     import torch.multiprocessing as mp
     from repro_torch.models import model as TM
@@ -4530,33 +4591,57 @@ def mesh_spawned(torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label):
     world = d * m
     out_dir = Path(tmp) / f"ranks_{label}"
     out_dir.mkdir()
+    where = f"phase {phase} ({label})"
     t0 = time.perf_counter()
     mp.spawn(_mesh_rank, args=(world, str(dev), f"{tmp}/pg_{label}", spec,
-                               ckpt, tokens.cpu(), ref_ids, str(out_dir)),
+                               ckpt, tokens.cpu(), ref_ids, str(out_dir),
+                               source),
              nprocs=world, join=True)
     t_spawn = time.perf_counter() - t0
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
              for r in range(world)]
-    kv, g_, dd = spec["b9"]
-    worst = 0.0
+    by_step = [0.0] * len(ref)
     b, s = tokens.shape
     n = spec["steps"]
+    b9_step = b9_per_step(cfg)
     for r in ranks:
         want = [w[r["rows"]] for w in ref]
-        worst = max(worst, check_logits(f"({label}) rank {r['rank']}",
-                                        r["logits"], want, spec["limit"]))
+        errs = check_logits(f"{where} rank {r['rank']}", r["logits"], want,
+                            spec["limit"])
+        by_step = [max(a, e) for a, e in zip(by_step, errs)]
         if r["param_bytes"] != r["shard_bytes"]["params"]:
-            fail(f"phase 13 ({label}): rank {r['rank']} holds "
+            fail(f"{where}: rank {r['rank']} holds "
                  f"{r['param_bytes']} parameter bytes, shard_bytes says "
                  f"{r['shard_bytes']['params']}")
         b9 = r["counts"]["flash_decode"]
-        if b9 != cfg.n_layers * n:
-            fail(f"phase 13 ({label}): rank {r['rank']} launched B9 {b9} "
-                 f"times, not {cfg.n_layers} a step x {n}")
-        if any(k[0] != b // d or k[2:5] != (kv, g_, dd) for k in r["shapes"]):
-            fail(f"phase 13 ({label}): rank {r['rank']} ran B9 at "
-                 f"{r['shapes']}, not at (B {b // d}, KV {kv}, G {g_}, "
-                 f"D {dd})")
+        if b9 != b9_step * n or (spec["b9"] is None) != (b9_step == 0):
+            fail(f"{where}: rank {r['rank']} launched B9 {b9} times, not "
+                 f"{b9_step} a step x {n}")
+        if spec["b9"] is not None and any(
+                k[0] != b // d or k[2:5] != spec["b9"] for k in r["shapes"]):
+            kv, g_, dd = spec["b9"]
+            fail(f"{where}: rank {r['rank']} ran B9 at {r['shapes']}, not "
+                 f"at (B {b // d}, KV {kv}, G {g_}, D {dd})")
+        first = ranks[r["data_rank"] * m]["drops"]
+        if r["drops"] != first:
+            fail(f"{where}: rank {r['rank']} kept {r['drops']} MoE pairs, "
+                 f"its data index's model rank 0 {first}")
+    if ref_drops is not None:
+        got = [sum(ranks[i * m]["drops"][j] for i in range(d))
+               for j in (0, 1)]
+        if b % d:                  # the rows are not split over 'data'
+            got = [x // d for x in got]
+        if got != list(ref_drops):
+            fail(f"{where}: the grid kept {got[0]} of {got[1]} MoE pairs, "
+                 f"the reference {ref_drops[0]} of {ref_drops[1]}")
+        say(f"  ({label}) MoE pairs of the prefill kept within capacity: "
+            f"{got[0]} of {got[1]} on the grid, as the reference")
+    if reordered is not None:
+        worst = max(max(check_logits(f"{where} rank {r['rank']}", r["logits"],
+                                     [w[r["rows"]] for w in reordered], 1.0))
+                    for r in ranks)
+        say(f"  ({label}) the grid's logits within {worst:.3g} of max|logit| "
+            f"of the reordered reference's")
     r0 = ranks[0]
     whole = 4 * TM.count_params(cfg)
     say(f"  ({label}) {d}x{m} grid ({cfg.name}"
@@ -4568,12 +4653,14 @@ def mesh_spawned(torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label):
         f"{r0['backend']} (host-staged collectives: these times are of ranks "
         f"sharing one card, not of a grid); spawn to exit {t_spawn:.1f} s, "
         f"restore {max(r['restore_s'] for r in ranks):.1f} s a rank at most")
-    say(f"      logits within {worst:.3g} of max|logit| on every rank "
-        f"(limit {spec['limit']:g}); parameter bytes a rank "
+    say(f"      logits within {max(by_step):.3g} of max|logit| on every "
+        f"rank (limit {spec['limit']:g}; the prefill, then each step: "
+        + " ".join(f"{e:.2g}" for e in by_step) + "); parameter bytes a rank "
         + ", ".join(str(r["param_bytes"]) for r in ranks)
         + f" = shard_bytes, of {whole} unsharded "
-        f"({r0['param_bytes'] / whole:.4f}); kv heads read "
-        + str([r["kv_index"] for r in ranks]))
+        f"({r0['param_bytes'] / whole:.4f}); kv heads read by the ranks' "
+        f"attentions " + str([sorted({str(v) for v in r["kv_heads"].values()})
+                             for r in ranks]))
     say(f"      rank 0: prefill {r0['prefill_ms']:.1f} ms, decode "
         f"{sum(r0['step_ms']) / n:.1f} ms a step; peak device memory a "
         f"rank " + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
@@ -4640,20 +4727,177 @@ def phase_mesh(torch, dev, seed):
         del params
         torch.cuda.empty_cache()
         out["b"] = mesh_spawned(torch, dev, b, tok_b, ckpt, tmp, *ref_b, "b")
+    total, shapes = summed_launches(out.values())
+    say(f"  phase 13 {time.perf_counter() - t_start:.1f} s; B9 launches "
+        f"over the grids {total.get('flash_decode', 0)}")
+    return total, shapes
+
+
+def summed_launches(runs):
+    """(launches by kernel, B9's by shape) summed over the grids' runs."""
     total, shapes = {}, {}
-    for counts, by_shape in out.values():
+    for counts, by_shape in runs:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         for k, v in by_shape.items():
             shapes[k] = shapes.get(k, 0) + v
-    say(f"  phase 13 {time.perf_counter() - t_start:.1f} s; B9 launches "
+    return total, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the other slot kinds on (data, model) grids of ranks
+# ---------------------------------------------------------------------------
+
+# Each grid is four processes sharing the card over gloo, its blocks
+# restored from one checkpoint of the model, fed the one-process
+# reference's greedy tokens.  mixtral-8x22b at phase 12's cut (2 of 56
+# layers: 10 GB a layer in f32) holds 2 experts a rank; zamba2-7b is cut to
+# 3 of its 27 periods (9 of 81 layers; FSDP's gathers go through the host)
+# and runs 56 ssm heads a rank; rwkv6-1.6b 8 heads a rank; whisper-large-v3
+# its encoder over 1500 frames and cross attention, 10 heads a rank, the
+# vocab split at model 2.  ``b9``: the local (KV, G, D) B9 must run at
+# (None: no kernel on the path); ``limit``: the logits' limit of
+# max|logit| against the reference on the same weights; ``reorder``: the
+# reference is run again with rwkv6's row-parallel products summed from
+# that many row blocks (``split_row_products``), to read how far a change
+# of summation order alone moves the logits.
+SLOT_GRIDS = dict(
+    a=dict(arch="mixtral-8x22b", layers=2, grid=(1, 4), batch=4, prompt=512,
+           steps=8, b9=(2, 6, 128), limit=2e-3),
+    b=dict(arch="zamba2-7b", layers=9, grid=(2, 2), batch=4, prompt=512,
+           steps=8, b9=(16, 1, 112), limit=2e-3),
+    c=dict(arch="rwkv6-1.6b", layers=None, grid=(1, 4), batch=4, prompt=512,
+           steps=8, b9=None, limit=2e-3, reorder=4),
+    d=dict(arch="whisper-large-v3", layers=None, grid=(2, 2), batch=4,
+           prompt=448, steps=4, b9=(10, 1, 64), limit=2e-3))
+
+
+def reordered_reference(torch, cfg, params, tokens, steps, source, ref_ids,
+                        ref, parts, label):
+    """The reference run again with ``split_row_products(parts)``, fed the
+    reference's tokens: its logits on the host, and how far each step's
+    are from the reference's (printed, not a check)."""
+    t0 = sync_clock(torch)
+    undo = split_row_products(parts)
+    try:
+        _, got = mesh_reference(torch, cfg, params, tokens, steps, source,
+                                fed=ref_ids)
+    finally:
+        undo()
+    errs = check_logits(f"phase 14 ({label}) reordered reference", got, ref,
+                        1.0)
+    say(f"  ({label}) the reference with rwkv6's w_o and w_cv products summed"
+        f" from {parts} row blocks: logits within {max(errs):.3g} of "
+        f"max|logit| of the reference (the prefill, then each step: "
+        + " ".join(f"{e:.2g}" for e in errs)
+        + f"); {sync_clock(torch) - t0:.2f} s")
+    return got
+
+
+def split_row_products(parts):
+    """Patches rwkv6's time mix and channel mix so that their row-parallel
+    products (``w_o`` over the heads, ``w_cv`` over the mlp rows) are each
+    summed from ``parts`` partial products of contiguous row blocks, left
+    to right, as a 1 x ``parts`` grid sums them; everything else is the
+    one-process port's arithmetic.  Each block's product is the whole
+    product with the other rows zero (adding exact zeros rounds nothing).
+    Returns a function that undoes the patch."""
+    import torch
+    from repro_torch.models import rwkv6 as rw
+    real = rw.time_mix, rw.channel_mix
+
+    def split(fn, leaf):
+        def run(params, x, **kw):
+            w, partial = params[leaf], []
+            rows = w.shape[0] // parts
+
+            def total(t):
+                partial.append(t)
+                out = partial[0]
+                for p in partial[1:]:
+                    out = out + p
+                return out
+            for i in range(parts):
+                block = torch.zeros_like(w)
+                block[i * rows:(i + 1) * rows] = w[i * rows:(i + 1) * rows]
+                out = fn(dict(params, **{leaf: block}), x, total=total, **kw)
+            return out
+        return run
+    rw.time_mix = split(real[0], "w_o")
+    rw.channel_mix = split(real[1], "w_cv")
+
+    def undo():
+        rw.time_mix, rw.channel_mix = real
+    return undo
+
+
+def phase_slot_grids(torch, dev, seed, grids=None):
+    """Phase 14: MoE, mamba2 with the shared attention, rwkv6 and the
+    encoder-decoder on (data, model) grids of ranks (``SLOT_GRIDS``), each
+    against the one-process port on the same weights (run first, its
+    logits to the host, its memory freed before the grid starts) and the
+    MoE pairs its prefill dropped.  Returns B9's launches (total, by
+    shape) over the grids.  ``grids``: other grids than ``SLOT_GRIDS``
+    (``tools/mesh_serving.py --slot-grids``)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.steps import source_inputs
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe
+    say(f"== phase 14: the other slot kinds served on (data, model) grids "
+        f"of ranks (f32, seeded random weights at std 1/sqrt(fan-in)) "
+        f"({card_line()})")
+    t_start = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slots_") as tmp:
+        for label, spec in (grids or SLOT_GRIDS).items():
+            cfg = slots_config(spec)
+            b, s, n = spec["batch"], spec["prompt"], spec["steps"]
+            gen = torch.Generator(device=dev).manual_seed(seed + 14)
+            tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                   device=dev)
+            source = source_inputs(cfg, b, gen)
+            params = fan_in_init(torch, cfg, dev, seed)
+            counting, drops, real = moe_drop_counter()
+            moe._dispatch_row = counting
+            t0 = sync_clock(torch)
+            try:
+                ref_ids, ref = mesh_reference(torch, cfg, params, tokens, n,
+                                              source)
+            finally:
+                moe._dispatch_row = real
+            ref_drops = None
+            if cfg.moe is not None:
+                ref_drops = (sum(int(k) for k, _ in drops),
+                             sum(p for _, p in drops))
+            say(f"  ({label}) reference, one process: "
+                f"{sync_clock(torch) - t0:.2f} s")
+            if spec.get("reorder"):
+                reordered = reordered_reference(torch, cfg, params, tokens,
+                                                n, source, ref_ids, ref,
+                                                spec["reorder"], label)
+            check_disk(tmp, round(4 * TM.count_params(cfg) / 2**30 + 1, 1),
+                       f"phase 14 ({label})")
+            ckpt = write_checkpoint(params, f"{tmp}/{cfg.name}")
+            del params
+            torch.cuda.empty_cache()
+            out[label] = mesh_spawned(
+                torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label,
+                source={k: v.cpu() for k, v in source.items()},
+                ref_drops=ref_drops, phase=14,
+                reordered=reordered if spec.get("reorder") else None)
+            shutil.rmtree(ckpt)
+            del tokens, source, ref
+            torch.cuda.empty_cache()
+    total, shapes = summed_launches(out.values())
+    say(f"  phase 14 {time.perf_counter() - t_start:.1f} s; B9 launches "
         f"over the grids {total.get('flash_decode', 0)}")
     return total, shapes
 
 
 def phase_times(torch, data, model, main_counts, errs, dist_state,
                 lm_counts, serving, tables, sharded, train_counts, slots,
-                mesh, seed):
+                mesh, slot_grids, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import bin_readout_cuda
     from repro_torch.kernels.binning.ops import _beta_to_layout
@@ -4834,6 +5078,11 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         mesh_shapes, decode_serve_times(torch, data[0].device, seed,
                                         mesh_shapes, label="phase 13"),
         lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
+    grid_counts, grid_shapes = slot_grids
+    extra["flash_decode"]["slot_grids_by_shape"] = by_shape_entries(
+        grid_shapes, decode_serve_times(torch, data[0].device, seed,
+                                        grid_shapes, label="phase 14"),
+        lambda k: "B={} T={} KV={} G={} D={} {}".format(*k))
     decode_long_times(torch, data[0].device, seed)
     serve_graph_times(torch, serving)
     for name in SERVE_KERNELS:
@@ -4867,6 +5116,7 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         entries[-1]["train_launches"] = train_counts[name]
         entries[-1]["lm_slots_launches"] = slots_counts.get(name, 0)
         entries[-1]["mesh_launches"] = mesh_counts.get(name, 0)
+        entries[-1]["slot_grids_launches"] = grid_counts.get(name, 0)
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}; {launches[name]} "
@@ -4920,9 +5170,10 @@ def main(argv=None) -> int:
     train_counts = phase_train(torch, dev, args.seed)
     slots = phase_lm_slots(torch, dev, args.seed)
     mesh = phase_mesh(torch, dev, args.seed)
+    slot_grids = phase_slot_grids(torch, dev, args.seed)
     entries = phase_times(torch, data, model, counts, errs, dist_state,
                           lm_counts, serving, tables, sharded, train_counts,
-                          slots, mesh, args.seed)
+                          slots, mesh, slot_grids, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

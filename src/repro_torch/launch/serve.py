@@ -5,19 +5,19 @@ tokens one step at a time against the ring-buffer caches.
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 32
 
 On a (data, model) grid of ranks, one process a rank under ``torchrun``
-(the dense archs; ``models.sharded``):
+(every arch; ``models.sharded``):
 
     PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.serve \
-        --mesh 2x2 --arch gemma3-1b --smoke --device cpu
+        --mesh 2x2 --arch whisper-large-v3 --smoke --device cpu
 
 The flags are those of ``repro.launch.serve`` plus ``--device`` (default
 ``cuda``; without a card that raises, there is no fallback) and ``--mesh
 DxM`` (data x model ranks: NCCL on the card, gloo on the CPU; on a grid the
-weights are drawn on the host leaf by leaf and each rank keeps its blocks,
-so they are not the one-process CLI's draws).  Weights, the
-prompt and, for whisper and the VLM, the encoder frames or image patches
-(``steps.source_inputs``) are random from ``--seed``, in float32 as the JAX
-CLI serves.
+weights, the prompt and the source are drawn on the host, the weights leaf
+by leaf with each rank keeping its blocks, so they are not the one-process
+CLI's draws).  Weights, the prompt and, for whisper and the VLM, the
+encoder frames or image patches (``steps.source_inputs``) are random from
+``--seed``, in float32 as the JAX CLI serves.
 Greedy decoding at ``--temperature 0``, else sampling from a generator
 seeded from ``--seed``.  Prints prefill ms, decode tok/s and the first
 sample ids.
@@ -79,9 +79,10 @@ def generate(cfg: ModelConfig, params: dict, tokens: torch.Tensor, gen: int,
     step's logits are appended to ``logits`` where it is given.
 
     With ``mesh`` the run is on that grid of ranks (every rank calls it):
-    ``params`` are this rank's blocks, ``tokens`` the global batch; the
-    rank decodes its rows (its logits its rows over its vocab range) and
-    the ids come back global, gathered over the data group at the end."""
+    ``params`` are this rank's blocks, ``tokens`` and ``source`` the global
+    batch's; the rank decodes its rows (its logits its rows over its vocab
+    range) and the ids come back global, gathered over the data group at
+    the end."""
     dev = tokens.device
     b, s = tokens.shape
     prefill = make_prefill_step(cfg, max_cache_len=s + gen, dtype=dtype,
@@ -168,15 +169,17 @@ def main(argv=None) -> int:
         registry.get_config(args.arch)
     mesh = None
     if args.mesh:
-        sharded.check_dense(cfg)
         mesh, dev, joined = _grid(args)
         host = torch.Generator().manual_seed(args.seed)
         params = init_local(cfg, mesh, host)
         tokens = torch.randint(0, cfg.vocab_size,
                                (args.batch, args.prompt_len),
                                generator=host).to(dev)
+        # the global source, drawn on the host after the prompt; each rank
+        # takes its rows in the prefill
+        source = {k: v.to(dev) for k, v in source_inputs(
+            cfg, args.batch, host).items()}
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        source = {}
     else:
         dev = resolve_device(args.device)
         gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -7,7 +7,7 @@ PyTorch counterpart of ``jax.ShapeDtypeStruct``: shape and dtype, no
 storage.  ``batch_shardings``, ``param_shardings`` and ``cache_shardings``
 give the spec tree (``repro_torch.sharding.spec_for``'s entries per dim)
 that lays each leaf out over a mesh, as the JAX functions give their
-``NamedSharding`` trees; ``models.sharded`` serves the dense LMs by them on
+``NamedSharding`` trees; ``models.sharded`` serves every LM arch by them on
 a (data, model) grid of ranks, and ``shard_bytes`` is the bytes one rank
 holds.  ``useful_flops`` is the model-FLOP numerator of a roofline share.
 """
@@ -117,9 +117,11 @@ def shard_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh,
     in ``param_dtype``; for a train cell the float32 AdamW state (m and v,
     laid out as the parameters; its step counter is a replicated int32);
     for prefill and decode the decode cache (``init_cache``'s dtypes with
-    ``cache_dtype``); the batch (a decode cell's tokens (B, 1) and positions
-    (B,)); and their total.  The memory columns of the JAX dry run
-    (argument bytes a device), without its compiler's temporaries."""
+    ``cache_dtype``); the batch (``batch_specs``' tokens and labels, and
+    whisper's frames or a VLM's patches in bfloat16 as the JAX dry run
+    counts them; a decode cell's tokens (B, 1) and positions (B,)); and
+    their total.  The memory columns of the JAX dry run (argument bytes a
+    device), without its compiler's temporaries."""
     params = model.abstract_params(cfg, param_dtype)
     pspec = tree_shardings(model.param_axes(cfg), params, mesh)
     out = {"params": _local_bytes(params, pspec, mesh)}
@@ -133,7 +135,7 @@ def shard_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh,
         out["batch"] = 4 * (math.prod(local_shape((b, 1), tok, mesh))
                             + math.prod(local_shape((b,), pos, mesh)))
     else:
-        batch = batch_specs(cfg, shape, cache_dtype)
+        batch = batch_specs(cfg, shape)
         out["batch"] = _local_bytes(
             batch, tree_shardings(batch_axes(cfg, shape), batch, mesh), mesh)
     if shape.kind != "train":

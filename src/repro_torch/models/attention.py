@@ -190,14 +190,19 @@ def decode_attention(params: dict, x: Tensor, cache_k: Tensor,
 
 def cross_decode_attention(params: dict, x: Tensor, cross_k: Tensor,
                            cross_v: Tensor, *, softcap: float = 0.0,
-                           norm_eps: float = 1e-5) -> Tensor:
+                           norm_eps: float = 1e-5,
+                           kv_heads: Tensor | None = None) -> Tensor:
     """Decode-time cross-attention against the source's keys and values,
     written by the prefill and only read here.  x (B,1,Dm); cross_{k,v}
     (B,L,KV,D).  Every source row is valid: the flash-decode op over an
-    all-ones mask, the JAX function's unmasked softmax."""
+    all-ones mask, the JAX function's unmasked softmax.  ``kv_heads`` as
+    in ``decode_attention``."""
     dt = x.dtype
     b, l = cross_k.shape[:2]
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"].to(dt))
+    if kv_heads is not None:
+        cross_k = cross_k.index_select(2, kv_heads)
+        cross_v = cross_v.index_select(2, kv_heads)
     valid = torch.ones((b, l), dtype=torch.int32, device=cross_k.device)
     out = decode_attend_op(q[:, 0], cross_k, cross_v, valid, softcap=softcap)
     return torch.einsum("bshe,hed->bsd", out[:, None].to(dt),

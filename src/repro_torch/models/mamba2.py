@@ -88,10 +88,16 @@ def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor, state: Tensor | None):
     return out, full[:, s:]
 
 
-def _gated_rmsnorm(y: Tensor, z: Tensor, scale: Tensor,
-                   eps: float = 1e-5) -> Tensor:
+def _whole(t: Tensor) -> Tensor:
+    return t
+
+
+def _gated_rmsnorm(y: Tensor, z: Tensor, scale: Tensor, width: int,
+                   total=_whole, eps: float = 1e-5) -> Tensor:
+    """RMS norm of y * silu(z) over ``width`` channels, of which y holds
+    the ones whose sum of squares ``total`` completes."""
     yf = (y * F.silu(z)).float()
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    var = total(torch.sum(yf * yf, dim=-1, keepdim=True)) / width
     return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
@@ -172,44 +178,55 @@ def ssd_decode_step(h: Tensor, x: Tensor, b_mat: Tensor, c_mat: Tensor,
 
 def mamba2_block(params: dict, x: Tensor, spec: SSMSpec, *,
                  conv_state: Tensor | None = None,
-                 ssm_state: Tensor | None = None, decode: bool = False):
+                 ssm_state: Tensor | None = None, decode: bool = False,
+                 heads: tuple[int, int] | None = None, whole=_whole,
+                 total=_whole):
     """Apply one Mamba2 block.  x (B,S,Dm) (S == 1 with decode=True).
 
     Returns (y (B,S,Dm), (new_conv_state, new_ssm_state)): the conv state
     in x's dtype, the ssm state in float32.
+
+    On a grid of ranks (``models.sharded``) a rank runs the ssm heads
+    ``heads`` = [lo, hi) with their blocks of ``a_log``, ``dt_bias``,
+    ``d_skip``, ``norm_scale``, ``out_proj``'s rows and ``ssm_state``:
+    ``whole`` makes ``in_proj``'s output whole (the conv and its state are
+    whole), and ``total`` sums the norm's sum of squares and the
+    ``out_proj`` product over the ranks.
     """
     dt_ = x.dtype
     dims = mamba2_dims(x.shape[-1], spec)
     bsz, s, _ = x.shape
-    proj = x @ params["in_proj"].to(dt_)
+    lo, hi = heads or (0, dims.n_heads)
+    cols = slice(lo * dims.head_dim, hi * dims.head_dim)
+    proj = whole(x @ params["in_proj"].to(dt_))
     z, xbc, dtr = torch.split(proj, [dims.d_inner, dims.conv_dim,
                                      dims.n_heads], dim=-1)
-    dt = _softplus(dtr.float() + params["dt_bias"].float())       # (B,S,H)
+    dt = _softplus(dtr[..., lo:hi].float()
+                   + params["dt_bias"].float())                   # (B,S,H)
     a = -torch.exp(params["a_log"].float())                       # (H,) < 0
     xbc_f, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                    conv_state)
-    split = [dims.d_inner, dims.state, dims.state]
+    xs, bm, cm = torch.split(xbc_f, [dims.d_inner, dims.state, dims.state],
+                             dim=-1)
+    xs = xs[..., cols]
 
     if decode:
-        xs, bm, cm = torch.split(xbc_f[:, 0], split, dim=-1)
-        xh = xs.reshape(bsz, dims.n_heads, dims.head_dim).float()
+        xh = xs[:, 0].reshape(bsz, hi - lo, dims.head_dim).float()
         if ssm_state is None:
-            ssm_state = torch.zeros((bsz, dims.n_heads, dims.head_dim,
+            ssm_state = torch.zeros((bsz, hi - lo, dims.head_dim,
                                      dims.state), dtype=torch.float32,
                                     device=x.device)
-        y, hnew = ssd_decode_step(ssm_state, xh, bm, cm, dt[:, 0], a)
+        y, h_t = ssd_decode_step(ssm_state, xh, bm[:, 0], cm[:, 0],
+                                 dt[:, 0], a)
         y = y + params["d_skip"].float()[None, :, None] * xh
-        y = y.reshape(bsz, 1, dims.d_inner).to(dt_)
-        y = _gated_rmsnorm(y, z, params["norm_scale"])
-        return y @ params["out_proj"].to(dt_), (new_conv, hnew)
-
-    xs, bm, cm = torch.split(xbc_f, split, dim=-1)
-    xh = xs.reshape(bsz, s, dims.n_heads, dims.head_dim)
-    y, h_t = ssd_chunked(xh, bm, cm, dt, a, h0=ssm_state)
-    y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(bsz, s, dims.d_inner).to(dt_)
-    y = _gated_rmsnorm(y, z, params["norm_scale"])
-    return y @ params["out_proj"].to(dt_), (new_conv, h_t)
+    else:
+        xh = xs.reshape(bsz, s, hi - lo, dims.head_dim)
+        y, h_t = ssd_chunked(xh, bm, cm, dt, a, h0=ssm_state)
+        y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(bsz, s, (hi - lo) * dims.head_dim).to(dt_)
+    y = _gated_rmsnorm(y, z[..., cols], params["norm_scale"], dims.d_inner,
+                       total)
+    return total(y @ params["out_proj"].to(dt_)), (new_conv, h_t)
 
 
 def mamba2_ref_scan(x: Tensor, b_mat: Tensor, c_mat: Tensor, dt: Tensor,

@@ -73,7 +73,8 @@ def _dispatch_row(logits: Tensor, e: int, k: int, cap: int):
     return tok_map[:, :e * cap], w_map[:, :e * cap], aux
 
 
-def moe_ffn(params: dict, x: Tensor, spec: MoESpec):
+def moe_ffn(params: dict, x: Tensor, spec: MoESpec,
+            experts: tuple[int, int] | None = None):
     """x (B, S, D) -> (y (B, S, D), aux_loss float32 scalar).
 
     The router runs in float32; the expert products in x's dtype.  The
@@ -81,6 +82,12 @@ def moe_ffn(params: dict, x: Tensor, spec: MoESpec):
     (S + 1, D) buffer per batch row (row S takes the empty slots).  With
     top_k <= 2 a token receives at most two terms, so the sum does not
     depend on the order of the adds.
+
+    ``experts`` (lo, hi): ``params`` holds the weights of experts [lo, hi)
+    only (a grid rank's, where the 'experts' axis is on 'model'): the
+    router and the dispatch run for every expert, as on the other ranks,
+    and the pairs of these experts are gathered, multiplied and combined;
+    y is then this rank's part of the sum over the experts.
     """
     dt = x.dtype
     b, s, d = x.shape
@@ -90,6 +97,11 @@ def moe_ffn(params: dict, x: Tensor, spec: MoESpec):
     logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
     tok_map, w_map, aux = _dispatch_row(logits, e, k, cap)
     aux = aux.mean()
+    if experts is not None:
+        lo, hi = experts
+        tok_map = tok_map[:, lo * cap:hi * cap]
+        w_map = w_map[:, lo * cap:hi * cap]
+        e = hi - lo
 
     xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)          # sentinel row
     xd = torch.gather(xpad, 1, tok_map[:, :, None].expand(-1, -1, d))

@@ -61,6 +61,10 @@ def _shift(x: Tensor, prev: Tensor | None) -> Tensor:
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
+def _whole(t: Tensor) -> Tensor:
+    return t
+
+
 def _mix(x: Tensor, xs: Tensor, mu: Tensor) -> Tensor:
     return x + (xs - x) * mu.to(x.dtype)
 
@@ -129,11 +133,14 @@ def _group_norm(y: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
 
 
 def time_mix(params: dict, x: Tensor, *, shift_state: Tensor | None = None,
-             wkv_state: Tensor | None = None, decode: bool = False):
+             wkv_state: Tensor | None = None, decode: bool = False,
+             total=_whole):
     """RWKV6 time mix.  x (B,S,Dm).  Returns (y, (new_shift, new_wkv)), the
     states float32.  r, k, v in x's dtype, then float32 into the
     recurrence; the group norm in float32; back to x's dtype before the
-    gate."""
+    gate.  On a grid of ranks (``models.sharded``) the head leaves and the
+    wkv state are a rank's heads' and ``total`` sums the ``w_o`` product
+    over the ranks."""
     dt = x.dtype
     bsz = x.shape[0]
     h, d = params["u_bonus"].shape
@@ -167,17 +174,21 @@ def time_mix(params: dict, x: Tensor, *, shift_state: Tensor | None = None,
 
     y = _group_norm(y, params["ln_x"].float())
     y = y.reshape(bsz, -1, h * d).to(dt) * g
-    y = torch.einsum("bshe,hed->bsd", y.reshape(bsz, -1, h, d),
-                     params["w_o"].to(dt))
+    y = total(torch.einsum("bshe,hed->bsd", y.reshape(bsz, -1, h, d),
+                           params["w_o"].to(dt)))
     return y, (x[:, -1].float(), new_state)
 
 
-def channel_mix(params: dict, x: Tensor, *, shift_state: Tensor | None = None):
-    """RWKV channel mix.  Returns (y, new_shift float32)."""
+def channel_mix(params: dict, x: Tensor, *, shift_state: Tensor | None = None,
+                total=_whole):
+    """RWKV channel mix.  Returns (y, new_shift float32).  On a grid of
+    ranks (``models.sharded``) ``w_ck``/``w_cv`` are a rank's blocks of an
+    MLP and ``total`` sums their product over the ranks before the gate."""
     dt = x.dtype
     xs = _shift(x, shift_state)
     xk = _mix(x, xs, params["mu_ck"])
     xr = _mix(x, xs, params["mu_cr"])
     vv = torch.square(F.relu(xk @ params["w_ck"].to(dt)))
-    out = torch.sigmoid(xr @ params["w_cr"].to(dt)) * (vv @ params["w_cv"].to(dt))
+    out = torch.sigmoid(xr @ params["w_cr"].to(dt)) * total(
+        vv @ params["w_cv"].to(dt))
     return out, x[:, -1].float()

@@ -10,8 +10,9 @@ per-rank pieces back together into global arrays.  A ``serve`` job runs
 every sharded-serving check of one grid in the same spawn
 (``_serve_job``): rank 0 drives the ``ShardedPredictor`` sessions and
 records what it served, the other ranks run the worker loop.  An ``lm``
-job serves the dense LMs on the grid (``_lm_job``): each rank's prefill
-and decode logits, its parameter bytes and the collectives of a step.
+job serves the LMs on the grid (``_lm_job``): each rank's prefill and
+decode logits, its parameter bytes, its cache blocks, the MoE dispatch
+and the collectives of a step.
 """
 from __future__ import annotations
 
@@ -48,6 +49,21 @@ def spawn_ranks(world_size: int, model_parallel: int, store_dir: str,
     return [torch.load(os.path.join(store_dir, f"rank{r}.pt"),
                        weights_only=False)
             for r in range(world_size)]
+
+
+def kv_heads_read(lay) -> dict:
+    """{attention of a ``models.sharded.GridLayout`` ('slot0.attn',
+    'shared.attn', 'encoder.attn', ...): the kv heads its local query heads
+    read, ``Attn.kv_index`` as a list (None: its own)}."""
+    from ..models.sharded import Attn
+    plans = {f"{slot}.{k}": p for slot, ps in lay.slots.items()
+             for k, p in ps.items() if isinstance(p, Attn)}
+    if lay.shared is not None:
+        plans["shared.attn"] = lay.shared
+    plans.update({f"encoder.{k}": p for k, p in (lay.encoder or {}).items()
+                  if isinstance(p, Attn)})
+    return {k: None if p.kv_index is None else p.kv_index.tolist()
+            for k, p in plans.items()}
 
 
 def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
@@ -119,53 +135,72 @@ def _run(mesh, spec, f, x, y, xq, lsh) -> dict:
 
 
 def _lm_job(mesh, spec) -> dict:
-    """The dense LMs on this grid.  ``spec['cases']``: dicts of 'cfg', the
+    """The LMs on this grid.  ``spec['cases']``: dicts of 'cfg', the
     global numpy 'params', 'tokens' (B, S), the decode steps' tokens
-    'steps' (B, n), 'max_cache_len' and 'gen'.  For each case: this
-    rank's rows of the forward's hidden states ('hidden', through
-    ``model.forward(mesh=)``), of the prefill and of each decode step's
-    logits, gathered
-    over the vocab ('prefill', 'decode'), its rows ('rows'), its parameter
-    bytes, its cache blocks' shapes, the kv heads its query heads read, the
-    collectives of the prefill and of each step, ``generate``'s global ids
-    over 'gen' tokens and its own logits.  Also the ranks of the
-    two groups, the cross-rank argmax of ``spec['ties']`` (global (B, V)
-    logits with planted ties across vocab blocks, cut by
-    ``spec['ckpt_case']``'s layout), and the blocks ``restore_resharded``
-    gives by ``param_shardings`` from ``spec['ckpt']``, a checkpoint of
-    that case's parameters, and whether they are exactly
-    ``local_lm_params``' blocks."""
+    'steps' (B, n), 'max_cache_len', 'gen' and, for whisper and a VLM, the
+    global numpy 'source' ({'frames': ...} or {'patches': ...}).  For each
+    case: this rank's rows of the forward's hidden states ('hidden',
+    through ``model.forward(mesh=)``), of the prefill and of each decode
+    step's logits, gathered over the vocab ('prefill', 'decode'), its rows
+    ('rows'), its parameter bytes and blocks' shapes, its cache blocks'
+    shapes, the kv heads
+    the query heads of its first attention read, the collectives of the
+    prefill and of each step, ``generate``'s global ids over 'gen' tokens
+    and its own logits; for a MoE config the dispatch maps (tok_map,
+    w_map) of each MoE call of the prefill, in order ('dispatch').  Also
+    the ranks of the two groups, the cross-rank argmax of ``spec['ties']``
+    (global (B, V) logits with planted ties across vocab blocks, cut by
+    ``spec['ties_case']``'s layout), and for each case named in
+    ``spec['ckpts']`` ({case name: a checkpoint of its parameters}) the
+    blocks ``restore_resharded`` gives by ``param_shardings`` and whether
+    they are exactly ``local_lm_params``' blocks ('restored',
+    'restored_equal', by case name)."""
     from ..convert import local_lm_params
     from ..launch.serve import generate
     from ..launch.specs import param_shardings
     from ..models import model as TM
-    from ..models import sharded
+    from ..models import moe, sharded
     from ..models.params import tree_leaves, tree_map
     from ..sharding import (collective_counts, local_block,
                             reset_collective_counts)
     res = {"groups": (dist.get_process_group_ranks(mesh.data_group),
                       dist.get_process_group_ranks(mesh.model_group)),
            "cases": {}}
+    real_dispatch = moe._dispatch_row
     for case in spec["cases"]:
         cfg = case["cfg"]
         lay = sharded.GridLayout(cfg, mesh)
         params = local_lm_params(case["params"], cfg, mesh, device="cpu")
         tokens = torch.from_numpy(case["tokens"]).long()
         steps = torch.from_numpy(case["steps"]).long()
+        source = {k: torch.from_numpy(v)
+                  for k, v in case.get("source", {}).items()}
         b, s = tokens.shape
         rows = local_block(np.arange(b), lay.rows_spec(b, s)[:1], mesh)
         out = {"rows": rows, "param_bytes": sum(
             t.numel() * t.element_size() for _, t in tree_leaves(params)),
-            "kv_index": None if lay.kv_index is None
-            else lay.kv_index.tolist(), "decode": [], "collectives": []}
+            "param_shapes": {path: tuple(t.shape)
+                             for path, t in tree_leaves(params)},
+            "kv_heads": kv_heads_read(lay), "decode": [], "collectives": [],
+            "dispatch": []}
+
+        def recording(logits, e, k, cap):
+            maps = real_dispatch(logits, e, k, cap)
+            out["dispatch"].append((maps[0].numpy(), maps[1].numpy()))
+            return maps
         with torch.inference_mode():
-            out["hidden"] = TM.forward(cfg, params, {"tokens": tokens},
+            out["hidden"] = TM.forward(cfg, params,
+                                       {"tokens": tokens, **source},
                                        dtype=torch.float32,
                                        mesh=mesh)[0].numpy()
             reset_collective_counts()
-            lg, cache, pos = sharded.prefill(
-                lay, params, {"tokens": tokens},
-                max_cache_len=case["max_cache_len"], dtype=torch.float32)
+            moe._dispatch_row = recording
+            try:
+                lg, cache, pos = sharded.prefill(
+                    lay, params, {"tokens": tokens, **source},
+                    max_cache_len=case["max_cache_len"], dtype=torch.float32)
+            finally:
+                moe._dispatch_row = real_dispatch
             out["collectives"].append(collective_counts())
             out["prefill"] = sharded.gather_logits(lay, lg).numpy()
             out["cache_shapes"] = {k: {n: tuple(t.shape) for n, t in v.items()}
@@ -181,23 +216,25 @@ def _lm_job(mesh, spec) -> dict:
             kept = []
             ids, _, _ = generate(cfg, params, tokens, case["gen"],
                                  generator=torch.Generator(), mesh=mesh,
-                                 logits=kept)
+                                 logits=kept, source=source)
         out["generate"] = ids.numpy()
         out["generate_logits"] = [sharded.gather_logits(lay, lg).numpy()
                                   for lg in kept]
         res["cases"][case["name"]] = out
-        if case["name"] == spec.get("ckpt_case"):
+        if case["name"] in spec.get("ckpts", {}):
             from ..checkpoint import restore_resharded
             flat = dict(tree_leaves(param_shardings(cfg, mesh)))
-            got, _, _ = restore_resharded(spec["ckpt"], case["params"], flat,
-                                          mesh)
-            res["restored_equal"] = all(
+            got, _, _ = restore_resharded(spec["ckpts"][case["name"]],
+                                          case["params"], flat, mesh)
+            res.setdefault("restored_equal", {})[case["name"]] = all(
                 torch.equal(a, b) for (_, a), (_, b) in
                 zip(tree_leaves(got), tree_leaves(params)))
-            res["restored"] = tree_map(lambda t: t.numpy(), got)
-            ckpt_lay = lay
+            res.setdefault("restored", {})[case["name"]] = tree_map(
+                lambda t: t.numpy(), got)
+        if case["name"] == spec.get("ties_case"):
+            ties_lay = lay
     if "ties" in spec:
-        lay = ckpt_lay
+        lay = ties_lay
         ties = torch.from_numpy(spec["ties"])
         block = local_block(ties, (None, "model" if lay.vocab_on else None),
                             mesh)

@@ -14,7 +14,6 @@ at std 1/sqrt(fan-in) (``testing.train.fan_in_scale``).
 """
 import dataclasses
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
@@ -25,18 +24,16 @@ import torch
 from repro.checkpoint import save_checkpoint as jax_save_checkpoint
 from repro.configs import registry as jax_registry
 from repro.models import model as JM
-from repro.sharding import spec_for as jax_spec_for
 from repro_torch.configs import ShapeSpec, registry
 from repro_torch.convert import lm_params_from_reference, local_lm_params
 from repro_torch.launch import specs
-from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.serve import generate
 from repro_torch.models import model as TM
-from repro_torch.models import sharded
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import tree_leaves
 from repro_torch.sharding import local_shape
 from repro_torch.testing.multirank import spawn_ranks
-from repro_torch.testing.train import fan_in_scale
+from torch_lm_mesh_common import (batches, case_name, each_case, fake_mesh,
+                                  jax_blocks, np_params, rel)
 
 GRIDS = ((1, 1), (1, 2), (2, 1), (2, 2), (1, 4), (1, 3))   # (data, model)
 DENSE = ("gemma3-1b", "phi3-mini-3.8b", "qwen3-14b", "command-r-plus-104b")
@@ -45,15 +42,6 @@ S, N, CACHE = 9, 3, 12          # prompt, decode steps, cache rows
 GEN = 2                         # generate(mesh=)'s tokens
 CLI_ARGS = ["--arch", "qwen3-14b", "--smoke", "--device", "cpu", "--batch",
             "3", "--prompt-len", "9", "--gen", "3", "--seed", "5"]
-
-
-class FakeMesh:
-    """Duck-typed JAX mesh: axis_names + devices.shape is all spec_for
-    reads."""
-
-    def __init__(self, sizes: dict):
-        self.axis_names = tuple(sizes)
-        self.devices = np.empty(tuple(sizes.values()), dtype=object)
 
 
 def _configs():
@@ -68,39 +56,17 @@ def _configs():
     return out
 
 
-def _np_params(cfg, seed):
-    rng = np.random.default_rng(seed)
-
-    def draw(s):
-        if s.init == "zeros":
-            return np.zeros(s.shape, np.float32)
-        if s.init == "ones":
-            return np.ones(s.shape, np.float32)
-        std = s.scale if s.scale is not None else 1 / math.sqrt(s.shape[0])
-        return (std * rng.standard_normal(s.shape)).astype(np.float32)
-    return tree_map(lambda a: a.astype(np.float32),
-                    fan_in_scale(cfg, tree_map(draw, TM.param_specs(cfg))))
-
-
-def _batches(grid):
-    return (4, 3) if grid[0] == 2 else (4,)
-
-
-def _case_name(name, b):
-    return f"{name} B={b}"
-
-
 @pytest.fixture(scope="module")
 def cases():
     """{case name: dict(cfg, jcfg, params, tokens, steps)} for batches 4
     and 3."""
     out = {}
     for i, (name, cfg, jcfg) in enumerate(_configs()):
-        params = _np_params(cfg, 10 + i)
+        params = np_params(cfg, np.random.default_rng(10 + i))
         toks = np.random.default_rng(100 + i).integers(
             0, cfg.vocab_size, (4, S + N)).astype(np.int64)
         for b in (4, 3):         # batch 3: the first three rows
-            out[_case_name(name, b)] = dict(
+            out[case_name(name, b)] = dict(
                 cfg=cfg, jcfg=jcfg, params=params, tokens=toks[:b, :S],
                 steps=toks[:b, S:])
     return out
@@ -172,15 +138,16 @@ def grid(request, cases, tmp_path_factory):
     ``param_shardings``."""
     d, m = request.param
     tmp = tmp_path_factory.mktemp(f"grid{d}x{m}")
-    ckpt_case = _case_name("gemma3-1b", 4)
+    ckpt_case = case_name("gemma3-1b", 4)
     jax_save_checkpoint(str(tmp / "ckpt"), 1, cases[ckpt_case]["params"])
-    job = dict(mode="lm", ckpt=str(tmp / "ckpt"), ckpt_case=ckpt_case,
+    job = dict(mode="lm", ckpts={ckpt_case: str(tmp / "ckpt")},
+               ties_case=ckpt_case,
                ties=_ties(cases[ckpt_case]["cfg"].vocab_size), cases=[
                    dict(name=k, cfg=c["cfg"], params=c["params"],
                         tokens=c["tokens"], steps=c["steps"],
                         max_cache_len=CACHE, gen=GEN)
                    for k, c in cases.items()
-                   if c["tokens"].shape[0] in _batches((d, m))])
+                   if c["tokens"].shape[0] in batches((d, m))])
     cli = dict(mode="serve_cli", argv=["--mesh", f"{d}x{m}"] + CLI_ARGS)
     res = spawn_ranks(d * m, m, str(tmp), {}, [("lm", job), ("cli", cli)])
     return (d, m), [r["lm"] | {"data_rank": r["data_rank"],
@@ -188,24 +155,12 @@ def grid(request, cases, tmp_path_factory):
                                "cli": r["cli"]} for r in res]
 
 
-def _rel(got, want) -> float:
-    return float(np.abs(np.asarray(got, np.float64) - want).max()
-                 / np.abs(want).max())
-
-
-def _each(grid):
-    """(case name, rank result, that rank's case) for every rank."""
-    for r in grid[1]:
-        for name, c in r["cases"].items():
-            yield name, r, c
-
-
 def test_logits_match_the_one_process_port(grid, references):
     """Prefill and every decode step's logits, each rank's rows over the
     whole vocab, within 1e-5 of max|logit| of the one-process port on the
     same weights; bitwise on the 1x1 grid (a one-rank group's sums are
     the identity)."""
-    for name, _, c in _each(grid):
+    for name, _, c in each_case(grid):
         want = references[name]["port"]
         got = [c["prefill"]] + c["decode"]
         assert len(got) == N + 1
@@ -214,31 +169,31 @@ def test_logits_match_the_one_process_port(grid, references):
             assert g.shape == w.shape and np.isfinite(g).all()
             if grid[0] == (1, 1):
                 np.testing.assert_array_equal(g, w)
-            assert _rel(g, w) <= 1e-5, (name, _rel(g, w))
+            assert rel(g, w) <= 1e-5, (name, rel(g, w))
 
 
 def test_forward_matches_the_one_process_port(grid, references):
     """``model.forward(mesh=)``: each rank's rows of the final hidden
     states within 1e-5 of their max (bitwise on the 1x1 grid)."""
-    for name, _, c in _each(grid):
+    for name, _, c in each_case(grid):
         want = references[name]["hidden"][c["rows"]]
         if grid[0] == (1, 1):
             np.testing.assert_array_equal(c["hidden"], want)
-        assert _rel(c["hidden"], want) <= 1e-5, name
+        assert rel(c["hidden"], want) <= 1e-5, name
 
 
 def test_logits_match_jax(grid, references):
     """The same logits against the JAX package's prefill/decode_step,
     within tests/test_torch_lm.py's f32 tolerance (1e-4 of max)."""
-    for name, _, c in _each(grid):
+    for name, _, c in each_case(grid):
         for g, w in zip([c["prefill"]] + c["decode"],
                         references[name]["jax"]):
-            assert _rel(g, w[c["rows"]]) <= 1e-4, name
+            assert rel(g, w[c["rows"]]) <= 1e-4, name
 
 
 def test_rows_are_split_over_data_where_the_batch_divides(grid):
     (d, m), ranks = grid
-    for name, r, c in _each(grid):
+    for name, r, c in each_case(grid):
         b = 3 if name.endswith("B=3") else 4
         if b % d == 0:
             step = b // d
@@ -254,7 +209,7 @@ def test_each_rank_holds_its_shard_bytes(grid, cases):
     the local shape of ``cache_shardings``."""
     (d, m), _ = grid
     mesh = {"data": d, "model": m}
-    for name, _, c in _each(grid):
+    for name, _, c in each_case(grid):
         cfg, b = cases[name]["cfg"], cases[name]["tokens"].shape[0]
         shape = ShapeSpec("decode", CACHE, b, "decode")
         assert c["param_bytes"] == specs.shard_bytes(cfg, shape,
@@ -270,27 +225,32 @@ def test_each_rank_holds_its_shard_bytes(grid, cases):
 def test_kv_heads_read_by_each_rank(grid, cases):
     """A rank's query heads [r H/M, (r+1) H/M) read kv heads h // (H/KV):
     its own kv heads where kv_heads is sharded (no index), else the index
-    names them (one kv head, or one a query head)."""
+    names them (one kv head, or one a query head), in every slot's
+    attention."""
     (d, m), _ = grid
-    for name, r, c in _each(grid):
+    for name, r, c in each_case(grid):
         cfg = cases[name]["cfg"]
         h, kv = cfg.n_heads, cfg.n_kv_heads
+        assert sorted(c["kv_heads"]) == [f"slot{i}.attn" for i in
+                                         range(len(cfg.layer_pattern))]
+        got = set(map(str, c["kv_heads"].values()))
+        assert len(got) == 1, (name, c["kv_heads"])
         if h % m or m == 1:
-            assert c["kv_index"] is None
+            assert got == {"None"}
             continue
         hl = h // m
         read = [j // (h // kv) for j in range(r["model_rank"] * hl,
                                               (r["model_rank"] + 1) * hl)]
         if kv % m == 0:
-            assert c["kv_index"] is None
+            assert got == {"None"}
             assert read == [r["model_rank"] * (kv // m) + j // (h // kv)
                             for j in range(hl)]
         else:
             want = read[:1] if len(set(read)) == 1 else read
-            assert c["kv_index"] == want, (name, r["model_rank"])
+            assert got == {str(want)}, (name, r["model_rank"])
     if (d, m) == (1, 4):
-        got = [r["cases"][_case_name("qwen3-14b", 4)]["kv_index"]
-               for r in grid[1]]
+        got = [r["cases"][case_name("qwen3-14b", 4)]["kv_heads"]
+               ["slot0.attn"] for r in grid[1]]
         assert got == [[0], [0], [1], [1]]
 
 
@@ -299,7 +259,7 @@ def test_collectives_of_a_step(grid, cases):
     partial result over 'model' and the embedding lookup (2 L + 1), on a
     one-rank group too; gathers run only where a dim is gathered at use."""
     (d, m), _ = grid
-    for name, _, c in _each(grid):
+    for name, _, c in each_case(grid):
         cfg = cases[name]["cfg"]
         for step in c["collectives"][1:]:
             red = step["all_reduce"]["calls"]
@@ -316,7 +276,7 @@ def test_generate_on_the_grid(grid, references):
     """``generate(mesh=)``: global ids on every rank, each the cross-rank
     argmax of the grid's own logits at that step; on the 1x1 grid the
     one-process port's ids."""
-    for name, r, c in _each(grid):
+    for name, r, c in each_case(grid):
         ids = c["generate"]
         assert ids.shape == (len(references[name]["ids"]), GEN)
         for t, lg in enumerate(c["generate_logits"]):
@@ -332,40 +292,12 @@ def test_argmax_tie_picks_the_lower_index(grid, cases):
     """Equal maxima in different vocab blocks: the lowest index, as
     torch.argmax on the gathered logits."""
     want = torch.argmax(torch.from_numpy(_ties(
-        cases[_case_name("gemma3-1b", 4)]["cfg"].vocab_size)), -1).numpy()
-    assert list(want[:3]) == [5, cases[_case_name("gemma3-1b", 4)][
-        "cfg"].vocab_size // 2 - 1, cases[_case_name("gemma3-1b", 4)][
+        cases[case_name("gemma3-1b", 4)]["cfg"].vocab_size)), -1).numpy()
+    assert list(want[:3]) == [5, cases[case_name("gemma3-1b", 4)][
+        "cfg"].vocab_size // 2 - 1, cases[case_name("gemma3-1b", 4)][
         "cfg"].vocab_size // 3 + 1] and want[3] == 0
     for r in grid[1]:
         np.testing.assert_array_equal(r["ties"], want)
-
-
-def _jax_block(a: np.ndarray, spec, sizes, rank: dict) -> np.ndarray:
-    """A rank's block of ``a`` by a JAX PartitionSpec, cut here."""
-    for i, entry in enumerate(spec):
-        if entry is None:
-            continue
-        names = (entry,) if isinstance(entry, str) else entry
-        parts = math.prod(sizes[n] for n in names)
-        idx = 0
-        for n in names:                 # row-major over the named axes
-            idx = idx * sizes[n] + rank[n]
-        step = a.shape[i] // parts
-        a = a[(slice(None),) * i + (slice(idx * step, (idx + 1) * step),)]
-    return a
-
-
-def _jax_blocks(jcfg, params, sizes, rank):
-    """Every leaf's block by the JAX package's param axes and spec_for."""
-    axes = JM.param_axes(jcfg)
-    mesh = FakeMesh(sizes)
-
-    def walk(p, ax):
-        if isinstance(p, dict):
-            return {k: walk(p[k], ax[k]) for k in p}
-        return _jax_block(np.asarray(p), jax_spec_for(ax, p.shape, mesh),
-                          sizes, rank)
-    return walk(params, axes)
 
 
 def test_restore_resharded_gives_each_rank_its_block(grid, cases):
@@ -373,12 +305,13 @@ def test_restore_resharded_gives_each_rank_its_block(grid, cases):
     rank by ``param_shardings``: exactly the block the JAX specs give that
     rank, bitwise, and ``local_lm_params``' blocks."""
     (d, m), ranks = grid
-    c = cases[_case_name("gemma3-1b", 4)]
+    name = case_name("gemma3-1b", 4)
+    c = cases[name]
     for r in ranks:
-        assert r["restored_equal"]
-        want = _jax_blocks(c["jcfg"], c["params"], {"data": d, "model": m},
+        assert r["restored_equal"][name]
+        want = jax_blocks(c["jcfg"], c["params"], {"data": d, "model": m},
                            {"data": r["data_rank"], "model": r["model_rank"]})
-        got = dict(tree_leaves(r["restored"]))
+        got = dict(tree_leaves(r["restored"][name]))
         for path, w in tree_leaves(want):
             np.testing.assert_array_equal(got[path], w)
 
@@ -414,40 +347,19 @@ def test_serve_cli_on_the_grid(grid):
     assert all(r["cli"]["out"] == "" for r in ranks[1:])
 
 
-def _fake_mesh(d, m, di, mi):
-    return Mesh(data=d, model=m, data_rank=di, model_rank=mi,
-                data_group=None, model_group=None,
-                device=torch.device("cpu"))
-
-
 @pytest.mark.parametrize("arch", DENSE)
 def test_local_lm_params_on_jax_params(arch):
     """The JAX package's parameters (JAX arrays) cut into each rank's blocks
     of a 2x2 grid: the blocks the JAX specs give, bitwise, in float32."""
     cfg, jcfg = registry.smoke_config(arch), jax_registry.smoke_config(arch)
-    params = _np_params(cfg, 3)
+    params = np_params(cfg, np.random.default_rng(3))
     jp = jax.tree.map(jnp.asarray, params)
     for di in range(2):
         for mi in range(2):
-            got = local_lm_params(jp, cfg, _fake_mesh(2, 2, di, mi),
+            got = local_lm_params(jp, cfg, fake_mesh(2, 2, di, mi),
                                   device="cpu")
-            want = _jax_blocks(jcfg, params, {"data": 2, "model": 2},
+            want = jax_blocks(jcfg, params, {"data": 2, "model": 2},
                                {"data": di, "model": mi})
             for (p, g), (q, w) in zip(tree_leaves(got), tree_leaves(want)):
                 assert p == q and g.dtype == torch.float32
                 np.testing.assert_array_equal(g.numpy(), w)
-
-
-@pytest.mark.parametrize("arch", [a for a in registry.ARCH_IDS
-                                  if a not in DENSE])
-def test_mesh_with_other_slots_raises(arch):
-    """MoE, mamba2, rwkv6, shared- and cross-attention slots and the
-    encoder have no grid path yet: mesh= raises and names the ROADMAP
-    item."""
-    cfg = registry.smoke_config(arch)
-    mesh = _fake_mesh(1, 2, 0, 0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sharded.GridLayout(cfg, mesh)
-    tokens = torch.zeros((2, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TM.prefill(cfg, {}, {"tokens": tokens}, mesh=mesh)

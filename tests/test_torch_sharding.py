@@ -30,7 +30,6 @@ MESHES = {"16x16": {"data": 16, "model": 16},
           "1x2": {"data": 1, "model": 2}, "2x1": {"data": 2, "model": 1},
           "2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4},
           "1x3": {"data": 1, "model": 3}}
-DENSE = ("gemma3-1b", "phi3-mini-3.8b", "qwen3-14b", "command-r-plus-104b")
 
 
 class FakeMesh:
@@ -103,7 +102,7 @@ def test_spec_for_equals_jax_on_every_leaf(arch):
                 assert td == jd, (what, mesh_name, path)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_spec_trees_of_specs_match_the_rules(arch):
     """``param_shardings``, ``cache_shardings`` and ``batch_shardings`` are
     ``spec_for`` over each tree's leaves, with the decision log of a whole
@@ -228,7 +227,7 @@ def _jax_bytes(axes_tree, shape_tree, sizes, itemsize=None) -> int:
     return total
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_shard_bytes_match_the_jax_specs(arch):
     """``shard_bytes`` (local shapes of meta tensors) against the bytes the
     JAX package's specs imply: f32 parameters, AdamW's m and v and step for
