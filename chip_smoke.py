@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card: WLSH-KRR fit,
 predict and the distributed step, LM serving, KRR serving, the paper's
 Tables 1 and 2, sharded KRR serving, LM training, LM serving of the
-MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs, and every
-slot kind served on (data, model) grids of ranks.
+MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs, every
+slot kind served on (data, model) grids of ranks, and the LM train step on
+such grids.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -295,6 +296,30 @@ non-zero:
    the local (B 4, KV 2, G 6, D 128), (B 2, KV 16, G 1, D 112), none, and
    (B 2, KV 10, G 1, D 64).  Printed as phase 13's.  Its launches are
    listed apart in the ``kernels`` line (``slot_grids_launches``).
+15. The LM train step on (data, model) grids of ranks
+   (``launch.steps.make_train_step(mesh=)``: the collectives autograd
+   sees, the vocab-parallel cross-entropy, the group checkpoints keeping
+   the rank's sequence block, AdamW on each rank's blocks with the global
+   norm counted once a block), each against the one-process train step on
+   the card, run first.  (a) gemma3-1b uncut on a 1x1 grid over NCCL at
+   phase 11's batch (8 x 2048, bf16 compute, float32 master weights and
+   AdamW state, the init's draws, ``init_train_state(mesh=)`` equal to the
+   one-process draw): 3 steps from one state, loss and grad norm within
+   1e-4 relative at every step (whether bitwise printed), the parameters
+   after step 1 within lr x 1e-3 of the one-process update where |g| >
+   1e-5.  (b) gemma3-1b uncut on a 2x2 grid, four processes spawned on the
+   one card over gloo (their times are of ranks sharing one card, not of a
+   grid): f32, weights from the seed at std 1/sqrt(fan-in), batch 4 x 512,
+   2 steps, each rank's train state restored by ``restore_resharded`` with
+   ``param_shardings`` and ``opt_shardings`` from one checkpoint of the
+   one-process state (24 GiB free needed): loss within 1e-5 and grad norm
+   within 1e-4 relative, every rank's gradient blocks within 1e-4 of the
+   leaf's max|g|, its parameters after step 1 by (a)'s rule, the train
+   state bytes a rank holds equal to ``shard_bytes``' params + opt_state.
+   Printed: ms a step beside the one-process step's, tokens/s, MFU
+   (``launch.specs.useful_flops``), peak device memory against
+   ``shard_bytes``, collectives a step by kind, the kernels' launches
+   (none: listed as ``mesh_train_launches`` in the ``kernels`` line).
 5. Times, run last: B1-B3 and the readout at the main phase's shapes,
    B5-B8 at phase 6's and B9 at the decode_32k shape (T = 32768; the
    gemma3-1b global layer in f32 and bf16, qwen3-14b in bf16), each kernel
@@ -348,7 +373,8 @@ non-zero:
    the same inputs, forest's layout, ``tables_library_ms``).  Phase 11's
    counted run is listed as ``train_launches``, phase 12's as
    ``lm_slots_launches``, phase 13's as ``mesh_launches``, phase 14's as
-   ``slot_grids_launches``; B9 at every shape phases 12, 13 and 14
+   ``slot_grids_launches``, phase 15's as ``mesh_train_launches``; B9 at
+   every shape phases 12, 13 and 14
    launched it at, by torch.profiler beside scaled_dot_product_attention
    on the same cache (``lm_slots_by_shape``, ``mesh_by_shape``,
    ``slot_grids_by_shape``).  Last, one replay of each of phase 8's
@@ -4895,9 +4921,405 @@ def phase_slot_grids(torch, dev, seed, grids=None):
     return total, shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM train step on (data, model) grids of ranks
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH = dict(
+    a=dict(arch="gemma3-1b", grid=(1, 1), batch=8, seq=2048, steps=3,
+           dtype="bfloat16", limit=1e-4),
+    b=dict(arch="gemma3-1b", grid=(2, 2), batch=4, seq=512, steps=2,
+           dtype="float32", limit=1e-5))
+TRAIN_MESH_OPT = dict(lr=3e-4, warmup_steps=0, total_steps=12)
+TRAIN_MESH_DISK_GIB = 24  # (b)'s 12 GB train state, the ranks' 8 GB of blocks
+
+
+def _host_tree(tree) -> dict:
+    """{tree_leaves path: the leaf on the host}."""
+    from repro_torch.models.params import tree_leaves
+    return {p: t.detach().cpu() for p, t in tree_leaves(tree)}
+
+
+def adamw_rule(what, got: dict, want: dict, grads: dict, lr: float,
+               scale: float) -> tuple[int, float]:
+    """Phase 11's AdamW rule on {path: tensor} trees: the updated
+    parameters within lr x 1e-3 of ``want`` where the gradient AdamW
+    takes (``grads`` times the clip ``scale``) is above 1e-5 (its first
+    step is sign noise where that is near eps), all finite.  Returns (the
+    entries compared, the largest distance there over lr); fails the run
+    on a non-finite entry only (the caller gates the distance)."""
+    n, worst = 0, 0.0
+    for p, a in got.items():
+        b, g = want[p].to(a.device), grads[p].to(a.device)
+        if not bool(a.isfinite().all()):
+            fail(f"{what}: {p} non-finite after the step")
+        big = g.abs() * scale > 1e-5
+        if bool(big.any()):
+            worst = max(worst, float((a - b).abs()[big].max()) / lr)
+        n += int(big.sum())
+    return n, worst
+
+
+def train_mesh_1x1(torch, dev, seed):
+    """(a): gemma3-1b uncut, bf16 compute, float32 master weights and
+    AdamW state, the init's own draws; the one-process train step first,
+    3 steps, its metrics, the gradient of the first batch and the
+    parameters after the first step moved to the host; then the same 3
+    steps on a one-rank NCCL grid from ``init_train_state(mesh=)``.  Both
+    run under ``torch.use_deterministic_algorithms`` (warnings only, for
+    cuBLAS's workspace setting), so the embedding backward's atomic adds
+    cannot reorder: at the init's std-1 stacked weights the step is
+    chaotic, and a difference in the last bits of step 1's gradient
+    moved step 2's grad norm by 9 % and step 3's by 24 % (this phase's
+    first runs on the card, PERF.md).  Returns the grid run's
+    launches."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _train_mesh_1x1(torch, dev, seed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_mesh_1x1(torch, dev, seed):
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import specs
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import (collective_counts,
+                                      reset_collective_counts)
+    spec = TRAIN_MESH["a"]
+    cfg = registry.get_config(spec["arch"])
+    b, s, n = spec["batch"], spec["seq"], spec["steps"]
+    dtype = getattr(torch, spec["dtype"])
+    opt_cfg = AdamWConfig(**TRAIN_MESH_OPT)
+    batches = [synthetic_lm_batch(seed, k, batch=b, seq=s,
+                                  vocab=cfg.vocab_size, device=dev)
+               for k in range(n)]
+    draw = lambda: torch.Generator(device=dev).manual_seed(seed + 15)
+    state = TS.init_train_state(cfg, draw())
+    grads = _host_tree(TS.make_grad_step(cfg, dtype)(state[0],
+                                                     batches[0])[1])
+    torch.cuda.empty_cache()
+    one = TS.make_train_step(cfg, opt_cfg, dtype)
+    ref, ref_ms, p, o = [], [], state[0], state[1]
+    for k in range(n):
+        t0 = sync_clock(torch)
+        p, o, m = one(p, o, batches[k])
+        ref_ms.append((sync_clock(torch) - t0) * 1e3)
+        ref.append({key: float(v) for key, v in m.items()})
+        if k == 0:
+            p1 = _host_tree(p)
+    del p, o, m
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_a_")
+    init_distributed(dev, backend="nccl", init_method=f"file://{tmp}/pg",
+                     rank=0, world_size=1, timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = make_host_mesh(1, device=dev)
+        gp, go = TS.init_train_state(cfg, draw(), mesh=mesh)
+        same = all(torch.equal(x, y) for (_, x), (_, y) in
+                   zip(tree_leaves(gp), tree_leaves(state[0])))
+        del state
+        if not same:
+            fail("phase 15 (a): init_train_state(mesh=) on 1x1 is not the "
+                 "one-process draw")
+        step = TS.make_train_step(cfg, opt_cfg, dtype, mesh=mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        got, ms, colls = [], [], []
+        for k in range(n):
+            reset_collective_counts()
+            t0 = sync_clock(torch)
+            gp, go, m = step(gp, go, batches[k])
+            ms.append((sync_clock(torch) - t0) * 1e3)
+            colls.append(collective_counts())
+            got.append({key: float(v) for key, v in m.items()})
+            if k == 0:
+                compared, moved = adamw_rule(
+                    "phase 15 (a) step 1", dict(tree_leaves(gp)), p1, grads,
+                    m["lr"].item(), min(1.0, opt_cfg.clip_norm /
+                                        ref[0]["grad_norm"]))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        cols = specs.shard_bytes(cfg, ShapeSpec("train", s, b, "train"),
+                                 mesh)
+        del gp, go, m
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del p1, grads
+    torch.cuda.empty_cache()
+    rel = lambda x, y: abs(x - y) / abs(y)
+    bitwise = all(g[key] == w[key] for g, w in zip(got, ref)
+                  for key in ("loss", "grad_norm"))
+    step_ms = sum(ms[1:]) / (n - 1)
+    ref_step = sum(ref_ms[1:]) / (n - 1)
+    flops = specs.useful_flops(cfg, ShapeSpec("train", s, b, "train"))
+    say(f"  (a) {cfg.name} uncut on a 1x1 grid over NCCL (bf16 compute, "
+        f"float32 master weights and AdamW state; batch {b} x {s}, {n} "
+        f"steps from one state; deterministic algorithms; {card_line()}): "
+        f"step, loss, grad norm "
+        f"(grid / one process): " + "; ".join(
+            f"{k + 1} {g['loss']:.6f} / {w['loss']:.6f}, "
+            f"{g['grad_norm']:.6f} / {w['grad_norm']:.6f}"
+            for k, (g, w) in enumerate(zip(got, ref)))
+        + f"; within {max(rel(g[k_], w[k_]) for g, w in zip(got, ref) for k_ in ('loss', 'grad_norm')):.3g} "
+        f"relative (limit {spec['limit']:g}), bitwise: {bitwise}; the "
+        f"parameters after step 1 within {moved:.3g} lr of the "
+        f"one-process update where the clipped |g| > 1e-5 ({compared} "
+        f"entries; limit 1e-3 lr)")
+    say(f"      ms a step after the first: grid {step_ms:.1f} (each "
+        + ", ".join(f"{t:.1f}" for t in ms) + f"), one process "
+        f"{ref_step:.1f} (each " + ", ".join(f"{t:.1f}" for t in ref_ms)
+        + f"); {b * s / step_ms * 1e3:.0f} tokens/s on the grid; MFU "
+        f"{flops / (step_ms * 1e-3) / PEAK_BF16_OPS_PER_S:.1%} "
+        f"(launch.specs.useful_flops {flops / 1e12:.2f} TFLOP a step over "
+        f"the dense bf16 peak); peak device memory {peak / 2**30:.2f} GiB "
+        f"against shard_bytes {cols['total'] / 2**30:.2f} GiB (params "
+        f"{cols['params'] / 2**30:.2f}, opt_state "
+        f"{cols['opt_state'] / 2**30:.2f}, batch {cols['batch']} B; the "
+        f"rest: gradients, the update's new state, activations)")
+    say(f"      collectives a step: {per_step(colls[1:])}; kernel launches "
+        f"in the grid's run: {counts}")
+    for k, (g, w) in enumerate(zip(got, ref)):
+        for key in ("loss", "grad_norm"):
+            if not rel(g[key], w[key]) <= spec["limit"]:
+                fail(f"phase 15 (a): step {k + 1} {key} {g[key]} against "
+                     f"the one-process {w[key]} (limit {spec['limit']:g} "
+                     f"relative)")
+    if not moved <= 1e-3:
+        fail(f"phase 15 (a): the parameters after step 1 {moved} lr from "
+             f"the one-process update where the clipped |g| > 1e-5")
+    if any(counts.values()):
+        fail(f"phase 15 (a): kernels launched in training: {counts}")
+    return counts
+
+
+def _train_rank(rank, world, device, store, spec, ckpt, batches, out_dir):
+    """One rank of (b), in its own process: a gloo group on ``device``
+    (four ranks share the card), its train state restored from the
+    checkpoint by ``param_shardings`` and ``opt_shardings``; the gradient
+    of the first batch, then the train steps.  Writes its record (metrics,
+    gradient and parameter blocks on the host, memory, collectives,
+    launches) to out_dir."""
+    sys.path.insert(0, str(REPO / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_resharded
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import specs
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import (collective_counts,
+                                      reset_collective_counts)
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(torch.device(device), backend="gloo",
+                           init_method=f"file://{store}", rank=rank,
+                           world_size=world, timeout_s=MESH_TIMEOUT_S)
+    mesh = make_host_mesh(spec["grid"][1], device=dev)
+    cfg = registry.get_config(spec["arch"])
+    dtype = getattr(torch, spec["dtype"])
+    t0 = time.perf_counter()
+    state, _, _ = restore_resharded(ckpt, specs.abstract_train_state(cfg),
+                                    specs.train_state_placement(cfg, mesh),
+                                    mesh)
+    params, opt = state["params"], state["opt"]
+    res = dict(rank=rank, data_rank=mesh.data_rank,
+               model_rank=mesh.model_rank, backend=dist.get_backend(),
+               restore_s=time.perf_counter() - t0)
+    res["held"] = sum(t.numel() * t.element_size() for _, t in tree_leaves(
+        {"p": params, "m": opt.m, "v": opt.v, "step": opt.step}))
+    b, s = batches[0]["tokens"].shape
+    res["shard_bytes"] = specs.shard_bytes(
+        cfg, ShapeSpec("train", s, b, "train"), mesh)
+    batches = [{k: v.to(dev) for k, v in bt.items()} for bt in batches]
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    _, g = TS.make_grad_step(cfg, dtype, mesh=mesh)(params, batches[0])
+    res["grads"] = _host_tree(g)
+    del g
+    step = TS.make_train_step(cfg, AdamWConfig(**TRAIN_MESH_OPT), dtype,
+                              mesh=mesh)
+    res.update(metrics=[], ms=[], collectives=[])
+    for k, bt in enumerate(batches):
+        reset_collective_counts()
+        t0 = sync_clock(torch)
+        params, opt, m = step(params, opt, bt)
+        res["ms"].append((sync_clock(torch) - t0) * 1e3)
+        res["collectives"].append(collective_counts())
+        res["metrics"].append({key: float(v) for key, v in m.items()})
+        if k == 0:
+            res["params"] = _host_tree(params)
+    res.update(peak=torch.cuda.max_memory_allocated(dev),
+               counts=launch_counts())
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_mesh_2x2(torch, dev, seed):
+    """(b): gemma3-1b uncut on a 2x2 grid, four processes on the one card
+    over gloo, f32, weights from the seed at std 1/sqrt(fan-in); the
+    one-process reference on the card first (the gradient of the first
+    batch, the parameters after step 1 and each step's metrics, to the
+    host), the state checkpointed once and restored by every rank.
+    Returns the ranks' launches summed."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch import specs
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding import local_block
+    spec = TRAIN_MESH["b"]
+    cfg = registry.get_config(spec["arch"])
+    (d, m), (b, s), n = spec["grid"], (spec["batch"], spec["seq"]), \
+        spec["steps"]
+    dtype = getattr(torch, spec["dtype"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_b_")
+    try:
+        check_disk(tmp, TRAIN_MESH_DISK_GIB, "phase 15 (b)")
+        params = fan_in_init(torch, cfg, dev, seed + 15)
+        opt = adamw_init(params)
+        batches = [synthetic_lm_batch(seed + 1, k, batch=b, seq=s,
+                                      vocab=cfg.vocab_size, device=dev)
+                   for k in range(n)]
+        t0 = sync_clock(torch)
+        grads = _host_tree(TS.make_grad_step(cfg, dtype)(params,
+                                                         batches[0])[1])
+        opt_cfg = AdamWConfig(**TRAIN_MESH_OPT)
+        one = TS.make_train_step(cfg, opt_cfg, dtype)
+        ref, p, o = [], params, opt
+        for k in range(n):
+            p, o, mt = one(p, o, batches[k])
+            ref.append({key: float(v) for key, v in mt.items()})
+            if k == 0:
+                p1 = _host_tree(p)
+        del p, o, mt
+        t_ref = sync_clock(torch) - t0
+        t0 = time.perf_counter()
+        ckpt = save_checkpoint(f"{tmp}/state", 0, {"params": params,
+                                                   "opt": opt})
+        t_save = time.perf_counter() - t0
+        del params, opt
+        torch.cuda.empty_cache()
+        out_dir = Path(tmp) / "ranks"
+        out_dir.mkdir()
+        t0 = time.perf_counter()
+        mp.spawn(_train_rank, args=(
+            d * m, str(dev), f"{tmp}/pg", spec, str(Path(ckpt).parent),
+            [{k: v.cpu() for k, v in bt.items()} for bt in batches],
+            str(out_dir)), nprocs=d * m, join=True)
+        t_spawn = time.perf_counter() - t0
+        counts, ranks, worst_g, worst_p = {}, [], 0.0, 0.0
+        for r in range(d * m):
+            rec = torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            where = f"phase 15 (b) rank {r}"
+            fm = Mesh(d, m, rec["data_rank"], rec["model_rank"], None, None,
+                      torch.device("cpu"))
+            pspec = dict(specs.train_state_placement(cfg, fm))
+            cut = lambda tree: {p_: local_block(t, pspec[f"['params']{p_}"],
+                                                fm)
+                                for p_, t in tree.items()}
+            for p_, g in rec["grads"].items():
+                want = local_block(grads[p_], pspec[f"['params']{p_}"], fm)
+                err = float((g - want).abs().max()) / (
+                    float(grads[p_].abs().max()) + 1e-30)
+                worst_g = max(worst_g, err)
+                if not err <= 1e-4:
+                    fail(f"{where}: gradient of {p_} {err} of the leaf's "
+                         f"max|g| from the one-process port's (limit 1e-4)")
+            _, moved = adamw_rule(where, rec["params"], cut(p1), cut(grads),
+                                  rec["metrics"][0]["lr"], min(
+                                      1.0, opt_cfg.clip_norm / ref[0][
+                                          "grad_norm"]))
+            worst_p = max(worst_p, moved)
+            if not moved <= 1e-3:
+                fail(f"{where}: the parameters after step 1 {moved} lr from "
+                     f"the one-process update where the clipped |g| > 1e-5")
+            for k, (g, w) in enumerate(zip(rec["metrics"], ref)):
+                for key, lim in (("loss", spec["limit"]),
+                                 ("grad_norm", 1e-4)):
+                    if not abs(g[key] - w[key]) <= lim * abs(w[key]):
+                        fail(f"{where}: step {k + 1} {key} {g[key]} against "
+                             f"the one-process {w[key]} (limit {lim:g})")
+            if rec["held"] != rec["shard_bytes"]["params"] + \
+                    rec["shard_bytes"]["opt_state"]:
+                fail(f"{where}: holds {rec['held']} bytes of train state, "
+                     f"shard_bytes says {rec['shard_bytes']['params']} + "
+                     f"{rec['shard_bytes']['opt_state']}")
+            for key, v in rec["counts"].items():
+                counts[key] = counts.get(key, 0) + v
+            del rec["grads"], rec["params"]
+            ranks.append(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(counts.values()):
+        fail(f"phase 15 (b): kernels launched in training: {counts}")
+    r0 = ranks[0]
+    say(f"  (b) {cfg.name} uncut on a {d}x{m} grid: {d * m} processes "
+        f"sharing the one card over {r0['backend']} (host-staged "
+        f"collectives: times of ranks sharing one card, not of a grid); "
+        f"f32, fan-in weights from the seed, batch {b} x {s} ({b // d} rows "
+        f"a data rank), {n} steps; reference on the card {t_ref:.1f} s, "
+        f"the train state checkpointed in {t_save:.1f} s, spawn to exit "
+        f"{t_spawn:.1f} s, restore {max(r['restore_s'] for r in ranks):.1f}"
+        f" s a rank at most ({card_line()})")
+    say(f"      loss and grad norm on every rank / one process: "
+        + "; ".join(f"step {k + 1} {r0['metrics'][k]['loss']:.6f} / "
+                    f"{w['loss']:.6f}, {r0['metrics'][k]['grad_norm']:.6f} "
+                    f"/ {w['grad_norm']:.6f}" for k, w in enumerate(ref))
+        + f"; gradient blocks within {worst_g:.3g} of each leaf's max|g| "
+        f"(limit 1e-4); parameters after step 1 within {worst_p:.3g} lr of "
+        f"the one-process update where the clipped |g| > 1e-5 (limit "
+        f"1e-3)")
+    say(f"      a rank: train state held " + ", ".join(
+        str(r["held"]) for r in ranks) + " B = shard_bytes' params + "
+        f"opt_state; peak device memory " + ", ".join(
+            f"{r['peak'] / 2**30:.2f}" for r in ranks) + " GiB; rank 0 "
+        f"ms a step " + ", ".join(f"{t:.0f}" for t in r0["ms"])
+        + f"; collectives a step {per_step(r0['collectives'])}")
+    return counts
+
+
+def phase_train_mesh(torch, dev, seed):
+    """Phase 15: the LM train step on (data, model) grids of ranks, each
+    against the one-process port's step on the card.  Returns the
+    kernels' launches over the grids' runs (none: training attends over
+    the full sequence)."""
+    say(f"== phase 15: the LM train step on (data, model) grids of ranks "
+        f"({card_line()})")
+    t_start = time.perf_counter()
+    counts = train_mesh_1x1(torch, dev, seed)
+    for k, v in train_mesh_2x2(torch, dev, seed).items():
+        counts[k] = counts.get(k, 0) + v
+    say(f"  phase 15 {time.perf_counter() - t_start:.1f} s; kernel "
+        f"launches over the grids {counts}")
+    return counts
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
                 lm_counts, serving, tables, sharded, train_counts, slots,
-                mesh, slot_grids, seed):
+                mesh, slot_grids, mesh_train, seed):
     import repro_torch.core as T
     from repro_torch.kernels.binning import bin_readout_cuda
     from repro_torch.kernels.binning.ops import _beta_to_layout
@@ -5117,6 +5539,7 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
         entries[-1]["lm_slots_launches"] = slots_counts.get(name, 0)
         entries[-1]["mesh_launches"] = mesh_counts.get(name, 0)
         entries[-1]["slot_grids_launches"] = grid_counts.get(name, 0)
+        entries[-1]["mesh_train_launches"] = mesh_train.get(name, 0)
         say(f"  {name}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
             f"{b_ms / ms:.1%} of it), plain {plain:.4f} ms, library "
             f"{'-' if lib is None else f'{lib:.4f} ms'}; {launches[name]} "
@@ -5171,9 +5594,10 @@ def main(argv=None) -> int:
     slots = phase_lm_slots(torch, dev, args.seed)
     mesh = phase_mesh(torch, dev, args.seed)
     slot_grids = phase_slot_grids(torch, dev, args.seed)
+    mesh_train = phase_train_mesh(torch, dev, args.seed)
     entries = phase_times(torch, data, model, counts, errs, dist_state,
                           lm_counts, serving, tables, sharded, train_counts,
-                          slots, mesh, slot_grids, args.seed)
+                          slots, mesh, slot_grids, mesh_train, args.seed)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

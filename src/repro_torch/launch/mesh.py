@@ -104,26 +104,35 @@ class Mesh(NamedTuple):
         return {"data": self.data, "model": self.model}
 
 
-def make_host_mesh(model_parallel: int = 1, *, device=None) -> Mesh:
+def make_host_mesh(model_parallel: int = 1, *, device=None,
+                   ranks=None) -> Mesh | None:
     """The (world // model_parallel, model_parallel) grid over the ranks of
-    the initialised process group, row-major.  Every rank creates every
-    group, in the same order (``dist.new_group`` is collective)."""
-    world, rank = dist.get_world_size(), dist.get_rank()
+    the initialised process group, row-major; with ``ranks``, over those
+    ranks of the group only (the others get None).  Every rank of the
+    process group calls it and creates every group, in the same order
+    (``dist.new_group`` is collective)."""
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    world = len(ranks)
     if model_parallel < 1 or world % model_parallel:
         raise ValueError(f"world size {world} is not a multiple of "
                          f"model_parallel={model_parallel}")
     data = world // model_parallel
-    di, mi = divmod(rank, model_parallel)
+    me = dist.get_rank()
+    di, mi = divmod(ranks.index(me), model_parallel) if me in ranks \
+        else (-1, -1)
     data_group = model_group = None
     for j in range(model_parallel):
-        g = dist.new_group([i * model_parallel + j for i in range(data)])
+        g = dist.new_group([ranks[i * model_parallel + j]
+                            for i in range(data)])
         if j == mi:
             data_group = g
     for i in range(data):
-        g = dist.new_group([i * model_parallel + j
+        g = dist.new_group([ranks[i * model_parallel + j]
                             for j in range(model_parallel)])
         if i == di:
             model_group = g
+    if me not in ranks:
+        return None
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))

@@ -7,9 +7,11 @@ PyTorch counterpart of ``jax.ShapeDtypeStruct``: shape and dtype, no
 storage.  ``batch_shardings``, ``param_shardings`` and ``cache_shardings``
 give the spec tree (``repro_torch.sharding.spec_for``'s entries per dim)
 that lays each leaf out over a mesh, as the JAX functions give their
-``NamedSharding`` trees; ``models.sharded`` serves every LM arch by them on
-a (data, model) grid of ranks, and ``shard_bytes`` is the bytes one rank
-holds.  ``useful_flops`` is the model-FLOP numerator of a roofline share.
+``NamedSharding`` trees; ``models.sharded`` serves and trains every LM arch
+by them on a (data, model) grid of ranks (``opt_shardings`` lays out the
+AdamW state), and ``shard_bytes`` is the bytes one rank holds.
+``TRAIN_MICROBATCHES`` is each arch's microbatch count for a train cell.
+``useful_flops`` is the model-FLOP numerator of a roofline share.
 """
 from __future__ import annotations
 
@@ -21,9 +23,20 @@ from ..configs.base import ModelConfig, ShapeSpec
 from ..models import model
 from ..models.mamba2 import mamba2_dims
 from ..models.params import tree_leaves, tree_map
+from ..optim import AdamWState
 from ..sharding import local_shape, spec_for, tree_shardings
 
 META = torch.device("meta")
+
+# microbatch count per arch for train cells, copied from the JAX package's
+# dry run (src/repro/launch/dryrun.py, TRAIN_MICROBATCHES: chosen there so
+# a v5e device's temporaries fit its 16 GB of HBM)
+TRAIN_MICROBATCHES: dict[str, int] = {
+    "phi3-mini-3.8b": 1, "qwen3-14b": 1, "gemma3-1b": 1,
+    "command-r-plus-104b": 4, "llama4-scout-17b-a16e": 2, "mixtral-8x22b": 4,
+    "zamba2-7b": 2, "rwkv6-1.6b": 1, "llama-3.2-vision-90b": 4,
+    "whisper-large-v3": 1,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +104,37 @@ def cache_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
     b, s = shape.global_batch, shape.seq_len
     return tree_shardings(model.cache_axes(cfg, b, s),
                           model.abstract_cache(cfg, b, s, dtype), mesh)
+
+
+def opt_shardings(cfg: ModelConfig, mesh) -> AdamWState:
+    """The AdamW state's layout: m and v as the float32 parameters, the
+    step counter replicated (the JAX dry run's ``_opt_shardings``)."""
+    pspec = param_shardings(cfg, mesh)
+    return AdamWState(step=(), m=pspec, v=pspec)
+
+
+def abstract_train_state(cfg: ModelConfig) -> dict:
+    """A train state ``{"params", "opt"}`` as meta tensors: the float32
+    parameters and their AdamW state (the template a checkpoint of one is
+    restored into)."""
+    params = model.abstract_params(cfg, torch.float32)
+    return {"params": params, "opt": AdamWState(
+        step=torch.empty((), dtype=torch.int32, device=META), m=params,
+        v=params)}
+
+
+def train_state_placement(cfg: ModelConfig, mesh) -> dict:
+    """{keystr path: spec} of every leaf of a ``{"params", "opt"}`` train
+    state by ``param_shardings`` and ``opt_shardings``: the placement
+    ``checkpoint.restore_resharded`` cuts each rank's blocks by."""
+    opt = opt_shardings(cfg, mesh)
+    out = {f"['params']{p}": s for p, s in
+           tree_leaves(param_shardings(cfg, mesh))}
+    for name in ("m", "v"):
+        out.update({f"['opt'].{name}{p}": s for p, s in
+                    tree_leaves(getattr(opt, name))})
+    out["['opt'].step"] = opt.step
+    return out
 
 
 def scalar_sharding(mesh, axes=()):

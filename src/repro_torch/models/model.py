@@ -514,10 +514,17 @@ def chunked_xent(h: Tensor, table: Tensor, labels: Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict[str, Tensor], *,
-            dtype=torch.bfloat16):
+            dtype=torch.bfloat16, mesh=None):
     """Returns (total, {"loss", "aux_loss"}): the mean next-token
     cross-entropy of ``batch`` (tokens, labels with -1 masks) plus
-    ``AUX_LOSS_WEIGHT`` times the auxiliary loss."""
+    ``AUX_LOSS_WEIGHT`` times the auxiliary loss.  With ``mesh``, on that
+    grid (``models.sharded.loss_fn``): this rank's parameter blocks and the
+    global batch in, the global loss and aux out on every rank, ``total``'s
+    backward the rank's share of the gradient."""
+    if mesh is not None:
+        from . import sharded
+        return sharded.loss_fn(sharded.GridLayout(cfg, mesh), params, batch,
+                               dtype=dtype)
     h, aux, _ = forward(cfg, params, batch, dtype=dtype)
     loss = chunked_xent(h, _logit_table(cfg, params), batch["labels"])
     total = loss + AUX_LOSS_WEIGHT * aux

@@ -66,6 +66,22 @@ of each cache leaf.  The contract:
   keeps them all) and attends over the ones its query heads read
   (``Attn.kv_index``): one kv head for all of them, or one a query head.
   B9 runs at the local (B/data, KV_local, G_local, D).
+* **Training** (``loss_fn``; ``launch.steps.make_train_step(mesh=)``).
+  Where autograd records, every collective above is the autograd-visible
+  one of ``repro_torch.sharding`` (its backward the adjoint: all-reduce for
+  an all-reduce, reduce-scatter for an all-gather), and the stack is
+  rematerialized as ``model._backbone_full``'s: each slot when the
+  pattern's period is above 4, else each group; each encoder layer; each
+  cross-entropy chunk.  A group's (or a slot's) weights are gathered
+  INSIDE its checkpointed function, so the recompute gathers them again and
+  no gathered weight lives until the backward.  The carry between groups is
+  cut to the rank's sequence block (``act_seq`` on 'model', where the
+  sequence divides) and gathered again at the next group's start: each
+  group checkpoint keeps (B_local, S/M, D).  The cross-entropy is
+  vocab-parallel: each rank's logits are its vocab block's, the
+  log-sum-exp and the gold logit summed over 'model', never the (B, C, V)
+  logits gathered.  ``loss_fn`` returns the global loss on every rank, with
+  the rank's share of it as what its backward differentiates.
 """
 from __future__ import annotations
 
@@ -74,8 +90,12 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..sharding import (all_gather_dim, all_reduce_, gather_at_use,
-                        local_block, local_shape, spec_for, tree_shardings)
+import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
+
+from ..sharding import (all_gather_dim, all_reduce_, entry_parts,
+                        gather_at_use, gather_dim, keep_block, local_block,
+                        local_shape, reduce_sum, spec_for, tree_shardings)
 from . import mamba2 as m2
 from . import rwkv6 as rw
 from .attention import (cross_decode_attention, decode_attention,
@@ -313,24 +333,33 @@ class GridLayout:
         """The subtree of ``params`` (this rank's blocks) at ``path``, each
         leaf's gathered dims whole; with ``group``, that layer group's
         slice of a stacked subtree (its leading entry dropped)."""
-        tree, gather, spec = params, self.gather, self.spec
+        tree = params
         for k in path:
-            tree, gather, spec = tree[k], gather[k], spec[k]
+            tree = tree[k]
+        if group is not None:
+            tree = tree_map(lambda t: t[group], tree)
+        return self.whole(tree, *path, stacked=group is not None)
+
+    def whole(self, blocks: dict, *path: str, stacked: bool = False):
+        """``blocks`` (this rank's blocks of the subtree at ``path``; with
+        ``stacked``, one group's slices of a stacked subtree) with each
+        leaf's gathered dims all-gathered."""
+        gather, spec = self.gather, self.spec
+        for k in path:
+            gather, spec = gather[k], spec[k]
 
         def use(leaf, dims, sp):
-            if group is None:
+            if not stacked:
                 return gather_at_use(leaf, sp, dims, self.mesh)
-            return gather_at_use(leaf[group], sp[1:], _in_group(dims),
-                                 self.mesh)
-        return tree_map(use, tree, gather, spec)
+            return gather_at_use(leaf, sp[1:], _in_group(dims), self.mesh)
+        return tree_map(use, blocks, gather, spec)
 
     def block(self, full: Tensor, gathered, spec) -> Tensor:
         """This rank's block of a tensor whole along its gathered dims."""
         return local_block(full, spec, self.mesh, gathered)
 
     def reduce(self, y: Tensor, on: bool) -> Tensor:
-        return all_reduce_(y.contiguous(), self.mesh.model_group) if on \
-            else y
+        return reduce_sum(y, self.mesh.model_group) if on else y
 
     # -- vocab --------------------------------------------------------------
 
@@ -371,7 +400,7 @@ def _mamba2(lay: GridLayout, plan: Mamba, p: dict, x: Tensor, **state):
     def whole(proj):
         if not plan.gather_proj:
             return proj
-        return all_gather_dim(proj, 2, lay.mesh.model_group)
+        return gather_dim(proj, 2, lay.mesh.model_group)
     return m2.mamba2_block(p, x, lay.cfg.ssm, heads=plan.heads, whole=whole,
                            total=lambda t: lay.reduce(t, plan.local),
                            **state)
@@ -406,9 +435,10 @@ def _ffn(lay: GridLayout, plan: Ffn, w: dict, x: Tensor, moe: bool):
 
 def _slot_full(lay: GridLayout, slot, name: str, w: dict, x: Tensor, *,
                positions: Tensor, k_pos: Tensor, cross_src: Tensor | None,
-               shared: dict | None, cache_len: int):
+               shared: dict | None, cache_len: int, emit_cache: bool = True):
     """One pattern slot over a full sequence on the grid: (x, its cache
-    leaves whole along their gathered dims, MoE aux)."""
+    leaves whole along their gathered dims (none without ``emit_cache``),
+    MoE aux)."""
     from .model import _cache_len, _ring_from_prefill, _shared_window
     cfg, plan = lay.cfg, lay.slots[name]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -422,9 +452,10 @@ def _slot_full(lay: GridLayout, slot, name: str, w: dict, x: Tensor, *,
             norm_eps=cfg.norm_eps, return_kv=True,
             kv_heads=plan["attn"].kv_index)
         x = x + lay.reduce(y, plan["attn"].reduce)
-        tc = _cache_len(cache_len, slot.window)
-        cache["k"], cache["v"] = (_ring_from_prefill(k, tc),
-                                  _ring_from_prefill(v, tc))
+        if emit_cache:
+            tc = _cache_len(cache_len, slot.window)
+            cache["k"], cache["v"] = (_ring_from_prefill(k, tc),
+                                      _ring_from_prefill(v, tc))
     elif slot.kind == "mamba2":
         h = rmsnorm(w["norm1"], x, cfg.norm_eps)
         y, (cache["conv"], cache["ssm"]) = _mamba2(lay, plan["mixer"],
@@ -448,9 +479,10 @@ def _slot_full(lay: GridLayout, slot, name: str, w: dict, x: Tensor, *,
             window=win, rope_theta=lay.rope, norm_eps=cfg.norm_eps,
             return_kv=True, kv_heads=lay.shared.kv_index)
         x = x + lay.reduce(y, lay.shared.reduce)
-        tc = _cache_len(cache_len, win)
-        cache["shared_k"], cache["shared_v"] = (_ring_from_prefill(k, tc),
-                                                _ring_from_prefill(v, tc))
+        if emit_cache:
+            tc = _cache_len(cache_len, win)
+            cache["shared_k"], cache["shared_v"] = (
+                _ring_from_prefill(k, tc), _ring_from_prefill(v, tc))
 
     if slot.cross_attn:
         h = rmsnorm(w["cross_norm"], x, cfg.norm_eps)
@@ -473,21 +505,29 @@ def _slot_full(lay: GridLayout, slot, name: str, w: dict, x: Tensor, *,
 
 def _encode(lay: GridLayout, params: dict, frames: Tensor) -> Tensor:
     """``model._encode`` on the grid over the rank's rows of ``frames``:
-    each layer head-parallel and row-parallel like a decoder slot."""
+    each layer head-parallel and row-parallel like a decoder slot; where
+    autograd records, each layer rematerialized with its weights gathered
+    inside."""
     cfg, plan = lay.cfg, lay.encoder
     b, l, _ = frames.shape
     pos = torch.arange(l, dtype=torch.int32, device=frames.device)
     h = frames + sinusoidal_positions(pos, cfg.d_model)[None].to(frames.dtype)
-    for g in range(cfg.encoder.n_layers):
-        w = lay.weights(params, "encoder", "groups", group=g)["slot0"]
+
+    def encoder_layer(blocks, h):
+        w = lay.whole(blocks, "encoder", "groups", stacked=True)["slot0"]
         hn = rmsnorm(w["norm1"], h, cfg.norm_eps)
         h = h + lay.reduce(multihead_attention(
             w["attn"], hn, hn, q_pos=pos[None].expand(b, -1), k_pos=pos,
             causal=False, rope_theta=0.0, norm_eps=cfg.norm_eps,
             kv_heads=plan["attn"].kv_index), plan["attn"].reduce)
-        h = h + _ffn(lay, plan["ffn"], w["ffn"],
-                     rmsnorm(w["norm2"], h, cfg.norm_eps), False)[0]
-        del w
+        return h + _ffn(lay, plan["ffn"], w["ffn"],
+                        rmsnorm(w["norm2"], h, cfg.norm_eps), False)[0]
+
+    remat = torch.is_grad_enabled()
+    for g in range(cfg.encoder.n_layers):
+        blocks = tree_map(lambda t: t[g], params["encoder"]["groups"])
+        h = (checkpoint(encoder_layer, blocks, h, use_reentrant=False)
+             if remat else encoder_layer(blocks, h))
     return rmsnorm(params["encoder"]["final_norm"], h, cfg.norm_eps)
 
 
@@ -523,6 +563,12 @@ def _backbone(lay: GridLayout, params: dict, batch: dict, *,
     h = lay.embed(embed, tokens, positions)
     cross_src = _cross_source(lay, params, batch, rows[:1], dtype)
     shared = lay.weights(params, "shared") if cfg.has_shared_attn else None
+    if torch.is_grad_enabled() and not emit_cache:
+        h, aux = _groups_remat(lay, params, h, b, positions=positions,
+                               cross_src=cross_src, shared=shared)
+        del shared, cross_src
+        h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        return h, embed, aux, None
     cache_len = max(max_cache_len, s)
     c_spec, c_gather = lay.cache_layout(b, cache_len)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -552,6 +598,60 @@ def _backbone(lay: GridLayout, params: dict, batch: dict, *,
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return h, embed, aux, (ShardedCache(stacked, b, cache_len) if emit_cache
                            else None)
+
+
+def _groups_remat(lay: GridLayout, params: dict, h: Tensor, batch: int, *,
+                  positions: Tensor, cross_src: Tensor | None,
+                  shared: dict | None):
+    """The layer groups where autograd records, rematerialized as
+    ``model._backbone_full`` does: each slot (``cfg.period`` > 4) or each
+    group is a checkpointed function that gathers its own weights from the
+    rank's blocks, so the backward's recompute gathers them again.  The
+    carry into each group is the rank's sequence block by ``act_seq``
+    (whole where the sequence does not divide 'model'), gathered again
+    where the group starts and before the final norm.  ``batch``: the
+    global rows.
+    Returns (hidden (B_local, S, D), MoE aux of the rank's rows)."""
+    cfg, mesh = lay.cfg, lay.mesh
+    s, d = h.shape[1], h.shape[2]
+    seq = spec_for(("batch", "act_seq", None), (batch, s, d), mesh)[1]
+    cut = (None, seq, None)
+    k_pos = positions[0]
+
+    def whole(x):
+        return x if seq is None else gather_dim(x, 1, mesh.model_group)
+
+    def slot_fn(i, blocks, x):
+        w = lay.whole(blocks, "groups", f"slot{i}", stacked=True)
+        x, _, aux = _slot_full(lay, cfg.layer_pattern[i], f"slot{i}", w, x,
+                               positions=positions, k_pos=k_pos,
+                               cross_src=cross_src, shared=shared,
+                               cache_len=s, emit_cache=False)
+        return x, aux
+
+    def group_fn(blocks, x):
+        x = whole(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(len(cfg.layer_pattern)):
+            x, a = slot_fn(i, blocks[f"slot{i}"], x)
+            aux = aux + a
+        return keep_block(x, cut, mesh), aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = keep_block(h, cut, mesh)
+    for g in range(cfg.n_groups):
+        blocks = tree_map(lambda t: t[g], params["groups"])
+        if cfg.period > 4:
+            h = whole(h)
+            for i in range(len(cfg.layer_pattern)):
+                h, a = checkpoint(slot_fn, i, blocks[f"slot{i}"], h,
+                                  use_reentrant=False)
+                aux = aux + a
+            h = keep_block(h, cut, mesh)
+        else:
+            h, a = checkpoint(group_fn, blocks, h, use_reentrant=False)
+            aux = aux + a
+    return whole(h), aux
 
 
 def forward(lay: GridLayout, params: dict, batch: dict, *,
@@ -584,6 +684,123 @@ def prefill(lay: GridLayout, params: dict, batch: dict, *,
     s = batch["tokens"].shape[1]
     return logits, cache, torch.full((h.shape[0],), s, dtype=torch.int32,
                                      device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# the loss
+# ---------------------------------------------------------------------------
+
+class _LogSumExp(torch.autograd.Function):
+    """log Σ exp over the last dim of logits whose vocab is cut over a
+    group (the whole vocab where ``group`` is None): the max all-reduced
+    by MAX, the sum of exp by a sum, as ``torch.logsumexp`` computes it on
+    one rank.  The backward is the adjoint of the whole: the gradient of
+    lse, summed over the group (every rank's lse is the same function of
+    every rank's logits), times exp(logits - lse), ``torch.logsumexp``'s
+    own backward on one rank."""
+
+    @staticmethod
+    def forward(ctx, logits, group):
+        top = logits.amax(dim=-1, keepdim=True)
+        if group is not None:
+            all_reduce_(top, group, op=dist.ReduceOp.MAX)
+        se = torch.sum(torch.exp(logits - top), dim=-1)
+        if group is not None:
+            all_reduce_(se, group)
+        lse = se.log_().add_(top[..., 0])
+        ctx.group = group
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        if ctx.group is not None:
+            g = all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                            ctx.group)
+        return g[..., None] * torch.exp(logits - lse[..., None]), None
+
+
+def _xent_chunk(lay: GridLayout, h: Tensor, table: Tensor,
+                labels: Tensor) -> Tensor:
+    """Sum over the valid labels of one chunk of lse - gold logit, the
+    logits (B_local, C, V_local) of the rank's vocab block only: the
+    log-sum-exp over the model group's blocks (``_LogSumExp``) and the gold
+    logit from the rank whose range holds the label, summed over
+    'model'."""
+    from .model import _logits_f32
+    logits = _logits_f32(h, table)
+    on = lay.reduce_embed
+    lse = _LogSumExp.apply(logits, lay.mesh.model_group if on else None)
+    local = labels - lay.vocab_lo
+    inside = (local >= 0) & (local < lay.vocab_local)
+    gold = torch.gather(logits, -1, local.clamp(0, lay.vocab_local - 1)[
+        ..., None])[..., 0]
+    gold = lay.reduce(torch.where(inside, gold, 0.0), on)
+    valid = (labels >= 0).to(torch.float32)
+    return torch.sum((lse - gold) * valid)
+
+
+def _xent_sum(lay: GridLayout, h: Tensor, table: Tensor,
+              labels: Tensor) -> Tensor:
+    """The vocab-parallel ``chunked_xent`` before its mean: the sum of the
+    token losses of the rank's rows ``h`` (B_local, S, D) and ``labels``
+    (B_local, S), the same on every rank of a model group.  Sequence
+    chunks of ``model.XENT_CHUNK``, each rematerialized where autograd
+    records."""
+    from .model import XENT_CHUNK as chunk
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, h.shape[1], chunk):
+        args = (lay, h[:, i:i + chunk], table, labels[:, i:i + chunk])
+        total = total + (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                         if remat else _xent_chunk(*args))
+    return total
+
+
+def loss_fn(lay: GridLayout, params: dict, batch: dict, *,
+            dtype=torch.bfloat16):
+    """``model.loss_fn`` on the grid: the GLOBAL batch in (``tokens``,
+    ``labels`` with -1 masks, whisper's ``frames`` or a VLM's
+    ``patches``), this rank's parameter blocks.  Returns (total, {"loss",
+    "aux_loss"}), each the global value and the same on every rank: the
+    mean cross-entropy over the batch's valid labels and the MoE aux loss
+    averaged over 'data'.  ``total``'s backward differentiates the rank's
+    share of it,
+
+        (its rows' token losses / the batch's label count
+         + AUX_LOSS_WEIGHT x its rows' aux / data blocks) / copies,
+
+    where copies is the number of ranks that hold the same rows (the model
+    group, times the data ranks where the rows are not split): the shares
+    sum over the grid to the global total, so each rank's gradient is that
+    of its copy of every leaf, whole once summed over the grid axes the
+    leaf's spec does not name (``launch.steps``)."""
+    from .model import AUX_LOSS_WEIGHT, cast_params
+    mesh = lay.mesh
+    h, _, aux, _ = _backbone(lay, cast_params(params, dtype), batch,
+                             emit_cache=False, max_cache_len=0, dtype=dtype)
+    # the logits' table is the master leaf's block, gathered as it is and
+    # cast in each chunk (as model.loss_fn does): its gradient is summed
+    # over the chunks (and with a tied embedding's) in float32, not in the
+    # compute dtype
+    table = lay.table(params, "embed" if lay.cfg.tie_embeddings
+                      else "unembed")
+    labels = batch["labels"]
+    rows = lay.rows_spec(*labels.shape)
+    xsum = _xent_sum(lay, h, table, local_block(labels, rows, mesh))
+    del h
+    count = torch.clamp(torch.sum(labels >= 0).to(torch.float32), min=1.0)
+    parts = entry_parts(rows[0], mesh)
+    copies = mesh.model * mesh.data // parts
+    share = (xsum / count + AUX_LOSS_WEIGHT * aux / parts) / copies
+    with torch.no_grad():
+        sums = all_reduce_(torch.stack([xsum, aux]), mesh.data_group)
+        loss = sums[0] / (mesh.data // parts) / count
+        aux_loss = sums[1] / mesh.data
+        total = loss + AUX_LOSS_WEIGHT * aux_loss
+    return share + (total - share).detach(), {"loss": loss,
+                                              "aux_loss": aux_loss}
 
 
 # ---------------------------------------------------------------------------

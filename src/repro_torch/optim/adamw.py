@@ -80,11 +80,33 @@ def global_norm(tree: Any) -> Tensor:
     return torch.sqrt(sq)
 
 
+def grid_global_norm(grads: Any, specs: Any, mesh) -> Tensor:
+    """``global_norm`` of a gradient laid out on a (data, model) grid of
+    ranks: ``grads`` this rank's blocks (each whole once summed over the
+    axes its spec does not name), ``specs`` their spec tree
+    (``launch.specs.param_shardings``).  Each distinct block counts once:
+    a rank adds a leaf's float32 sum of squares only where its index is 0
+    along every axis the leaf's spec does not name, and the sums are
+    all-reduced over 'data', then 'model'.  The same on every rank."""
+    from ..sharding import all_reduce_, index_of, unnamed_axes
+    sq = None
+    for (_, g), (_, spec) in zip(tree_leaves(grads), tree_leaves(specs)):
+        if all(index_of(mesh, a) == 0 for a in unnamed_axes(spec)):
+            s = torch.sum(torch.square(g.to(torch.float32)))
+            sq = s if sq is None else sq + s
+    if sq is None:
+        sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    all_reduce_(sq, mesh.data_group)
+    all_reduce_(sq, mesh.model_group)
+    return torch.sqrt(sq)
+
+
 def adamw_update(cfg: AdamWConfig, grads: Any, state: AdamWState,
-                 params: Any):
+                 params: Any, norm: Tensor | None = None):
     """Returns (new_params, new_state, metrics {grad_norm, lr}); the inputs
-    are not changed."""
-    gnorm = global_norm(grads)
+    are not changed.  ``norm``: the gradient's global norm where the caller
+    has it (a grid's, ``grid_global_norm``); else ``global_norm(grads)``."""
+    gnorm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1

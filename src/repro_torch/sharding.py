@@ -19,9 +19,23 @@ resolves there as ``("data",)`` over the product of the two.
 JAX's ``constrain`` is a hint to GSPMD, and torch has none.  On a live grid
 each rank holds its block of every leaf (``local_block``) and the sharded
 step (``models.sharded``) places its collectives itself: ``gather_at_use``
-all-gathers the dims a layer needs whole, ``all_reduce_`` sums a
-row-parallel product's partial results.  Both count their calls and bytes
-by kind (``collective_counts``).
+all-gathers the dims a layer needs whole, ``reduce_sum`` sums a
+row-parallel product's partial results, ``keep_block`` cuts a tensor every
+rank holds whole to the rank's block (the layer boundary's ``act_seq``).
+
+Autograd sees them where it records (``torch.is_grad_enabled()``): each is
+then a ``torch.autograd.Function`` whose backward is its mathematical
+adjoint (the sum over the ranks of <f(x), y> equals that of <x, f^T(y)>):
+the all-reduce's is an all-reduce, the all-gather's a reduce-scatter, and
+keep-my-block's the block placed in zeros of the whole.  So a backward pass
+through the grid's forward, started on each rank from a loss whose sum over
+the ranks is the global loss, gives each rank the partial gradient of its
+own copy of every leaf; a leaf's gradient is whole once it is summed over
+the grid axes its spec does not name (the ranks that hold the same block).
+Under ``no_grad`` or ``inference_mode`` (serving) they are the untracked
+in-place calls (``all_reduce_``, ``all_gather_dim``).  Every collective,
+forward and backward, counts its calls and bytes by kind
+(``collective_counts``).
 """
 from __future__ import annotations
 
@@ -170,11 +184,13 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple[int, ...]:
     return tuple(out)
 
 
-def _group_of(mesh, axis: str):
+def group_of(mesh, axis: str):
+    """The process group of ``mesh`` along ``axis`` ('data' or 'model')."""
     return mesh.model_group if axis == "model" else mesh.data_group
 
 
-def _index_of(mesh, axis: str) -> int:
+def index_of(mesh, axis: str) -> int:
+    """This rank's index along ``axis`` of ``mesh``."""
     return mesh.model_rank if axis == "model" else mesh.data_rank
 
 
@@ -194,7 +210,7 @@ def local_block(array, spec: Spec, mesh, dims: Sequence[int] | None = None):
     this rank's part kept.  A view or a numpy slice, no copy."""
     for i in _dims(spec, dims):
         axis = spec_axis(spec[i])
-        count, index = _count_of(mesh, axis), _index_of(mesh, axis)
+        count, index = _count_of(mesh, axis), index_of(mesh, axis)
         size = array.shape[i]
         if size % count:
             raise ValueError(f"dim {i} of size {size} does not split into "
@@ -219,7 +235,8 @@ def reset_collective_counts() -> None:
 def collective_counts() -> dict[str, dict[str, int]]:
     """{kind: {"calls", "bytes"}} since the last reset: ``all_gather``
     counts the bytes of the gathered result, ``all_reduce`` those of the
-    summed tensor."""
+    summed tensor, ``reduce_scatter`` those of the whole tensor reduced (an
+    all-gather's adjoint)."""
     return {k: {"calls": c, "bytes": b} for k, (c, b) in _COUNTS.items()}
 
 
@@ -229,10 +246,10 @@ def _tally(kind: str, nbytes: int) -> None:
     c[1] += nbytes
 
 
-def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``x`` in place over ``group`` (every size, one rank included);
-    returns ``x``."""
-    dist.all_reduce(x, group=group)
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` in place over ``group`` (every size, one rank
+    included; a sum unless ``op`` says otherwise); returns ``x``."""
+    dist.all_reduce(x, op=op, group=group)
     _tally("all_reduce", x.numel() * x.element_size())
     return x
 
@@ -247,12 +264,114 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out
 
 
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x``, cut into equal blocks along ``dim``:
+    this rank's block (rank order), as an all-reduce of a copy and the
+    block kept: the same sum on every backend (gloo's reduce-scatter is
+    missing or deprecated in some torch versions), for the group's size
+    times a reduce-scatter's bytes."""
+    n, index = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    _tally("reduce_scatter", x.numel() * x.element_size())
+    total = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(total, group=group)
+    return total.narrow(dim, index * size, size).contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over a group; the adjoint is the same sum of the gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """The group's blocks concatenated along a dim; the adjoint sums the
+    gradients over the group and keeps this rank's block
+    (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _KeepBlock(torch.autograd.Function):
+    """Block ``index`` of ``count`` equal blocks along a dim (no
+    communication); the adjoint places the gradient in zeros of the
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, count, index):
+        if x.shape[dim] % count:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
+                             f"split into {count} blocks")
+        size = x.shape[dim] // count
+        ctx.dim, ctx.shape, ctx.start = dim, x.shape, index * size
+        return x.narrow(dim, index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
+        return out, None, None, None
+
+
+def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``: autograd's all-reduce where it
+    records, else the in-place ``all_reduce_`` (serving's call)."""
+    if torch.is_grad_enabled():
+        return _AllReduce.apply(x, group)
+    return all_reduce_(x.contiguous(), group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``all_gather_dim``, with a reduce-scatter for its backward where
+    autograd records."""
+    if torch.is_grad_enabled():
+        return _AllGather.apply(x, dim, group)
+    return all_gather_dim(x, dim, group)
+
+
+def keep_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``x``, a tensor every rank of a group holds
+    whole, by ``spec`` (``local_block``); where autograd records, its
+    gradient is placed in zeros of the whole."""
+    if not torch.is_grad_enabled():
+        return local_block(x, spec, mesh)
+    for i in _dims(spec, None):
+        axis = spec_axis(spec[i])
+        x = _KeepBlock.apply(x, i, _count_of(mesh, axis),
+                             index_of(mesh, axis))
+    return x
+
+
 def gather_at_use(tensor: torch.Tensor, spec: Spec, dims: Sequence[int],
                   mesh) -> torch.Tensor:
     """``tensor`` (this rank's block) with each of ``dims`` that ``spec``
     shards all-gathered over its group: whole along those dims.  The same
-    tensor when none is sharded."""
+    tensor when none is sharded.  Where autograd records, the gradient is
+    reduce-scattered back to the block."""
     for i in _dims(spec, dims):
-        tensor = all_gather_dim(tensor, i,
-                                _group_of(mesh, spec_axis(spec[i])))
+        tensor = gather_dim(tensor, i, group_of(mesh, spec_axis(spec[i])))
     return tensor
+
+
+def unnamed_axes(spec: Spec) -> tuple[str, ...]:
+    """The live grid's axes ('data', 'model') that ``spec`` names for no
+    dim: the leaf is replicated over them."""
+    named = {spec_axis(e) for e in spec if e is not None}
+    return tuple(a for a in ("data", "model") if a not in named)
+

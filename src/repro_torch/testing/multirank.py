@@ -12,7 +12,11 @@ every sharded-serving check of one grid in the same spawn
 records what it served, the other ranks run the worker loop.  An ``lm``
 job serves the LMs on the grid (``_lm_job``): each rank's prefill and
 decode logits, its parameter bytes, its cache blocks, the MoE dispatch
-and the collectives of a step.
+and the collectives of a step.  A ``train`` job runs the train step on the
+grid (``_train_job``): each rank's loss, gradient and AdamW blocks, the
+collectives of a step and what the checkpointed functions saved; a
+``train_grids`` job runs it on several grids in one spawn, each over the
+first ranks of the group.
 """
 from __future__ import annotations
 
@@ -85,6 +89,15 @@ def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
     for name, spec in jobs:
         if spec["mode"] == "lm":
             out[name] = _lm_job(mesh, spec)
+            continue
+        if spec["mode"] == "train":
+            out[name] = _train_job(mesh, spec)
+            continue
+        if spec["mode"] == "collectives":
+            out[name] = _collectives_job(mesh)
+            continue
+        if spec["mode"] == "train_grids":
+            out[name] = _train_grids_job(spec)
             continue
         if spec["mode"] == "serve_cli":
             out[name] = _cli_job("serve", spec["argv"])
@@ -240,6 +253,231 @@ def _lm_job(mesh, spec) -> dict:
                             mesh)
         res["ties"] = sharded.argmax(lay, block).numpy()
     return res
+
+
+def _collectives_job(mesh) -> dict:
+    """Each autograd-visible collective of ``repro_torch.sharding`` over
+    this grid's model group, on float64 inputs drawn from the rank: for
+    ``reduce_sum``, ``gather_dim`` (dim 1) and ``keep_block`` (dim 1 by
+    'model'), <f(x), y> and <x, f^T(y)> on this rank (f^T(y) the gradient
+    autograd gives x for sum(f(x) * y)), the output's shape and the
+    collectives counted in the forward and in the backward; and under
+    ``inference_mode`` the untracked calls each made ('inference': the
+    names of ``all_reduce_`` / ``all_gather_dim`` as called, and whether
+    any output has a grad_fn)."""
+    from .. import sharding as S
+    gen = torch.Generator().manual_seed(1000 + dist.get_rank())
+    group, m = mesh.model_group, mesh.model
+    fns = {"reduce_sum": (lambda x: S.reduce_sum(x, group), (3, 5)),
+           "gather_dim": (lambda x: S.gather_dim(x, 1, group), (3, 2, 4)),
+           "keep_block": (lambda x: S.keep_block(x, (None, "model"), mesh),
+                          (3, 2 * m))}
+    res = {}
+    for name, (f, shape) in fns.items():
+        x = torch.randn(shape, generator=gen,
+                        dtype=torch.float64).requires_grad_(True)
+        S.reset_collective_counts()
+        out = f(x)
+        forward = S.collective_counts()
+        y = torch.randn(out.shape, generator=gen, dtype=torch.float64)
+        S.reset_collective_counts()
+        (out * y).sum().backward()
+        res[name] = dict(fx_y=float((out.detach() * y).sum()),
+                         x_fty=float((x.detach() * x.grad).sum()),
+                         shape=tuple(out.shape), forward=forward,
+                         backward=S.collective_counts())
+    calls, real = [], (S.all_reduce_, S.all_gather_dim)
+
+    def named(fn):
+        def call(*a, **k):
+            calls.append(fn.__name__)
+            return fn(*a, **k)
+        return call
+    S.all_reduce_, S.all_gather_dim = named(real[0]), named(real[1])
+    try:
+        with torch.inference_mode():
+            x = torch.randn((3, 4), generator=gen)
+            outs = [S.reduce_sum(x, group), S.gather_dim(x, 0, group),
+                    S.gather_at_use(x, ("model", None), [0], mesh),
+                    S.keep_block(torch.randn((2 * m, 2), generator=gen),
+                                 ("model", None), mesh)]
+    finally:
+        S.all_reduce_, S.all_gather_dim = real
+    res["inference"] = dict(calls=calls, grad_fn=any(
+        o.grad_fn is not None for o in outs))
+    return res
+
+
+def _numpy_tree(tree):
+    from ..models.params import tree_map
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _metrics(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def _train_grids_job(spec) -> dict:
+    """``_train_job`` on each grid of ``spec['grids']`` ({(data, model):
+    its cases}, in order), each over the first data x model ranks of the
+    process group while the others wait: one spawn for several grids.
+    Returns {grid: this rank's ``_train_job`` result with its data and
+    model rank, or None where the rank is outside the grid}."""
+    from ..launch.mesh import make_host_mesh
+    out = {}
+    for (d, m), cases in spec["grids"].items():
+        mesh = make_host_mesh(m, ranks=range(d * m))
+        out[d, m] = None if mesh is None else _train_job(
+            mesh, {"cases": cases}) | {"data_rank": mesh.data_rank,
+                                       "model_rank": mesh.model_rank}
+    return out
+
+
+def _recorded_step(mesh, cfg, opt_cfg, dtype, nm, params, batch) -> dict:
+    """One ``make_train_step(mesh=)`` from ``params`` and a fresh AdamW
+    state, recording on the way: the gradient AdamW is given ('grads'),
+    the shapes each checkpointed function of the forward saved for its
+    backward, by name in call order ('saved', through
+    ``saved_tensors_hooks``), the token rows each loss ran on this rank
+    ('tokens') and the collectives by kind, forward, backward and the
+    optimizer's ('collectives'); then the step's metrics, new parameter,
+    m and v blocks and step count."""
+    from ..launch import steps
+    from ..models import sharded
+    from ..optim import adamw_init
+    from ..sharding import (collective_counts, local_block,
+                            reset_collective_counts)
+    out = {"saved": [], "tokens": []}
+    real = (sharded.checkpoint, sharded.loss_fn, steps.adamw_update)
+
+    def checkpoint(fn, *args, **kw):
+        shapes = []
+
+        def pack(t):
+            shapes.append(tuple(t.shape))
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            got = real[0](fn, *args, **kw)
+        out["saved"].append((fn.__name__, shapes))
+        return got
+
+    def loss_fn(lay, p, mb, **kw):
+        out["tokens"].append(local_block(mb["tokens"], lay.rows_spec(
+            *mb["tokens"].shape), mesh).numpy())
+        return real[1](lay, p, mb, **kw)
+
+    def adamw_update(opt, grads, *args, **kw):
+        out["grads"] = _numpy_tree(grads)
+        return real[2](opt, grads, *args, **kw)
+    sharded.checkpoint, sharded.loss_fn, steps.adamw_update = (
+        checkpoint, loss_fn, adamw_update)
+    reset_collective_counts()
+    try:
+        p1, o1, m1 = steps.make_train_step(cfg, opt_cfg, dtype, nm,
+                                           mesh=mesh)(
+            params, adamw_init(params), batch)
+    finally:
+        sharded.checkpoint, sharded.loss_fn, steps.adamw_update = real
+    out.update(collectives=collective_counts(), metrics=_metrics(m1),
+               params=_numpy_tree(p1), m=_numpy_tree(o1.m),
+               v=_numpy_tree(o1.v), count=int(o1.step))
+    return out
+
+
+def _train_job(mesh, spec) -> dict:
+    """The train step on this grid.  ``spec['cases']``: dicts of 'name',
+    'cfg', the global numpy 'params', the global numpy 'batch' (tokens,
+    labels and, for whisper and a VLM, frames or patches), 'dtype' ('f32'
+    or 'bf16'), 'opt' (``AdamWConfig`` fields) and optionally
+    'microbatches' (counts past 1 to run as well), 'witness' (True: also
+    the gradient without its sum over 'data'), 'state' (a checkpoint
+    directory of a one-process ``{"params", "opt"}`` train state drawn by
+    ``init_train_state`` from 'seed').  For each case, this rank's: rows;
+    one train step from ``local_lm_params``' blocks and a fresh AdamW
+    state, ``_recorded_step``'s record ('step'); the metrics of
+    ``model.loss_fn(mesh=)`` without autograd ('eval'); per microbatch
+    count the same record ('micro'); with 'witness', the gradient whose
+    leaves replicated over 'data' miss their sum there
+    ('grads_without_data_sum'); with 'state', ``_train_state_check``'s
+    record."""
+    from ..convert import local_lm_params
+    from ..launch import steps
+    from ..models import model as TM
+    from ..models import sharded
+    from ..optim import AdamWConfig
+    from ..sharding import local_block
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    res = {"cases": {}}
+    for case in spec["cases"]:
+        cfg, dtype = case["cfg"], dtypes[case["dtype"]]
+        opt_cfg = AdamWConfig(**case["opt"])
+        params = local_lm_params(case["params"], cfg, mesh, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        b, s = batch["tokens"].shape
+        lay = sharded.GridLayout(cfg, mesh)
+        out = {"rows": local_block(np.arange(b), lay.rows_spec(b, s)[:1],
+                                   mesh),
+               "step": _recorded_step(mesh, cfg, opt_cfg, dtype, 1, params,
+                                      batch),
+               "micro": {nm: _recorded_step(mesh, cfg, opt_cfg, dtype, nm,
+                                            params, batch)
+                         for nm in case.get("microbatches", ())}}
+        with torch.no_grad():
+            out["eval"] = _metrics(TM.loss_fn(cfg, params, batch, dtype=dtype,
+                                              mesh=mesh)[1])
+        if case.get("witness"):
+            real_axes = steps.unnamed_axes
+            steps.unnamed_axes = lambda spec: tuple(
+                a for a in real_axes(spec) if a != "data")
+            try:
+                out["grads_without_data_sum"] = _numpy_tree(
+                    steps.make_grad_step(cfg, dtype, mesh=mesh)(params,
+                                                                batch)[1])
+            finally:
+                steps.unnamed_axes = real_axes
+        if "state" in case:
+            out["state"] = _train_state_check(mesh, cfg, case, opt_cfg,
+                                              dtype, batch)
+        res["cases"][case["name"]] = out
+    return res
+
+
+def _train_state_check(mesh, cfg, case, opt_cfg, dtype, batch) -> dict:
+    """A one-process train state's checkpoint (``case['state']``, drawn
+    from ``case['seed']``) restored on this rank by ``param_shardings``
+    and ``opt_shardings`` against ``init_train_state(mesh=)``'s blocks of
+    the same draws: whether they are equal leaf by leaf ('restored_equal')
+    and so is one step from each ('steps_equal'), the bytes of the
+    parameter, m, v and step blocks held ('held') and ``shard_bytes``'
+    columns for this batch's train cell ('shard_bytes')."""
+    from ..checkpoint import restore_resharded
+    from ..configs.base import ShapeSpec
+    from ..launch import specs, steps
+    from ..models.params import tree_leaves
+    own = steps.init_train_state(
+        cfg, torch.Generator().manual_seed(case["seed"]), mesh=mesh)
+    got, _, _ = restore_resharded(
+        case["state"], specs.abstract_train_state(cfg),
+        specs.train_state_placement(cfg, mesh), mesh)
+    got = (got["params"], got["opt"])
+
+    def leaves(params, opt):
+        return tree_leaves({"p": params, "m": opt.m, "v": opt.v}) + [
+            ("step", opt.step)]
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+    step = steps.make_train_step(cfg, opt_cfg, dtype, mesh=mesh)
+    after = [step(*state, batch) for state in (got, own)]
+    b, s = batch["tokens"].shape
+    return dict(
+        restored_equal=equal(leaves(*got), leaves(*own)),
+        steps_equal=equal(leaves(*after[0][:2]), leaves(*after[1][:2]))
+        and all(torch.equal(after[0][2][k], after[1][2][k])
+                for k in after[0][2]),
+        held=sum(t.numel() * t.element_size() for _, t in leaves(*own)),
+        shard_bytes=specs.shard_bytes(cfg, ShapeSpec("train", s, b, "train"),
+                                      mesh))
 
 
 def _compressed_psum_job(spec) -> dict:

@@ -295,3 +295,61 @@ def test_local_block_and_shape():
                        {"data": 2, "model": 4}) == (2, 6, 2)
     with pytest.raises(ValueError, match="does not split"):
         local_shape((3,), ("model",), {"model": 2})
+
+
+# ---------------------------------------------------------------------------
+# the collectives autograd sees
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["2 ranks", "4 ranks"])
+def collectives(request, tmp_path_factory):
+    """``testing.multirank``'s ``collectives`` job on a 1 x n grid of gloo
+    ranks: (n, each rank's record)."""
+    from repro_torch.testing.multirank import spawn_ranks
+    n = request.param
+    res = spawn_ranks(n, n, str(tmp_path_factory.mktemp(f"coll{n}")), {},
+                      [("c", dict(mode="collectives"))])
+    return n, [r["c"] for r in res]
+
+
+def test_each_collectives_backward_is_its_adjoint(collectives):
+    """The sum over the ranks of <f(x), y> equals the sum over the ranks
+    of <x, f^T(y)>, f^T(y) the gradient autograd gives, within 1e-6: the
+    all-reduce's backward is an all-reduce, the all-gather's a
+    reduce-scatter, keep-my-block's the block placed in zeros."""
+    n, ranks = collectives
+    for name in ("reduce_sum", "gather_dim", "keep_block"):
+        lhs = sum(r[name]["fx_y"] for r in ranks)
+        rhs = sum(r[name]["x_fty"] for r in ranks)
+        assert abs(lhs - rhs) <= 1e-6 * max(abs(lhs), 1.0), (name, lhs, rhs)
+    assert ranks[0]["gather_dim"]["shape"] == (3, 2 * n, 4)
+    assert ranks[0]["keep_block"]["shape"] == (3, 2)
+
+
+def test_collective_counts_cover_the_backward(collectives):
+    """``collective_counts`` tallies each pass by kind: the all-reduce's
+    backward is one more all-reduce of the same bytes, the all-gather's
+    one reduce-scatter of the gathered bytes (float64), keep-my-block none
+    in either pass."""
+    n, ranks = collectives
+    for r in ranks:
+        ar, ag, kb = r["reduce_sum"], r["gather_dim"], r["keep_block"]
+        assert ar["forward"] == ar["backward"] == {
+            "all_reduce": {"calls": 1, "bytes": 3 * 5 * 8}}
+        assert ag["forward"] == {"all_gather": {"calls": 1,
+                                                "bytes": 3 * 2 * n * 4 * 8}}
+        assert ag["backward"] == {"reduce_scatter": {
+            "calls": 1, "bytes": 3 * 2 * n * 4 * 8}}
+        assert kb["forward"] == kb["backward"] == {}
+
+
+def test_inference_mode_calls_the_untracked_collectives(collectives):
+    """Under ``inference_mode`` (serving) ``reduce_sum``, ``gather_dim``,
+    ``gather_at_use`` and ``keep_block`` take the untracked in-place calls
+    (``all_reduce_``, ``all_gather_dim``, a slice) and record no graph:
+    serving's collectives are those of before."""
+    _, ranks = collectives
+    for r in ranks:
+        assert r["inference"]["calls"] == ["all_reduce_", "all_gather_dim",
+                                           "all_gather_dim"]
+        assert not r["inference"]["grad_fn"]
