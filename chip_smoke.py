@@ -204,9 +204,9 @@ non-zero:
    vocab 262144; about 1.0 B parameters) through ``launch/train.py``'s
    ``build`` (``make_train_step``: bf16 compute, float32 master parameters
    and AdamW state, remat per slot and per cross-entropy chunk) in
-   ``RestartableLoop``: batch 8 x 2048 from ``synthetic_lm_batch``, 12
+   ``RestartableLoop``: batch 8 x 2048 from ``synthetic_lm_batch``, 6
    steps, a checkpoint (12 GB, into a temporary directory removed after)
-   every 6, a failure injected at step 8.  Before it, the bf16 logits
+   every 3, a failure injected at step 5.  Before it, the bf16 logits
    product with a float32 result (``torch.mm``'s out_dtype and the
    backward written for it) against the float32 product (logits 1e-5 of
    max, gradients within one bf16 rounding, 2^-8, as the JAX package's
@@ -245,7 +245,9 @@ non-zero:
    (``testing.train.fan_in_factors``), prefill/decode consistency within
    2e-3 of max|reference|: rwkv6 and whisper (its frames the same) one
    decode step after prefill(x[:S]) against prefill(x[:S+1]); zamba2
-   prefill(x[:1792]) and 256 decode steps against prefill(x[:2048]),
+   prefill(x[:192]) and 64 decode steps against prefill(x[:256]) (each
+   within one 256-token SSD chunk: a prefill past one chunk ends on a
+   chunk's edge, so a check across chunks takes 256 decode steps),
    logits, conv and ssm states and the shared attention's rows; mixtral
    at batch 2, a 1024-token prompt and capacity factor 8.0.  Its launches
    are listed apart in the ``kernels`` line (``lm_slots_launches``).
@@ -257,18 +259,18 @@ non-zero:
    the card on the same weights, run first, its logits moved to the host
    and its memory freed before the grid starts; the grids restore each
    rank's blocks with ``restore_resharded`` by ``param_shardings`` from one
-   checkpoint a model, written once into a temporary directory (18 GiB
+   checkpoint a model, written once into a temporary directory (13 GiB
    free needed).  (a) phase 7's run (gemma3-1b uncut, batch 8, a
    2048-token prompt, 64 tokens) on a 1x1 grid over NCCL through
    ``generate(mesh=)``: tokens equal the reference's, logits within 1e-5
    of max|logit| (whether bitwise printed), B9 26 times a decode step;
    collectives of the run, and of one prefill and one decode step, by
    kind.  (c) gemma3-1b uncut on a 2x2 grid and (b) qwen3-14b at full
-   width cut to 8 of its 40 layers on a 1x4 grid, each four processes
+   width cut to 4 of its 40 layers on a 1x4 grid, each four processes
    spawned on the one card over gloo (NCCL refuses two ranks on one
    device; their times are of ranks sharing one card, not of a grid):
-   batch 8 (4 a data rank), a 512-token prompt, 4 decode steps (c), and
-   batch 4, 512, 16 steps (b), the steps fed the reference's greedy
+   batch 8 (4 a data rank), a 512-token prompt, 2 decode steps (c), and
+   batch 4, 512, 4 steps (b), the steps fed the reference's greedy
    tokens; every step's logits within 2e-3 of max|logit| on every rank,
    each rank's parameter bytes equal to ``launch.specs.shard_bytes``, B9
    launched layers x steps on every rank at the local (B 4, KV 1, G 2, D
@@ -282,15 +284,15 @@ non-zero:
    attention on the rank's kv heads), as phase 13's (b) and (c): f32
    weights from the seed at std 1/sqrt(fan-in), the one-process reference
    first, one checkpoint a model (free disk checked before each: mixtral's
-   2 layers are 21.6 GB), four processes on the card over gloo fed the
-   reference's greedy tokens, batch 4.  (a) mixtral-8x22b, 2 of its 56
-   layers, on 1x4 (2 experts a rank), a 512-token prompt, 8 decode steps:
+   layer is 11.8 GB), four processes on the card over gloo fed the
+   reference's greedy tokens, batch 4.  (a) mixtral-8x22b, 1 of its 56
+   layers, on 1x4 (2 experts a rank), a 512-token prompt, 2 decode steps:
    the prefill's kept MoE pairs equal on the model ranks and to the
    reference's; (b) zamba2-7b, 9 of its 81 layers (3 periods, the shared
    block applied 3 times), on 2x2 (56 ssm heads a rank, FSDP over
-   'data'), 512, 8; (c) rwkv6-1.6b uncut on 1x4 (8 heads a rank), 512, 8;
+   'data'), 512, 2; (c) rwkv6-1.6b uncut on 1x4 (8 heads a rank), 512, 4;
    (d) whisper-large-v3 uncut on 2x2 (its encoder over 1500 frames from
-   the seed, 10 heads a rank, the vocab split), a 448-token prompt, 4
+   the seed, 10 heads a rank, the vocab split), a 448-token prompt, 2
    steps.  Every step's logits within 2e-3 of max|logit| on every rank,
    parameter bytes a rank ``shard_bytes``', B9 layers x steps a rank at
    the local (B 4, KV 2, G 6, D 128), (B 2, KV 16, G 1, D 112), none, and
@@ -380,6 +382,29 @@ non-zero:
    ``slot_grids_by_shape``).  Last, one replay of each of phase 8's
    graphs: by CUDA events back to back, and its kernels' device time by
    torch.profiler over the warm path's wall (the device-busy share).
+16. The dry run (``repro_torch.launch.dryrun``: rank 0 of the fake 16x16
+   and 2x16x16 grids on meta tensors, counted by ``repro_torch.roofline``),
+   run last.  (a) ``python -m repro_torch.launch.dryrun`` over the cells of
+   ``--mesh both --cells all`` and of ``--cells krr --krr-variant
+   hashjoin``, one subprocess a (mesh, arch) and a (mesh, KRR variant),
+   run with (b)'s dry runs ``DRYRUN_LANES`` at a time from before phase
+   1's build (they need no card, and take the cores the earlier phases
+   leave idle); the phase waits for any still going after (b)'s and (c)'s
+   runs on the card: every process must exit 0 with one line a cell; a compact
+   line a cell is printed.  (b) Three runs of the
+   earlier phases, each on the card on a one-rank NCCL grid under the
+   tracer, against its dry run on a fake 1x1 grid in a subprocess (the fake
+   group cannot live beside NCCL): phase 15 (a)'s gemma3-1b train step (8
+   x 2048, bf16 compute, float32 master weights and AdamW state), phase
+   7's gemma3-1b decode step (f32, batch 8, cache 2112, B9 on each
+   attention layer) and phase 6's psum step at the ``wlsh_krr`` config
+   (n 2^22, m 64, B 2^23; B1, B2, B3 and the readout).  Their FLOPs, HBM
+   bytes, collective calls and bytes, kernel credits and host reads must
+   be equal, and the dry run's arguments plus peak within
+   ``DRYRUN_PEAK_BAND`` of the arguments plus the growth of
+   ``max_memory_allocated`` on the card.  (c) The fused matvec op at phase
+   3's shapes under the tracer on the card: B2 and the readout credited,
+   no (64, 2^23) float32 tensor made.
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -388,6 +413,7 @@ of the repository, it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -450,7 +476,7 @@ LM = dict(arch="gemma3-1b", batch=8, prompt=2048, gen=64)
 # 8.0, so that no pair is dropped in either run.
 LM_SLOTS = (
     dict(arch="zamba2-7b", layers=None, batch=8, prompt=2048, gen=64, b9=27,
-         check=(8, 1792, 256)),
+         check=(8, 192, 64)),
     dict(arch="rwkv6-1.6b", layers=None, batch=8, prompt=2048, gen=64, b9=0,
          check=(8, 2048, 1)),
     dict(arch="mixtral-8x22b", layers=2, batch=8, prompt=4096, gen=64, b9=2,
@@ -3651,8 +3677,8 @@ def phase_sharded(torch, data, model, serving, seed):
 # bf16 compute from float32 master parameters and AdamW state, batch 8 x
 # 2048 (phase 7's prompt), steps through RestartableLoop with one checkpoint
 # before an injected failure and one at the end (keep 1)
-TRAIN = dict(arch="gemma3-1b", batch=8, seq=2048, steps=12, ckpt_every=6,
-             fail_at=8, lr=3e-4)
+TRAIN = dict(arch="gemma3-1b", batch=8, seq=2048, steps=6, ckpt_every=3,
+             fail_at=5, lr=3e-4)
 TRAIN_DISK_GIB = 26       # two 12 GB checkpoints while the older is swept
 PEAK_BF16_OPS_PER_S = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 
@@ -4318,10 +4344,10 @@ MESH = dict(
     a=dict(arch="gemma3-1b", layers=None, grid=(1, 1), batch=8, prompt=2048,
            steps=63, b9=(1, 4, 256), limit=1e-5),
     c=dict(arch="gemma3-1b", layers=None, grid=(2, 2), batch=8, prompt=512,
-           steps=4, b9=(1, 2, 256), limit=2e-3),
-    b=dict(arch="qwen3-14b", layers=8, grid=(1, 4), batch=4, prompt=512,
-           steps=16, b9=(2, 5, 128), limit=2e-3))
-MESH_DISK_GIB = 18        # qwen3-14b's 8 layers in f32 (16.8 GB), and room
+           steps=2, b9=(1, 2, 256), limit=2e-3),
+    b=dict(arch="qwen3-14b", layers=4, grid=(1, 4), batch=4, prompt=512,
+           steps=4, b9=(2, 5, 128), limit=2e-3))
+MESH_DISK_GIB = 13        # qwen3-14b's 4 layers in f32 (11.5 GB), and room
 MESH_TIMEOUT_S = 600.0
 
 
@@ -4776,8 +4802,8 @@ def summed_launches(runs):
 
 # Each grid is four processes sharing the card over gloo, its blocks
 # restored from one checkpoint of the model, fed the one-process
-# reference's greedy tokens.  mixtral-8x22b at phase 12's cut (2 of 56
-# layers: 10 GB a layer in f32) holds 2 experts a rank; zamba2-7b is cut to
+# reference's greedy tokens.  mixtral-8x22b cut to 1 of 56 layers (10 GB
+# a layer in f32) holds 2 experts a rank; zamba2-7b is cut to
 # 3 of its 27 periods (9 of 81 layers; FSDP's gathers go through the host)
 # and runs 56 ssm heads a rank; rwkv6-1.6b 8 heads a rank; whisper-large-v3
 # its encoder over 1500 frames and cross attention, 10 heads a rank, the
@@ -4788,14 +4814,14 @@ def summed_launches(runs):
 # that many row blocks (``split_row_products``), to read how far a change
 # of summation order alone moves the logits.
 SLOT_GRIDS = dict(
-    a=dict(arch="mixtral-8x22b", layers=2, grid=(1, 4), batch=4, prompt=512,
-           steps=8, b9=(2, 6, 128), limit=2e-3),
+    a=dict(arch="mixtral-8x22b", layers=1, grid=(1, 4), batch=4, prompt=512,
+           steps=2, b9=(2, 6, 128), limit=2e-3),
     b=dict(arch="zamba2-7b", layers=9, grid=(2, 2), batch=4, prompt=512,
-           steps=8, b9=(16, 1, 112), limit=2e-3),
+           steps=2, b9=(16, 1, 112), limit=2e-3),
     c=dict(arch="rwkv6-1.6b", layers=None, grid=(1, 4), batch=4, prompt=512,
-           steps=8, b9=None, limit=2e-3, reorder=4),
+           steps=4, b9=None, limit=2e-3, reorder=4),
     d=dict(arch="whisper-large-v3", layers=None, grid=(2, 2), batch=4,
-           prompt=448, steps=4, b9=(10, 1, 64), limit=2e-3))
+           prompt=448, steps=2, b9=(10, 1, 64), limit=2e-3))
 
 
 def reordered_reference(torch, cfg, params, tokens, steps, source, ref_ids,
@@ -5317,6 +5343,329 @@ def phase_train_mesh(torch, dev, seed):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run
+# ---------------------------------------------------------------------------
+
+# (b)'s peak band: the dry run's arguments plus peak against the card's,
+# written in PERF.md before the run that held it
+DRYRUN_PEAK_BAND = 0.05
+# how long phase 16 waits for dry runs still going when it starts
+DRYRUN_TIMEOUT_S = 300.0
+# dry runs at once beside phases 1-10: the card's host has 8 cores, and
+# the build's nvcc and the phases' own process need the rest
+DRYRUN_LANES = 6
+# (b)'s runs: phase 15 (a)'s train step, phase 7's decode step and phase
+# 6's psum step, each on a 1x1 grid
+CALIBRATION = {
+    "train": dict(arch="gemma3-1b", kind="train", batch=8, seq=2048,
+                  dtype="bfloat16"),
+    "decode": dict(arch="gemma3-1b", kind="decode", batch=8, seq=2112,
+                   dtype="float32"),
+    "krr": dict(shape="krr_4m"),
+}
+
+
+def dryrun_jobs(tmp: str):
+    """(label, argv, log path, cells) of phase 16's processes: (b)'s dry
+    runs (this script with ``--calibration-dry-run``), then for (a) one
+    ``python -m repro_torch.launch.dryrun`` a (mesh, arch), the largest
+    models first, and one a (mesh, KRR variant): the cells of ``--mesh
+    both --cells all`` and of ``--cells krr --krr-variant hashjoin``."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import matmul_params
+    stem = lambda label: f"{tmp}/{label.replace(' ', '_')}"
+    jobs = [("calibration", [sys.executable, str(REPO / "chip_smoke.py"),
+                             "--calibration-dry-run",
+                             f"{tmp}/calibration.json"],
+             f"{tmp}/calibration.log", 0)]
+
+    def add(label, args, cells):
+        jobs.append((label, [sys.executable, "-m", "repro_torch.launch.dryrun",
+                             *args, "--out", f"{stem(label)}.jsonl"],
+                     f"{stem(label)}.log", cells))
+    archs = sorted(registry.ARCH_IDS, key=lambda a: -matmul_params(
+        registry.get_config(a))[1])
+    for arch in archs:
+        n = len(list(dryrun.iter_cells("lm", arch, None)))
+        for mesh in ("pod", "multipod"):
+            add(f"{arch} {mesh}", ["--mesh", mesh, "--cells", "lm", "--arch",
+                                   arch], n)
+    for variant in ("psum", "hashjoin"):
+        for mesh in ("pod", "multipod"):
+            add(f"wlsh_krr {variant} {mesh}", ["--mesh", mesh, "--cells",
+                                               "krr", "--krr-variant",
+                                               variant], 2)
+    return jobs
+
+
+@contextlib.contextmanager
+def dryruns():
+    """Phase 16's dry runs (``dryrun_jobs``), a process each, started on
+    entry, before the build, ``DRYRUN_LANES`` at a time: they need no card
+    and run beside the earlier phases on the cores those leave idle (all
+    at once, even at nice 19, they slowed the build's nvcc threefold on
+    the card's host).  Yields (jobs, futures of their exit codes, start
+    time); on exit cancels the jobs not started, kills those running and
+    removes their files."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    jobs, running = dryrun_jobs(tmp), set()
+    lock, stopping = threading.Lock(), threading.Event()
+
+    def run(argv, log):
+        with lock:
+            if stopping.is_set():
+                return None
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(argv, stdout=fh,
+                                        stderr=subprocess.STDOUT, env=env,
+                                        cwd=REPO)
+            running.add(proc)
+        rc = proc.wait()
+        with lock:
+            running.discard(proc)
+        return rc
+
+    pool = ThreadPoolExecutor(DRYRUN_LANES)
+    try:
+        t0 = time.time()
+        yield jobs, [pool.submit(run, argv, log)
+                     for _, argv, log, _ in jobs], t0
+    finally:
+        with lock:
+            stopping.set()
+            for proc in running:
+                proc.kill()
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def calibration_cell(name, mesh):
+    """(b)'s cell ``name`` of ``CALIBRATION`` on ``mesh`` (the dry run's
+    own lowering: the step built as the dry run builds it, meta
+    arguments)."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    spec = CALIBRATION[name]
+    if name == "krr":
+        return dryrun.lower_krr_cell(spec["shape"], mesh, "psum")
+    shape = ShapeSpec(name, spec["seq"], spec["batch"], spec["kind"])
+    return dryrun.lower_lm_cell(spec["arch"], shape, mesh, micro=1,
+                                dtype=getattr(torch, spec["dtype"]))
+
+
+def calibration_dry_runs(path: str) -> None:
+    """(b)'s dry runs, on a fake 1x1 grid in a process of their own (the
+    fake group cannot live beside NCCL): each cell's counts, arguments and
+    peak, as JSON to ``path``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_grid
+    out = {}
+    with fake_grid(1, 1) as mesh:
+        for name in CALIBRATION:
+            t0 = time.perf_counter()
+            cell = calibration_cell(name, mesh)
+            trace, out_bytes = dryrun.trace_cell(cell)
+            out[name] = dict(summary=trace.summary(), arg=cell.arg_bytes,
+                             peak=trace.peak_bytes, out=out_bytes,
+                             stand_ins=trace.stand_ins,
+                             seconds=time.perf_counter() - t0)
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+
+
+def calibration_args(torch, name, cell, mesh, data, seed):
+    """Real arguments on the card of (b)'s cell ``name``, of the shapes and
+    dtypes of its dry run's meta arguments."""
+    from repro_torch import core as T
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.launch import steps as TS
+    from repro_torch.launch.serve import init_local
+    from repro_torch.models import model as TM
+    from repro_torch.models.sharded import ShardedCache
+    dev = mesh.device
+    spec = CALIBRATION[name]
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    if name == "krr":
+        x, y, lsh = cell.args
+        rng = np.random.default_rng(seed + 16)
+        return (data[0][:x.shape[0]], data[1][:y.shape[0]],
+                T.sample_lsh_params(rng, lsh.w.shape[0], lsh.w.shape[1],
+                                    T.GammaPDF(2.0, 1.0), device=dev))
+    cfg = registry.get_config(spec["arch"])
+    b, s = spec["batch"], spec["seq"]
+    if name == "train":
+        params, opt = TS.init_train_state(cfg, gen, mesh=mesh)
+        batch = {k: v.to(torch.int32) for k, v in synthetic_lm_batch(
+            seed, 0, batch=b, seq=s, vocab=cfg.vocab_size,
+            device=dev).items()}
+        return params, opt, batch
+    dtype = getattr(torch, spec["dtype"])
+    params = init_local(cfg, mesh, gen, dtype)
+    cache = ShardedCache(TM.init_cache(cfg, b, s, dtype, device=dev), b, s)
+    return (params, cache, torch.zeros((b, 1), dtype=torch.int32, device=dev),
+            torch.full((b,), s - 64, dtype=torch.int32, device=dev))
+
+
+def calibration_runs(torch, dev, data, seed, tmp: str) -> dict:
+    """(b)'s runs on the card, each traced on a one-rank NCCL grid (its
+    store under ``tmp``): {name: counts, arguments, the growth of
+    ``max_memory_allocated``, stand-ins, seconds}."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.roofline import Tracer
+    init_distributed(dev, backend="nccl", init_method=f"file://{tmp}/pg",
+                     rank=0, world_size=1, timeout_s=MESH_TIMEOUT_S)
+    real = {}
+    try:
+        mesh = make_host_mesh(1, device=dev)
+        for name in CALIBRATION:
+            cell = calibration_cell(name, mesh)
+            args = calibration_args(torch, name, cell, mesh, data, seed)
+            grad = contextlib.nullcontext() if cell.train \
+                else torch.inference_mode()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = sync_clock(torch)
+            with grad, Tracer() as tracer:
+                out = cell.step(*args)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            growth = torch.cuda.max_memory_allocated() - base
+            real[name] = dict(summary=json.loads(json.dumps(
+                tracer.trace.summary())), arg=cell.arg_bytes, growth=growth,
+                stand_ins=tracer.trace.stand_ins, seconds=seconds)
+            del out, args, tracer
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return real
+
+
+def dryrun_results(jobs, futures) -> list[dict]:
+    """Waits up to ``DRYRUN_TIMEOUT_S`` for phase 16's processes; fails
+    unless each exited 0 and printed a line a cell.  Returns (a)'s rows."""
+    from concurrent.futures import wait
+    if wait(futures, timeout=DRYRUN_TIMEOUT_S).not_done:
+        fail(f"phase 16: the dry runs did not end within "
+             f"{DRYRUN_TIMEOUT_S} s of the phase's start")
+    rows, failed = [], []
+    for (label, _, log, cells), fut in zip(jobs, futures):
+        text = Path(log).read_text()
+        if fut.result() != 0:
+            failed.append(f"{label}: rc {fut.result()}: {text[-2000:]}")
+            continue
+        if label == "calibration":
+            continue
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("[dryrun] ") and ": trace " in ln]
+        if len(lines) != cells:
+            failed.append(f"{label}: {len(lines)} cells of {cells}")
+            continue
+        jsonl = Path(log[:-len(".log")] + ".jsonl")
+        rows += [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    if failed:
+        fail("phase 16 (a): dry runs failed:\n" + "\n".join(failed))
+    return rows
+
+
+def phase_dryrun(torch, dev, data, seed, sweep):
+    """16. The dry run (see the module docstring); ``sweep`` is what
+    ``dryruns`` yields."""
+    from repro_torch.configs.wlsh_krr import CONFIG as KRR
+    from repro_torch.core import RECT, GammaPDF, sample_lsh_params
+    from repro_torch.core.operator import WLSHOperator
+    from repro_torch.kernels.binning import ops as BO
+    from repro_torch.roofline import Tracer, materializes_shape
+    say(f"== phase 16: the dry run (launch.dryrun, roofline) "
+        f"({card_line()})")
+    t_phase = time.perf_counter()
+    jobs, futures, t_sweep = sweep
+    real = calibration_runs(torch, dev, data, seed,
+                            str(Path(jobs[0][2]).parent))
+
+    # (c) the fused matvec at phase 3's shapes makes no (m, B) table
+    n, m, b = KRR.n_points, KRR.m, KRR.table_size
+    lsh = sample_lsh_params(np.random.default_rng(seed), m, KRR.dim,
+                            GammaPDF(2.0, 1.0), device=dev)
+    op = WLSHOperator(lsh=lsh, bucket=RECT, table_size=b, fused=True)
+    idx = op.build_index(op.featurize(data[0][:n]), blocked=True)
+    with Tracer() as tracer:
+        BO.bin_fused_matvec_op(idx, data[1][:n])
+        torch.cuda.synchronize()
+    table = materializes_shape(tracer.trace, (m, b), "f32")
+    fused_kernels = sorted(tracer.trace.kernels)
+    del idx, op, tracer
+    torch.cuda.empty_cache()
+
+    rows = dryrun_results(jobs, futures)
+    # a process's log is written last as it ends
+    wall = max(Path(log).stat().st_mtime for _, _, log, _ in jobs) - t_sweep
+    with open(Path(jobs[0][2]).with_suffix(".json")) as fh:
+        dry = json.load(fh)
+    say(f"  (a) python -m repro_torch.launch.dryrun, the cells of --mesh "
+        f"both --cells all and --cells krr --krr-variant hashjoin, "
+        f"{len(jobs) - 1} processes (one a mesh and arch or KRR variant, "
+        f"started with (b)'s before the build, {DRYRUN_LANES} at a time): "
+        f"{len(rows)} cells traced, every process done {wall:.1f} s after "
+        f"the start")
+    for r in sorted(rows, key=lambda r: r["name"]):
+        say(f"    {r['name']}: trace {r['trace_s']} s, args+temp "
+            f"{(r['arg_bytes_per_device'] + r['temp_bytes_per_device']) / 1e9:.2f}"
+            f" GB a rank, flops {r['hlo_flops']:.3e}, {r['dominant']}, "
+            f"stand-ins {len(r['stand_ins'])}")
+    want = sum(cells for *_, cells in jobs)
+    if len(rows) != want:
+        fail(f"phase 16 (a): {len(rows)} rows of {want} cells")
+
+    # the checks of (b) and (c)
+    bad = []
+    for name in CALIBRATION:
+        d, r = dry[name], real[name]
+        same = d["summary"] == r["summary"]
+        d_mem = d["arg"] + d["peak"]
+        r_mem = r["arg"] + r["growth"]
+        say(f"  (b) {name}: counts {'equal' if same else 'DIFFER'}: flops "
+            f"{r['summary']['flops']:.6e} (dry {d['summary']['flops']:.6e}), "
+            f"hbm bytes {r['summary']['hbm_bytes']:.6e} (dry "
+            f"{d['summary']['hbm_bytes']:.6e}), collectives "
+            f"{r['summary']['collectives']}, kernels "
+            f"{ {k: v['calls'] for k, v in r['summary']['kernels'].items()} },"
+            f" host reads {r['summary']['host_reads']}; arguments + peak "
+            f"{d_mem / 2**30:.2f} GiB dry against {r_mem / 2**30:.2f} GiB on "
+            f"the card (arguments {r['arg'] / 2**30:.2f} GiB + the growth of "
+            f"max_memory_allocated {r['growth'] / 2**30:.2f}; dry temporaries "
+            f"{(d['peak'] - d['out']) / 2**30:.2f}, outputs "
+            f"{d['out'] / 2**30:.2f}); traced run {r['seconds']:.1f} s, dry "
+            f"run {d['seconds']:.1f} s")
+        if not same:
+            bad.append(f"(b) {name}: counts differ: card {r['summary']}, "
+                       f"dry {d['summary']}")
+        if not abs(r_mem / d_mem - 1) <= DRYRUN_PEAK_BAND:
+            bad.append(f"(b) {name}: card {r_mem} B against dry {d_mem} B "
+                       f"(band {DRYRUN_PEAK_BAND:.0%})")
+    say(f"  (c) the fused matvec op at phase 3's shapes (n {n}, m {m}, B "
+        f"{b}) under the tracer on the card: kernels {fused_kernels}, a "
+        f"({m}, {b}) float32 tensor made: {table}")
+    if table or fused_kernels != ["bin_fused_matvec", "bin_readout"]:
+        bad.append(f"(c) the fused matvec made its table ({table}) or ran "
+                   f"{fused_kernels}")
+    say(f"  phase 16 {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        fail("phase 16: " + "; ".join(bad))
+
+
 def phase_times(torch, data, model, main_counts, errs, dist_state,
                 lm_counts, serving, tables, sharded, train_counts, slots,
                 mesh, slot_grids, mesh_train, seed):
@@ -5550,6 +5899,8 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--calibration-dry-run", metavar="JSON",
+                    help="phase 16's own subprocess: the dry runs of (b)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5561,43 +5912,63 @@ def main(argv=None) -> int:
               f"(src/repro_torch missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO / "src"))
+    if args.calibration_dry_run:
+        calibration_dry_runs(args.calibration_dry_run)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.data import make_regression
     MAIN.update(krr_sizes(torch))
 
     t_start = time.perf_counter()
-    phase_build(torch)
-    t0 = time.perf_counter()
-    x, y, xq, _ = make_regression(MAIN["n"], MAIN["n_query"], MAIN["d"],
-                                  rough=0.5, seed=args.seed)
-    dev = torch.device("cuda", 0)
-    data = tuple(torch.from_numpy(a).to(dev) for a in (x, y, xq))
-    del x, y, xq
-    say(f"data: n={MAIN['n']} d={MAIN['d']} and {MAIN['n_query']} queries "
-        f"from seed {args.seed} in {time.perf_counter() - t0:.2f} s")
-    errs = phase_parity(torch, data[0], data[2], args.seed)
-    errs["flash_decode"] = phase_parity_decode(torch, dev, args.seed)
-    model, counts, main_phases, main_pred = phase_main(torch, data,
-                                                       args.seed)
-    phase_small(torch, dev, args.seed)
-    dist_state = phase_distributed(torch, data, args.seed, main_pred)
-    del main_pred
-    lm_counts = phase_lm(torch, dev, args.seed)
-    serving = phase_serving(torch, data, model, args.seed)
-    tables = phase_tables(torch, data, model, args.seed) + (
-        main_phases["layout"],)
-    sharded = phase_sharded(torch, data, model, serving, args.seed)
-    import torch.distributed as dist
-    dist.destroy_process_group()
-    train_counts = phase_train(torch, dev, args.seed)
-    slots = phase_lm_slots(torch, dev, args.seed)
-    mesh = phase_mesh(torch, dev, args.seed)
-    slot_grids = phase_slot_grids(torch, dev, args.seed)
-    mesh_train = phase_train_mesh(torch, dev, args.seed)
-    entries = phase_times(torch, data, model, counts, errs, dist_state,
-                          lm_counts, serving, tables, sharded, train_counts,
-                          slots, mesh, slot_grids, mesh_train, args.seed)
+    walls = {}
+
+    def timed(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[label] = time.perf_counter() - t
+        return out
+
+    seed = args.seed
+    with dryruns() as sweep:
+        timed("1", phase_build, torch)
+        t0 = time.perf_counter()
+        x, y, xq, _ = make_regression(MAIN["n"], MAIN["n_query"], MAIN["d"],
+                                      rough=0.5, seed=seed)
+        dev = torch.device("cuda", 0)
+        data = tuple(torch.from_numpy(a).to(dev) for a in (x, y, xq))
+        del x, y, xq
+        say(f"data: n={MAIN['n']} d={MAIN['d']} and {MAIN['n_query']} "
+            f"queries from seed {seed} in {time.perf_counter() - t0:.2f} s")
+        errs = timed("2", phase_parity, torch, data[0], data[2], seed)
+        errs["flash_decode"] = timed("2 (B9)", phase_parity_decode, torch,
+                                     dev, seed)
+        model, counts, main_phases, main_pred = timed("3", phase_main, torch,
+                                                      data, seed)
+        timed("4", phase_small, torch, dev, seed)
+        dist_state = timed("6", phase_distributed, torch, data, seed,
+                           main_pred)
+        del main_pred
+        lm_counts = timed("7", phase_lm, torch, dev, seed)
+        serving = timed("8", phase_serving, torch, data, model, seed)
+        tables = timed("9", phase_tables, torch, data, model, seed) + (
+            main_phases["layout"],)
+        sharded = timed("10", phase_sharded, torch, data, model, serving,
+                        seed)
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        train_counts = timed("11", phase_train, torch, dev, seed)
+        slots = timed("12", phase_lm_slots, torch, dev, seed)
+        mesh = timed("13", phase_mesh, torch, dev, seed)
+        slot_grids = timed("14", phase_slot_grids, torch, dev, seed)
+        mesh_train = timed("15", phase_train_mesh, torch, dev, seed)
+        entries = timed("5", phase_times, torch, data, model, counts, errs,
+                        dist_state, lm_counts, serving, tables, sharded,
+                        train_counts, slots, mesh, slot_grids, mesh_train,
+                        seed)
+        timed("16", phase_dryrun, torch, dev, data, seed, sweep)
+    say("phase walls s: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in walls.items()))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ There is no backend switch: the device of a tensor decides the path.
 * A kernel wrapper runs its plain PyTorch version for a tensor on the CPU and
   launches its CUDA kernel for a tensor on the card.  Nothing falls back from
   the kernel to the plain version: a build or launch error raises.
+* Meta tensors (a dry run, ``launch.dryrun``) take the card's path, with
+  each kernel's meta twin (``kernels.meta``) in place of its launch.
 """
 from __future__ import annotations
 
@@ -29,10 +31,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the card (kernel path), False when all
-    lie on the CPU (plain path); raises on a mix or another device."""
+    """True when every tensor lies on the card (kernel path) or every one is
+    a meta tensor (the kernel path of a dry run: the kernel's meta twin, see
+    ``on_meta``), False when all lie on the CPU (plain path); raises on a
+    mix or another device."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if kinds == {"cuda"} or kinds == {"meta"}:
         return True
     if kinds == {"cpu"}:
         return False

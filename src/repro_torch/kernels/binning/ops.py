@@ -1,7 +1,7 @@
 """Public ops: the CountSketch matvec, table build and readout on the
 binning kernels, and the hash-join route pack/unpack, dispatched on the
-device of the index (the CUDA kernels on the card, their plain versions on
-the CPU).
+device of the index (the CUDA kernels on the card, their meta twins on meta
+tensors, their plain versions on the CPU).
 
 * ``bin_fused_matvec_op``  ~ ``table_matvec_fused`` — on the card two
   kernels and no glue tensors: B2 reads beta in point order through the
@@ -34,8 +34,10 @@ from __future__ import annotations
 
 import torch
 
+from ... import roofline
 from ...backend import on_card
 from ...core.wlsh import TableIndex
+from .. import meta as M
 from .kernel import (bin_fused_matvec_cuda, bin_gather_blocked_cuda,
                      bin_readout_cuda, bin_scatter_blocked_cuda,
                      bin_scatter_cuda, route_pack_cuda, route_unpack_cuda)
@@ -114,11 +116,18 @@ def bin_fused_matvec_op(index: TableIndex, beta: torch.Tensor, *,
     matvec, mapped back and combined."""
     lay = _layout(index)
     if on_card(beta, lay.slot_lay):
-        totals = bin_fused_matvec_cuda(
-            lay.slot_lay, lay.coeff_lay, lay.src,
-            beta.to(torch.float32).contiguous(), totals=True)
-        return bin_readout_cuda(lay.inv_pos, index.coeff.contiguous(),
-                                totals, average=average)
+        meta = beta.is_meta
+        b32 = beta.to(torch.float32).contiguous()
+        with roofline.kernel("bin_fused_matvec", lambda: M.
+                             bin_fused_matvec_cost(lay.slot_lay, b32)):
+            totals = (M.bin_fused_matvec_meta if meta else
+                      bin_fused_matvec_cuda)(lay.slot_lay, lay.coeff_lay,
+                                             lay.src, b32, totals=True)
+        coeff = index.coeff.contiguous()
+        with roofline.kernel("bin_readout", lambda: M.bin_readout_cost(
+                lay.inv_pos, coeff, totals)):
+            return (M.bin_readout_meta if meta else bin_readout_cuda)(
+                lay.inv_pos, coeff, totals, average=average)
     beta_lay = _beta_to_layout(lay, beta)
     out_lay = fused_matvec_ref(lay.slot_lay, lay.coeff_lay, beta_lay,
                                width=lay.num_tiles * lay.block_t)
@@ -133,9 +142,14 @@ def bin_loads_blocked_op(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
     coeff = lay.coeff_lay if beta.ndim == 1 else lay.coeff_lay[:, None, :]
     contrib = coeff * beta_lay
     if on_card(contrib, lay.slot_lay):
-        tables = bin_scatter_blocked_cuda(lay.blk_start, lay.slot_lay,
-                                          contrib, block_n=lay.block_n,
-                                          block_t=lay.block_t)
+        with roofline.kernel("bin_scatter_blocked", lambda: M.
+                             bin_scatter_blocked_cost(lay.blk_start,
+                                                      lay.slot_lay, contrib,
+                                                      lay.block_t)):
+            tables = (M.bin_scatter_blocked_meta if contrib.is_meta else
+                      bin_scatter_blocked_cuda)(
+                lay.blk_start, lay.slot_lay, contrib, block_n=lay.block_n,
+                block_t=lay.block_t)
     else:
         tables = scatter_blocked_ref(lay.slot_lay, contrib,
                                      width=lay.num_tiles * lay.block_t)
@@ -154,8 +168,11 @@ def bin_loads_op(index: TableIndex, beta: torch.Tensor) -> torch.Tensor:
     contrib = index.coeff * beta if beta.ndim == 1 else \
         index.coeff[..., None] * beta
     if on_card(contrib, index.slot):
-        return bin_scatter_cuda(index.slot, contrib.contiguous(),
-                                index.table_size)
+        contrib = contrib.contiguous()
+        with roofline.kernel("bin_scatter", lambda: M.bin_scatter_cost(
+                index.slot, contrib, index.table_size)):
+            return (M.bin_scatter_meta if contrib.is_meta else
+                    bin_scatter_cuda)(index.slot, contrib, index.table_size)
     return scatter_ref(index.slot, contrib, table_size=index.table_size)
 
 
@@ -166,7 +183,10 @@ def bin_readout_blocked_op(index: TableIndex, tables: torch.Tensor, *,
     lay = _layout(index)
     tables = tables.to(torch.float32).contiguous()
     if on_card(lay.slot_lay, tables):
-        out_lay = bin_gather_blocked_cuda(lay.slot_lay, tables)
+        with roofline.kernel("bin_gather_blocked", lambda: M.
+                             bin_gather_blocked_cost(lay.slot_lay, tables)):
+            out_lay = (M.bin_gather_blocked_meta if tables.is_meta else
+                       bin_gather_blocked_cuda)(lay.slot_lay, tables)
     else:
         out_lay = gather_blocked_ref(lay.slot_lay, tables)
     return combine_ref(index.coeff, rows_to_points(lay, out_lay), average)
@@ -182,8 +202,12 @@ def bin_readout_op(index: TableIndex, tables: torch.Tensor, *,
         return bin_readout_blocked_op(index, tables, average=average)
     tables = tables.to(torch.float32).contiguous()
     if on_card(index.slot, index.coeff, tables):
-        return bin_readout_cuda(index.slot, index.coeff.contiguous(),
-                                tables, average=average)
+        coeff = index.coeff.contiguous()
+        with roofline.kernel("bin_readout", lambda: M.bin_readout_cost(
+                index.slot, coeff, tables)):
+            return (M.bin_readout_meta if tables.is_meta else
+                    bin_readout_cuda)(index.slot, coeff, tables,
+                                      average=average)
     return readout_ref(index.slot, index.coeff, tables, average)
 
 
@@ -198,8 +222,11 @@ def bin_combine_op(coeff: torch.Tensor, vals: torch.Tensor, *,
     it (the plain readout is this combine on the values it gathers)."""
     vals = vals.to(torch.float32).contiguous()
     if on_card(coeff, vals):
-        return bin_readout_cuda(None, coeff.contiguous(), vals,
-                                average=average)
+        coeff = coeff.contiguous()
+        with roofline.kernel("bin_readout", lambda: M.bin_readout_cost(
+                None, coeff, vals)):
+            return (M.bin_readout_meta if vals.is_meta else
+                    bin_readout_cuda)(None, coeff, vals, average=average)
     return combine_ref(coeff, vals, average)
 
 
@@ -216,8 +243,12 @@ def route_pack_op(cell_lay: torch.Tensor, contrib_lay: torch.Tensor,
     sums in f32, rounded once to ``out_dtype``; owner o's cells are
     [o*cap, o*cap + used[o])."""
     if on_card(cell_lay, contrib_lay, used):
-        return route_pack_cuda(cell_lay, contrib_lay.contiguous(), used, cap,
-                               out_dtype=out_dtype)
+        contrib_lay = contrib_lay.contiguous()
+        with roofline.kernel("route_pack", lambda: M.route_pack_cost(
+                cell_lay, contrib_lay, used, cap, out_dtype)):
+            return (M.route_pack_meta if cell_lay.is_meta else
+                    route_pack_cuda)(cell_lay, contrib_lay, used, cap,
+                                     out_dtype=out_dtype)
     return route_pack_ref(cell_lay, contrib_lay,
                           num_cells=used.shape[0] * cap).to(out_dtype)
 
@@ -227,5 +258,9 @@ def route_unpack_op(cell_lay: torch.Tensor, coeff_lay: torch.Tensor | None,
     """Hash-join wire unpack (B8): (m, L[, k]) coeff-weighted reads
     (coeff_lay None: the reads unscaled)."""
     if on_card(cell_lay, back):
-        return route_unpack_cuda(cell_lay, coeff_lay, back.contiguous())
+        back = back.contiguous()
+        with roofline.kernel("route_unpack", lambda: M.route_unpack_cost(
+                cell_lay, coeff_lay, back)):
+            return (M.route_unpack_meta if back.is_meta else
+                    route_unpack_cuda)(cell_lay, coeff_lay, back)
     return route_unpack_ref(cell_lay, coeff_lay, back)

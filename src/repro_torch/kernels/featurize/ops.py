@@ -1,10 +1,13 @@
 """Public op: WLSH featurization, dispatched on the points' device (the
-CUDA kernel on the card, the plain version on the CPU)."""
+CUDA kernel on the card, its meta twin on meta tensors, the plain version
+on the CPU)."""
 from __future__ import annotations
 
+from ... import roofline
 from ...backend import as_tensor, on_card
 from ...core.bucket_fns import BucketFn
 from ...core.lsh import Features, LSHParams
+from ..meta import featurize_cost, featurize_meta
 from .kernel import featurize_cuda
 from .ref import featurize_ref
 
@@ -17,7 +20,10 @@ def featurize_op(params: LSHParams, f: BucketFn, x, *,
     if x.ndim != 2 or x.shape[1] != params.d:
         raise ValueError(f"x must be (n, {params.d}), got {tuple(x.shape)}")
     if on_card(x, params.w):
-        out = featurize_cuda(x, *params, f=f, table_size=table_size)
+        launch = featurize_meta if x.is_meta else featurize_cuda
+        with roofline.kernel("featurize",
+                             lambda: featurize_cost(x, params.w)):
+            out = launch(x, *params, f=f, table_size=table_size)
     else:
         out = featurize_ref(x, *params, f=f, table_size=table_size)
     feats = Features(*out)

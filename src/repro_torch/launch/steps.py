@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import roofline
 from ..configs.base import ModelConfig
 from ..models import model, sharded
 from ..models.params import tree_leaves, tree_map
@@ -47,9 +48,10 @@ def _grads(loss, params: dict, batch: dict):
 def sum_replicas_(grads: dict, lay: sharded.GridLayout) -> dict:
     """Each leaf of ``grads`` (a rank's partial gradients, its blocks'
     shapes) summed in place over the grid axes its spec does not name,
-    'data' then 'model'; a one-rank group runs its all-reduce too."""
+    the data axes then 'model'; a one-rank group runs its all-reduce
+    too."""
     for (_, g), (_, spec) in zip(tree_leaves(grads), tree_leaves(lay.spec)):
-        for axis in unnamed_axes(spec):
+        for axis in unnamed_axes(spec, lay.mesh):
             all_reduce_(g, group_of(lay.mesh, axis))
     return grads
 
@@ -65,7 +67,9 @@ def make_grad_step(cfg: ModelConfig, dtype=torch.bfloat16,
     and the GLOBAL batch in, its gradient blocks out (whole: summed over
     the ranks that hold the same block); a microbatch is a block of the
     global batch's rows, whose rows each data rank then cuts, as the JAX
-    step's reshape of the global batch."""
+    step's reshape of the global batch.  A dry run (meta tensors under
+    ``roofline.Tracer``) traces the first two microbatches and counts the
+    second for all but the first (``roofline.trips``)."""
     if mesh is None:
         def loss(p, b):
             return model.loss_fn(cfg, p, b, dtype=dtype)
@@ -85,7 +89,7 @@ def make_grad_step(cfg: ModelConfig, dtype=torch.bfloat16,
                 raise ValueError(f"batch {b} does not split into {nm} "
                                  f"microbatches")
             gsum = lsum = asum = None
-            for i in range(nm):
+            for i in roofline.trips(nm, batch["tokens"]):
                 mb = {k: v[i * (b // nm):(i + 1) * (b // nm)]
                       for k, v in batch.items()}
                 m, g = _grads(loss, params, mb)

@@ -477,13 +477,14 @@ class _LogitsF32(torch.autograd.Function):
 def _logits_f32(h: Tensor, table: Tensor) -> Tensor:
     """h (B, C, D) against the table (V, D) cast to h's dtype: float32
     logits (B, C, V), as the JAX package's ``preferred_element_type``.  A
-    bf16 product on the card accumulates and returns float32; on the CPU the
-    bf16 operands are multiplied in float32 (exact products)."""
+    bf16 product on the card (and on meta tensors, which stand for it in a
+    dry run) accumulates and returns float32; on the CPU the bf16 operands
+    are multiplied in float32 (exact products)."""
     b, c, d = h.shape
     table = table.to(h.dtype)
     if h.dtype not in (torch.bfloat16, torch.float16):
         return h @ table.T
-    if h.is_cuda:
+    if h.is_cuda or h.is_meta:
         return _LogitsF32.apply(h.reshape(b * c, d), table).reshape(b, c, -1)
     return h.float() @ table.float().T
 

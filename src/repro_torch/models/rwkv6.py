@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..roofline import repeat
 from .params import ParamSpec
 
 Tensor = torch.Tensor
@@ -79,15 +80,28 @@ def wkv_step(state: Tensor, r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
     return y, state
 
 
+def _wkv_carry(state: Tensor, r: Tensor, k: Tensor, v: Tensor,
+               logw: Tensor, u: Tensor):
+    """``wkv_step`` as a loop body: (state', y)."""
+    y, state = wkv_step(state, r, k, v, logw, u)
+    return state, y
+
+
 def _wkv_chunk(state: Tensor, r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
                u: Tensor):
     """wkv_step over the steps of one chunk: r,k,v,logw (T,B,H,D).
-    Returns (final state, y (T,B,H,D))."""
-    ys = []
-    for t in range(r.shape[0]):
-        y, state = wkv_step(state, r[t], k[t], v[t], logw[t], u)
-        ys.append(y)
+    Returns (final state, y (T,B,H,D)).  The steps are ``roofline.
+    repeat``'s loop: a dry run traces one step and scales it."""
+    state, ys = repeat(r.shape[0], _wkv_carry, state, r, k, v, logw,
+                       consts=(u,))
     return state, torch.stack(ys)
+
+
+def _wkv_remat(state: Tensor, r: Tensor, k: Tensor, v: Tensor,
+               logw: Tensor, u: Tensor):
+    """``_wkv_chunk`` rematerialized in the backward pass."""
+    return checkpoint(_wkv_chunk, state, r, k, v, logw, u,
+                      use_reentrant=False)
 
 
 def wkv_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
@@ -104,7 +118,8 @@ def wkv_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
     multiple of it).  Where autograd records, each chunk is rematerialized
     in the backward pass (``torch.utils.checkpoint``), as the JAX
     function's ``jax.checkpoint`` does, so only the chunk boundaries' states
-    are kept; otherwise the chunks are a plain loop.
+    are kept.  Chunks and steps are ``roofline.repeat``'s loops: a dry run
+    traces one of each and scales it.
     """
     bsz, s, h, d = r.shape
     if s % chunk:
@@ -113,14 +128,10 @@ def wkv_scan(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
              if s0 is None else s0.float())
     steps = [a.float().transpose(0, 1) for a in (r, k, v, logw)]  # (S,B,H,D)
     remat = torch.is_grad_enabled()
-    ys = []
-    for c in range(0, s, chunk):
-        args = (state,) + tuple(a[c:c + chunk] for a in steps) + (u,)
-        if remat:
-            state, y = checkpoint(_wkv_chunk, *args, use_reentrant=False)
-        else:
-            state, y = _wkv_chunk(*args)
-        ys.append(y)
+    # (S/chunk, chunk, B, H, D): chunk c of a step input is its row c
+    chunks = [a.view((s // chunk, chunk) + a.shape[1:]) for a in steps]
+    state, ys = repeat(s // chunk, _wkv_remat if remat else _wkv_chunk,
+                       state, *chunks, consts=(u,))
     return torch.cat(ys).transpose(0, 1), state
 
 

@@ -318,10 +318,10 @@ class GridLayout:
         rows and ``seq_len`` positions."""
         key = (batch, seq_len)
         if key not in self._caches:
-            from .model import abstract_cache, cache_axes
+            from .model import cache_axes, cache_specs
             axes = cache_axes(self.cfg, batch, seq_len)
-            spec = tree_shardings(axes, abstract_cache(self.cfg, batch,
-                                                       seq_len), self.mesh)
+            spec = tree_shardings(axes, cache_specs(self.cfg, batch,
+                                                    seq_len), self.mesh)
             self._caches[key] = (spec, _gather_tree(
                 axes, spec, lambda path: NOTHING_KEPT if path[-1] == "conv"
                 else COMPUTE_AXES))

@@ -91,7 +91,7 @@ def grid_global_norm(grads: Any, specs: Any, mesh) -> Tensor:
     from ..sharding import all_reduce_, index_of, unnamed_axes
     sq = None
     for (_, g), (_, spec) in zip(tree_leaves(grads), tree_leaves(specs)):
-        if all(index_of(mesh, a) == 0 for a in unnamed_axes(spec)):
+        if all(index_of(mesh, a) == 0 for a in unnamed_axes(spec, mesh)):
             s = torch.sum(torch.square(g.to(torch.float32)))
             sq = s if sq is None else sq + s
     if sq is None:

@@ -12,9 +12,11 @@ heads do not divide by model=16, so ``heads`` falls through and the
 
 A mesh is anything that gives axis sizes: a dict such as ``{"pod": 2,
 "data": 16, "model": 16}`` for a production mesh with no process group, or
-the port's ``launch.mesh.Mesh`` (``axis_sizes``: ``{"data", "model"}``).  A
-live grid has one linear data axis, so a ``("pod", "data")`` candidate
-resolves there as ``("data",)`` over the product of the two.
+the port's ``launch.mesh.Mesh`` (``axis_sizes``: ``{"data", "model"}``, or
+with pods ``{"pod", "data", "model"}``).  A one-pod grid has one linear
+data axis, so a ``("pod", "data")`` candidate resolves there as
+``("data",)``; on a grid with pods, ``"data"`` cuts within a pod and
+``("pod", "data")`` over the linear data axis (``spec_axis``).
 
 JAX's ``constrain`` is a hint to GSPMD, and torch has none.  On a live grid
 each rank holds its block of every leaf (``local_block``) and the sharded
@@ -150,14 +152,16 @@ def tree_shardings(axes_tree: Any, shape_tree: Any, mesh,
 
 
 def spec_axis(entry: Entry) -> str:
-    """The live grid's axis a spec entry cuts over: 'model', or 'data' for
-    'data' and a tuple over the data axes (('pod', 'data'): the linear data
-    axis)."""
+    """The live grid's axis a spec entry cuts over: 'model', 'data', or
+    'pod_data' for ('pod', 'data') (the linear data axis; on a one-pod grid
+    the same as 'data')."""
     names = (entry,) if isinstance(entry, str) else tuple(entry)
     if names == ("model",):
         return "model"
-    if "model" not in names and "data" in names:
+    if names == ("data",):
         return "data"
+    if names == ("pod", "data"):
+        return "pod_data"
     raise ValueError(f"spec entry {entry!r} names no axis of a live grid "
                      f"('data', 'model', or the data axes ('pod', 'data'))")
 
@@ -184,18 +188,39 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple[int, ...]:
     return tuple(out)
 
 
+def _in_pods(mesh, axis: str) -> bool:
+    """Whether ``axis`` of ``mesh`` is one of the axes a grid with pods
+    splits its linear data axis into ('data' within a pod, 'pod')."""
+    return axis in ("data", "pod") and getattr(mesh, "pods", 1) > 1
+
+
 def group_of(mesh, axis: str):
-    """The process group of ``mesh`` along ``axis`` ('data' or 'model')."""
-    return mesh.model_group if axis == "model" else mesh.data_group
+    """The process group of ``mesh`` along ``axis`` ('model', 'data',
+    'pod' or 'pod_data')."""
+    if axis == "model":
+        return mesh.model_group
+    if _in_pods(mesh, axis):
+        return mesh.pod_group if axis == "pod" else mesh.pod_data_group
+    return mesh.data_group
 
 
 def index_of(mesh, axis: str) -> int:
     """This rank's index along ``axis`` of ``mesh``."""
-    return mesh.model_rank if axis == "model" else mesh.data_rank
+    if axis == "model":
+        return mesh.model_rank
+    if _in_pods(mesh, axis):
+        per = mesh.data // mesh.pods
+        return mesh.data_rank // per if axis == "pod" else \
+            mesh.data_rank % per
+    return mesh.data_rank
 
 
 def _count_of(mesh, axis: str) -> int:
-    return mesh.model if axis == "model" else mesh.data
+    if axis == "model":
+        return mesh.model
+    if _in_pods(mesh, axis):
+        return mesh.pods if axis == "pod" else mesh.data // mesh.pods
+    return mesh.data
 
 
 def _dims(spec: Spec, dims) -> list[int]:
@@ -369,9 +394,19 @@ def gather_at_use(tensor: torch.Tensor, spec: Spec, dims: Sequence[int],
     return tensor
 
 
-def unnamed_axes(spec: Spec) -> tuple[str, ...]:
-    """The live grid's axes ('data', 'model') that ``spec`` names for no
-    dim: the leaf is replicated over them."""
-    named = {spec_axis(e) for e in spec if e is not None}
-    return tuple(a for a in ("data", "model") if a not in named)
+def unnamed_axes(spec: Spec, mesh=None) -> tuple[str, ...]:
+    """The live grid's axes ('data', 'model'; with ``mesh``'s pods, 'pod'
+    too) that ``spec`` names for no dim: the leaf is replicated over them.
+    'pod' and 'data' both unnamed come as one axis, 'pod_data'."""
+    named = set()
+    for e in spec:
+        if e is not None:
+            a = spec_axis(e)
+            named |= {"pod", "data"} if a == "pod_data" else {a}
+    grid = ("pod", "data", "model") if getattr(mesh, "pods", 1) > 1 \
+        else ("data", "model")
+    axes = [a for a in grid if a not in named]
+    if "pod" in axes and "data" in axes:
+        axes = ["pod_data"] + [a for a in axes if a not in ("pod", "data")]
+    return tuple(axes)
 

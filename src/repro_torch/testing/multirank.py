@@ -33,7 +33,8 @@ WIRES = {"f32": torch.float32, "bf16": torch.bfloat16}
 def spawn_ranks(world_size: int, model_parallel: int, store_dir: str,
                 inputs: dict, jobs: list, device: str = "cpu",
                 backend: str | None = None,
-                timeout_s: float | None = None) -> list[dict]:
+                timeout_s: float | None = None,
+                pods: int = 1) -> list[dict]:
     """Run ``jobs`` on a (world_size // model_parallel, model_parallel)
     grid.  ``inputs``: x, y, xq (numpy, global) and w, z,
     r1, r2 (global LSH rows).  ``jobs``: (name, spec) pairs, spec a dict
@@ -45,9 +46,10 @@ def spawn_ranks(world_size: int, model_parallel: int, store_dir: str,
     reads, for 'compressed_psum' the per-rank rows 'x' and a 'seed'.
     ``device`` is every rank's ("cuda:0": ranks sharing one card,
     over ``backend`` gloo); ``timeout_s`` the group's collective timeout
-    (None: the backend's)."""
+    (None: the backend's); ``pods`` the grid's pods (``make_host_mesh``).
+    A 'prefill' job runs ``_prefill_job``."""
     mp.spawn(_rank_main, args=(world_size, model_parallel, store_dir, inputs,
-                               jobs, device, backend, timeout_s),
+                               jobs, device, backend, timeout_s, pods),
              nprocs=world_size, join=True)
     # the ranks' own results (tensors and numpy records): not weights
     return [torch.load(os.path.join(store_dir, f"rank{r}.pt"),
@@ -71,7 +73,7 @@ def kv_heads_read(lay) -> dict:
 
 
 def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
-               device="cpu", backend=None, timeout_s=None):
+               device="cpu", backend=None, timeout_s=None, pods=1):
     from ..core.bucket_fns import RECT
     from ..core.lsh import lsh_params_from_numpy
     from ..launch.mesh import (init_distributed, local_lsh, local_tensor,
@@ -80,7 +82,7 @@ def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
     dev = init_distributed(device, init_method=f"file://{store_dir}/store",
                            rank=rank, world_size=world_size, backend=backend,
                            timeout_s=timeout_s)
-    mesh = make_host_mesh(model_parallel, device=dev)
+    mesh = make_host_mesh(model_parallel, device=dev, pods=pods)
     if "w" in inputs:
         lsh = local_lsh(mesh, lsh_params_from_numpy(
             inputs["w"], inputs["z"], inputs["r1"], inputs["r2"], "cpu"))
@@ -89,6 +91,9 @@ def _rank_main(rank, world_size, model_parallel, store_dir, inputs, jobs,
     for name, spec in jobs:
         if spec["mode"] == "lm":
             out[name] = _lm_job(mesh, spec)
+            continue
+        if spec["mode"] == "prefill":
+            out[name] = _prefill_job(mesh, spec)
             continue
         if spec["mode"] == "train":
             out[name] = _train_job(mesh, spec)
@@ -253,6 +258,29 @@ def _lm_job(mesh, spec) -> dict:
                             mesh)
         res["ties"] = sharded.argmax(lay, block).numpy()
     return res
+
+
+def _prefill_job(mesh, spec) -> dict:
+    """The grid's prefill of ``spec``'s 'cfg', global numpy 'params' and
+    'tokens' (float32): this rank's rows, their logits over the whole
+    vocabulary, and the ranks of ``sharding.group_of`` along each axis."""
+    from ..convert import local_lm_params
+    from ..models import sharded
+    from ..sharding import group_of, local_block
+    cfg = spec["cfg"]
+    lay = sharded.GridLayout(cfg, mesh)
+    params = local_lm_params(spec["params"], cfg, mesh, device="cpu")
+    tokens = torch.from_numpy(spec["tokens"]).long()
+    b, s = tokens.shape
+    groups = {axis: dist.get_process_group_ranks(group_of(mesh, axis))
+              for axis in ("data", "pod", "pod_data", "model")}
+    with torch.inference_mode():
+        lg, _, _ = sharded.prefill(lay, params, {"tokens": tokens},
+                                   max_cache_len=s, dtype=torch.float32)
+        logits = sharded.gather_logits(lay, lg).numpy()
+    return {"rows": local_block(np.arange(b), lay.rows_spec(b, s)[:1], mesh),
+            "logits": logits, "groups": groups,
+            "axis_sizes": mesh.axis_sizes}
 
 
 def _collectives_job(mesh) -> dict:
@@ -427,8 +455,8 @@ def _train_job(mesh, spec) -> dict:
                                               mesh=mesh)[1])
         if case.get("witness"):
             real_axes = steps.unnamed_axes
-            steps.unnamed_axes = lambda spec: tuple(
-                a for a in real_axes(spec) if a != "data")
+            steps.unnamed_axes = lambda spec, *mesh: tuple(
+                a for a in real_axes(spec, *mesh) if a != "data")
             try:
                 out["grads_without_data_sum"] = _numpy_tree(
                     steps.make_grad_step(cfg, dtype, mesh=mesh)(params,
