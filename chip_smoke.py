@@ -3,8 +3,8 @@
 predict and the distributed step, LM serving, KRR serving, the paper's
 Tables 1 and 2, sharded KRR serving, LM training, LM serving of the
 MoE, Mamba2, RWKV6, shared-attention and encoder-decoder archs, every
-slot kind served on (data, model) grids of ranks, and the LM train step on
-such grids.
+slot kind served on (data, model) grids of ranks, the LM train step on
+such grids, the dry run, and the port's examples.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -259,14 +259,14 @@ non-zero:
    the card on the same weights, run first, its logits moved to the host
    and its memory freed before the grid starts; the grids restore each
    rank's blocks with ``restore_resharded`` by ``param_shardings`` from one
-   checkpoint a model, written once into a temporary directory (13 GiB
+   checkpoint a model, written once into a temporary directory (10 GiB
    free needed).  (a) phase 7's run (gemma3-1b uncut, batch 8, a
    2048-token prompt, 64 tokens) on a 1x1 grid over NCCL through
    ``generate(mesh=)``: tokens equal the reference's, logits within 1e-5
    of max|logit| (whether bitwise printed), B9 26 times a decode step;
    collectives of the run, and of one prefill and one decode step, by
    kind.  (c) gemma3-1b uncut on a 2x2 grid and (b) qwen3-14b at full
-   width cut to 4 of its 40 layers on a 1x4 grid, each four processes
+   width cut to 2 of its 40 layers on a 1x4 grid, each four processes
    spawned on the one card over gloo (NCCL refuses two ranks on one
    device; their times are of ranks sharing one card, not of a grid):
    batch 8 (4 a data rank), a 512-token prompt, 2 decode steps (c), and
@@ -288,11 +288,12 @@ non-zero:
    reference's greedy tokens, batch 4.  (a) mixtral-8x22b, 1 of its 56
    layers, on 1x4 (2 experts a rank), a 512-token prompt, 2 decode steps:
    the prefill's kept MoE pairs equal on the model ranks and to the
-   reference's; (b) zamba2-7b, 9 of its 81 layers (3 periods, the shared
-   block applied 3 times), on 2x2 (56 ssm heads a rank, FSDP over
-   'data'), 512, 2; (c) rwkv6-1.6b uncut on 1x4 (8 heads a rank), 512, 4;
-   (d) whisper-large-v3 uncut on 2x2 (its encoder over 1500 frames from
-   the seed, 10 heads a rank, the vocab split), a 448-token prompt, 2
+   reference's; (b) zamba2-7b, 6 of its 81 layers (2 periods, the shared
+   block applied twice), on 2x2 (56 ssm heads a rank, FSDP over
+   'data'), 512, 2; (c) rwkv6-1.6b, 8 of its 24 layers, on 1x4 (8 heads
+   a rank), 512, 4; (d) whisper-large-v3, 8 of its 32 decoder and 8 of
+   its 32 encoder layers, on 2x2 (the encoder over 1500 frames from the
+   seed, 10 heads a rank, the vocab split), a 448-token prompt, 2
    steps.  Every step's logits within 2e-3 of max|logit| on every rank,
    parameter bytes a rank ``shard_bytes``', B9 layers x steps a rank at
    the local (B 4, KV 2, G 6, D 128), (B 2, KV 16, G 1, D 112), none, and
@@ -309,12 +310,13 @@ non-zero:
    one-process draw): 3 steps from one state, loss and grad norm within
    1e-4 relative at every step (whether bitwise printed), the parameters
    after step 1 within lr x 1e-3 of the one-process update where |g| >
-   1e-5.  (b) gemma3-1b uncut on a 2x2 grid, four processes spawned on the
-   one card over gloo (their times are of ranks sharing one card, not of a
-   grid): f32, weights from the seed at std 1/sqrt(fan-in), batch 4 x 512,
-   2 steps, each rank's train state restored by ``restore_resharded`` with
-   ``param_shardings`` and ``opt_shardings`` from one checkpoint of the
-   one-process state (24 GiB free needed): loss within 1e-5 and grad norm
+   1e-5.  (b) gemma3-1b at full width cut to 6 of its 26 layers (five
+   local and one global, its pattern's first period) on a 2x2 grid, four
+   processes spawned on the one card over gloo (their times are of ranks
+   sharing one card, not of a grid): f32, weights from the seed at std
+   1/sqrt(fan-in), batch 4 x 512, 1 step, each rank's train state restored
+   by ``restore_resharded`` with ``param_shardings`` and ``opt_shardings``
+   from one checkpoint of the one-process state (12 GiB free needed): loss within 1e-5 and grad norm
    within 1e-4 relative, every rank's gradient blocks within 1e-4 of the
    leaf's max|g|, its parameters after step 1 by (a)'s rule, the train
    state bytes a rank holds equal to ``shard_bytes``' params + opt_state.
@@ -375,7 +377,8 @@ non-zero:
    the same inputs, forest's layout, ``tables_library_ms``).  Phase 11's
    counted run is listed as ``train_launches``, phase 12's as
    ``lm_slots_launches``, phase 13's as ``mesh_launches``, phase 14's as
-   ``slot_grids_launches``, phase 15's as ``mesh_train_launches``; B9 at
+   ``slot_grids_launches``, phase 15's as ``mesh_train_launches``, phase
+   17's as ``examples_launches``; B9 at
    every shape phases 12, 13 and 14
    launched it at, by torch.profiler beside scaled_dot_product_attention
    on the same cache (``lm_slots_by_shape``, ``mesh_by_shape``,
@@ -405,6 +408,28 @@ non-zero:
    ``max_memory_allocated`` on the card.  (c) The fused matvec op at phase
    3's shapes under the tracer on the card: B2 and the readout credited,
    no (64, 2^23) float32 tensor made.
+
+17. The port's five examples (``examples/torch_*.py``) on the card, as a
+   user runs them.  ``torch_distributed_krr.py`` (``krr_train`` on forest
+   at scale 0.002, m 64, 40 CG iterations, one rank over NCCL) and
+   ``torch_train_lm.py`` (gemma3-1b's smoke config, batch 8 x 128, a
+   checkpoint into a temporary directory; ``TRAIN_LM_ARGS`` cut its 200
+   steps to 60, a checkpoint every 10, failures at steps 25 and 45) start
+   first, each ``python examples/<name>.py --device cuda`` in a process of
+   its own from the repository's root; meanwhile, in this process through
+   their ``main(argv)``, ``torch_quickstart.py --precond nystrom --num-rhs
+   9 --export DIR`` (its asserts: WLSH within 2x exact KRR's RMSE + 0.05,
+   the 256-row round trip bitwise or within 1e-6, the cache replay
+   bitwise), ``torch_gp_smoothness.py`` (the smooth bucket's test RMSE
+   must be below rect's) and ``torch_serve_decode.py`` (500 requests;
+   every batched answer within 1e-6 of max|pred| of the direct path),
+   with the launch counts reset before and read after: B1, B2, B3, the
+   readout and B5 must launch (``examples_launches`` in the ``kernels``
+   line).  Then the two processes must exit 0: distributed_krr on one
+   rank with its CG residual below 1e-6 and its test RMSE within 5e-4 of
+   the 8 gloo ranks' on the CPU, train_lm restarted twice and its last
+   losses below its first.  Each example's wall and numbers are printed
+   beside the card's name and power limit.
 
 Prints the card line, a ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout
@@ -4119,13 +4144,21 @@ def profile_train_step(torch, step, state, batch):
 
 
 def slots_config(spec):
-    """The registry config of a phase 12 arch or a phase 13 grid, cut to
-    ``layers``."""
+    """The registry config of a phase 12 arch or a phase 13, 14 or 15 grid,
+    cut to ``layers`` (a pattern written out layer by layer, gemma3-1b's, to
+    its first ``layers`` entries) and the encoder to ``encoder_layers``."""
     import dataclasses
     from repro_torch.configs import registry
     cfg = registry.get_config(spec["arch"])
-    if spec["layers"]:
-        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    if spec.get("layers"):
+        pattern = cfg.layer_pattern
+        if len(pattern) == cfg.n_layers:
+            pattern = pattern[:spec["layers"]]
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"],
+                                  layer_pattern=pattern)
+    if spec.get("encoder_layers"):
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=spec["encoder_layers"]))
     return cfg
 
 
@@ -4345,9 +4378,10 @@ MESH = dict(
            steps=63, b9=(1, 4, 256), limit=1e-5),
     c=dict(arch="gemma3-1b", layers=None, grid=(2, 2), batch=8, prompt=512,
            steps=2, b9=(1, 2, 256), limit=2e-3),
-    b=dict(arch="qwen3-14b", layers=4, grid=(1, 4), batch=4, prompt=512,
+    b=dict(arch="qwen3-14b", layers=2, grid=(1, 4), batch=4, prompt=512,
            steps=4, b9=(2, 5, 128), limit=2e-3))
-MESH_DISK_GIB = 13        # qwen3-14b's 4 layers in f32 (11.5 GB), and room
+MESH_DISK_GIB = 10        # qwen3-14b's 2 layers and its tables in f32
+                          # (8.9 GB), and room
 MESH_TIMEOUT_S = 600.0
 
 
@@ -4637,6 +4671,7 @@ def mesh_spawned(torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label,
     logits) the grid's distance from those too (printed).  Returns B9's
     launches over the ranks (total, by shape)."""
     import torch.multiprocessing as mp
+    from repro_torch.configs import registry
     from repro_torch.models import model as TM
     cfg = slots_config(spec)
     d, m = spec["grid"]
@@ -4700,6 +4735,9 @@ def mesh_spawned(torch, dev, spec, tokens, ckpt, tmp, ref_ids, ref, label,
         + (f", {cfg.n_layers} of "
            f"{slots_config(dict(spec, layers=None)).n_layers} layers"
            if spec["layers"] else "")
+        + (f", encoder {cfg.encoder.n_layers} of "
+           f"{registry.get_config(cfg.name).encoder.n_layers} layers"
+           if spec.get("encoder_layers") else "")
         + f", batch {b}, prompt {s}, {n} decode steps fed the reference's "
         f"tokens): {world} processes sharing the one card over "
         f"{r0['backend']} (host-staged collectives: these times are of ranks "
@@ -4816,12 +4854,13 @@ def summed_launches(runs):
 SLOT_GRIDS = dict(
     a=dict(arch="mixtral-8x22b", layers=1, grid=(1, 4), batch=4, prompt=512,
            steps=2, b9=(2, 6, 128), limit=2e-3),
-    b=dict(arch="zamba2-7b", layers=9, grid=(2, 2), batch=4, prompt=512,
+    b=dict(arch="zamba2-7b", layers=6, grid=(2, 2), batch=4, prompt=512,
            steps=2, b9=(16, 1, 112), limit=2e-3),
-    c=dict(arch="rwkv6-1.6b", layers=None, grid=(1, 4), batch=4, prompt=512,
+    c=dict(arch="rwkv6-1.6b", layers=8, grid=(1, 4), batch=4, prompt=512,
            steps=4, b9=None, limit=2e-3, reorder=4),
-    d=dict(arch="whisper-large-v3", layers=None, grid=(2, 2), batch=4,
-           prompt=448, steps=2, b9=(10, 1, 64), limit=2e-3))
+    d=dict(arch="whisper-large-v3", layers=8, encoder_layers=8,
+           grid=(2, 2), batch=4, prompt=448, steps=2, b9=(10, 1, 64),
+           limit=2e-3))
 
 
 def reordered_reference(torch, cfg, params, tokens, steps, source, ref_ids,
@@ -4954,10 +4993,11 @@ def phase_slot_grids(torch, dev, seed, grids=None):
 TRAIN_MESH = dict(
     a=dict(arch="gemma3-1b", grid=(1, 1), batch=8, seq=2048, steps=3,
            dtype="bfloat16", limit=1e-4),
-    b=dict(arch="gemma3-1b", grid=(2, 2), batch=4, seq=512, steps=2,
-           dtype="float32", limit=1e-5))
+    b=dict(arch="gemma3-1b", layers=6, grid=(2, 2), batch=4, seq=512,
+           steps=1, dtype="float32", limit=1e-5))
 TRAIN_MESH_OPT = dict(lr=3e-4, warmup_steps=0, total_steps=12)
-TRAIN_MESH_DISK_GIB = 24  # (b)'s 12 GB train state, the ranks' 8 GB of blocks
+TRAIN_MESH_DISK_GIB = 12  # (b)'s 5.6 GB train state, the ranks' 3.7 GB of
+                          # blocks
 
 
 def _host_tree(tree) -> dict:
@@ -5141,7 +5181,6 @@ def _train_rank(rank, world, device, store, spec, ckpt, batches, out_dir):
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint import restore_resharded
-    from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import specs
@@ -5158,7 +5197,7 @@ def _train_rank(rank, world, device, store, spec, ckpt, batches, out_dir):
                            init_method=f"file://{store}", rank=rank,
                            world_size=world, timeout_s=MESH_TIMEOUT_S)
     mesh = make_host_mesh(spec["grid"][1], device=dev)
-    cfg = registry.get_config(spec["arch"])
+    cfg = slots_config(spec)
     dtype = getattr(torch, spec["dtype"])
     t0 = time.perf_counter()
     state, _, _ = restore_resharded(ckpt, specs.abstract_train_state(cfg),
@@ -5199,9 +5238,9 @@ def _train_rank(rank, world, device, store, spec, ckpt, batches, out_dir):
 
 
 def train_mesh_2x2(torch, dev, seed):
-    """(b): gemma3-1b uncut on a 2x2 grid, four processes on the one card
-    over gloo, f32, weights from the seed at std 1/sqrt(fan-in); the
-    one-process reference on the card first (the gradient of the first
+    """(b): gemma3-1b cut to 6 layers on a 2x2 grid, four processes on the
+    one card over gloo, f32, weights from the seed at std 1/sqrt(fan-in);
+    the one-process reference on the card first (the gradient of the first
     batch, the parameters after step 1 and each step's metrics, to the
     host), the state checkpointed once and restored by every rank.
     Returns the ranks' launches summed."""
@@ -5217,7 +5256,7 @@ def train_mesh_2x2(torch, dev, seed):
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.sharding import local_block
     spec = TRAIN_MESH["b"]
-    cfg = registry.get_config(spec["arch"])
+    cfg = slots_config(spec)
     (d, m), (b, s), n = spec["grid"], (spec["batch"], spec["seq"]), \
         spec["steps"]
     dtype = getattr(torch, spec["dtype"])
@@ -5302,7 +5341,9 @@ def train_mesh_2x2(torch, dev, seed):
     if any(counts.values()):
         fail(f"phase 15 (b): kernels launched in training: {counts}")
     r0 = ranks[0]
-    say(f"  (b) {cfg.name} uncut on a {d}x{m} grid: {d * m} processes "
+    say(f"  (b) {cfg.name}, {cfg.n_layers} of "
+        f"{registry.get_config(cfg.name).n_layers} layers, on a {d}x{m} "
+        f"grid: {d * m} processes "
         f"sharing the one card over {r0['backend']} (host-staged "
         f"collectives: times of ranks sharing one card, not of a grid); "
         f"f32, fan-in weights from the seed, batch {b} x {s} ({b // d} rows "
@@ -5896,6 +5937,221 @@ def phase_times(torch, data, model, main_counts, errs, dist_state,
     return entries
 
 
+# phase 17: the port's examples (examples/torch_*.py) on the card.  The
+# in-process three must launch these (B1, B2, B3, the readout, B5); the
+# other two start their launchers in processes of their own.
+EXAMPLES_KERNELS = ("featurize", "bin_fused_matvec", "bin_scatter_blocked",
+                    "bin_readout", "bin_scatter")
+EXAMPLES_TIMEOUT_S = 300.0
+# torch_distributed_krr.py's test RMSE on 8 gloo ranks on the CPU
+# (``--device cpu``), and how far the card's one NCCL rank may read from
+# it: the same data and instances, so only the sums' order differs, and
+# both print 1.0697 at the launcher's 4 decimals.  The CG runs a fixed 40
+# iterations: its residual must be below pcg_solve's tolerance, 1e-6
+# (relative there; here absolute, tighter for labels of std 1).
+DISTRIBUTED_KRR_CPU_RMSE = 1.0697
+DISTRIBUTED_KRR_RMSE_TOL = 5e-4
+DISTRIBUTED_KRR_RESID_TOL = 1e-6
+# a shorter schedule than torch_train_lm.py's own (200 steps, a checkpoint
+# every 25, failures at steps 60 and 130): at 200 steps the phase took
+# 69.4 s on an H100, past its 60 s
+TRAIN_LM_ARGS = ("--steps", "60", "--ckpt-every", "10", "--fail-at", "25",
+                 "45")
+
+
+def _example(stem: str):
+    """``examples/<stem>.py`` as a module (``examples/`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{stem}", REPO / "examples" / f"{stem}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_in_process(stem: str, argv: list) -> tuple[str, float]:
+    """``main(argv)`` of an example in this process: (its output, wall
+    s).  Its output is printed indented; a non-zero exit or a failed assert
+    fails the run."""
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = _example(stem).main(argv)
+    except AssertionError as exc:
+        fail(f"{stem}: assertion failed: {exc}")
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        say(f"    | {line}")
+    if rc != 0:
+        fail(f"{stem} exited {rc}")
+    return out, wall
+
+
+def example_process(stem: str, argv: list) -> dict:
+    """``python examples/<stem>.py argv`` from the repository's root, as a
+    user runs it (in the environment the example gives its own launcher:
+    this one, ``src`` on the path), in a session
+    of its own (``stop_example`` ends it and the launcher it starts), its
+    output collected by a thread that notes when it ends."""
+    import threading
+    run = dict(proc=subprocess.Popen(
+        [sys.executable, str(Path("examples") / f"{stem}.py"), *argv],
+        cwd=REPO, env=_example(stem).child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT,
+        text=True, start_new_session=True), t0=time.perf_counter())
+
+    def collect():
+        run["out"] = run["proc"].communicate()[0]
+        run["t1"] = time.perf_counter()
+    run["reader"] = threading.Thread(target=collect, daemon=True)
+    run["reader"].start()
+    return run
+
+
+def stop_example(run: dict) -> None:
+    """End an ``example_process`` run's session if it is still going:
+    SIGTERM first (``torch.distributed.run`` passes it on to its ranks,
+    which run in sessions of their own), SIGKILL after 10 s."""
+    import os
+    import signal
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        if run["proc"].poll() is not None:
+            break
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(run["proc"].pid, sig)
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            run["proc"].wait(10)
+    run["reader"].join(10)
+
+
+def example_finished(stem: str, run: dict) -> tuple[str, float]:
+    """The output and wall s of ``example_process``'s run; it must exit 0
+    within ``EXAMPLES_TIMEOUT_S`` of its start."""
+    run["reader"].join(max(0.0, run["t0"] + EXAMPLES_TIMEOUT_S
+                           - time.perf_counter()))
+    if run["reader"].is_alive():
+        stop_example(run)
+        fail(f"{stem} still running after {EXAMPLES_TIMEOUT_S:.0f} s")
+    out = run["out"]
+    for line in out.strip().splitlines()[-8:]:
+        say(f"    | {line}")
+    if run["proc"].returncode != 0:
+        fail(f"{stem} exited {run['proc'].returncode}")
+    return out, run["t1"] - run["t0"]
+
+
+def _number(pattern: str, text: str, what: str) -> tuple:
+    import re
+    m = re.search(pattern, text)
+    if m is None:
+        fail(f"{what}: no line matching {pattern!r}")
+    return m.groups()
+
+
+def phase_examples(torch):
+    """17. The examples on the card (see the module docstring): the launch
+    counts of the in-process three, reset before and read after."""
+    card = card_line()
+    say(f"== phase 17: the examples on the card ({card})")
+    # the two launchers start first: their processes take seconds to reach
+    # the card, and run beside the in-process examples
+    runs = (example_process("torch_distributed_krr", ["--device", "cuda"]),
+            example_process("torch_train_lm",
+                            ["--device", "cuda", *TRAIN_LM_ARGS]))
+    try:
+        counts = examples_in_process(card)
+        examples_as_processes(card, *runs)
+    finally:
+        for run in runs:
+            stop_example(run)
+    return counts
+
+
+def examples_in_process(card: str) -> dict:
+    """Phase 17's quickstart, gp_smoothness and serve_decode through their
+    ``main(argv)``: their numbers checked, the kernels' launches."""
+    import tempfile
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        say("  torch_quickstart.py --precond nystrom --num-rhs 9 --export")
+        out, wall = example_in_process("torch_quickstart", [
+            "--device", "cuda", "--precond", "nystrom", "--num-rhs", "9",
+            "--export", tmp + "/artifact"])
+    exact, = _number(r"exact KRR : rmse=([\d.]+)", out, "quickstart")
+    wlsh, iters = _number(r"WLSH KRR  : rmse=([\d.]+).* (\d+) iters", out,
+                          "quickstart")
+    trip, = _number(r"serving    : (round-trip \S+)", out, "quickstart")
+    say(f"  quickstart: {wall:.2f} s; exact RMSE {exact}, WLSH RMSE "
+        f"{wlsh} ({iters} PCG iterations), {trip} ({card})")
+    say("  torch_gp_smoothness.py")
+    out, wall = example_in_process("torch_gp_smoothness",
+                                   ["--device", "cuda"])
+    rect, rect_ell = _number(
+        r"rect .* test RMSE = ([\d.]+)  \(ell\*=(\S+)\)", out,
+        "gp_smoothness")
+    smooth, smooth_ell = _number(
+        r"smooth .* test RMSE = ([\d.]+)  \(ell\*=(\S+)\)", out,
+        "gp_smoothness")
+    say(f"  gp_smoothness: {wall:.2f} s; rect RMSE {rect} (ell "
+        f"{rect_ell}), smooth RMSE {smooth} (ell {smooth_ell}) ({card})")
+    if not float(smooth) < float(rect):
+        fail(f"gp_smoothness: the smooth bucket's RMSE {smooth} is not "
+             f"below rect's {rect}")
+    say("  torch_serve_decode.py")
+    out, wall = example_in_process("torch_serve_decode",
+                                   ["--device", "cuda"])
+    err, top = _number(r"max \|batched - direct\| = (\S+) \(max \|pred\| "
+                       r"(\S+)\)", out, "serve_decode")
+    qps, = _number(r"-> (\d+) QPS", out, "serve_decode")
+    say(f"  serve_decode: {wall:.2f} s; {qps} QPS, max |batched - direct| "
+        f"{err} of max |pred| {top} ({card})")
+    if not float(err) <= 1e-6 * float(top):
+        fail(f"serve_decode: batched answers {err} from the direct path")
+    counts = launch_counts()
+    say(f"  launches of the three: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    missing = [k for k in EXAMPLES_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"kernels not launched by the examples: {missing}")
+    return counts
+
+
+def examples_as_processes(card: str, krr: dict, lm: dict) -> None:
+    """Phase 17's distributed_krr and train_lm, started by
+    ``example_process``: each must exit 0 with its numbers right."""
+    say("  torch_distributed_krr.py (one NCCL rank)")
+    out, wall = example_finished("torch_distributed_krr", krr)
+    ranks, resid, rmse = _number(
+        r"on (\d+) rank\(s\).*CG residual (\S+); test RMSE ([\d.]+)", out,
+        "distributed_krr")
+    say(f"  distributed_krr: {wall:.2f} s; {ranks} rank, CG residual "
+        f"{resid} (limit {DISTRIBUTED_KRR_RESID_TOL:g}), test RMSE {rmse} "
+        f"against {DISTRIBUTED_KRR_CPU_RMSE} on 8 gloo ranks on the CPU "
+        f"(limit {DISTRIBUTED_KRR_RMSE_TOL:g}) ({card})")
+    if int(ranks) != 1:
+        fail(f"distributed_krr: {ranks} ranks, not one")
+    if not float(resid) <= DISTRIBUTED_KRR_RESID_TOL:
+        fail(f"distributed_krr: CG residual {resid} not below "
+             f"{DISTRIBUTED_KRR_RESID_TOL:g}")
+    if not abs(float(rmse) - DISTRIBUTED_KRR_CPU_RMSE) <= \
+            DISTRIBUTED_KRR_RMSE_TOL:
+        fail(f"distributed_krr: test RMSE {rmse} against "
+             f"{DISTRIBUTED_KRR_CPU_RMSE} on the CPU")
+    say(f"  torch_train_lm.py {' '.join(TRAIN_LM_ARGS)}".rstrip())
+    out, wall = example_finished("torch_train_lm", lm)
+    steps, first, last, restarts = _number(
+        r"done: (\d+) steps in \S+; loss ([\d.]+) -> ([\d.]+) "
+        r"\(restarts=(\d+)", out, "train_lm")
+    say(f"  train_lm: {wall:.2f} s; {steps} steps, loss {first} -> {last}, "
+        f"{restarts} restarts ({card})")
+    if int(restarts) != 2 or not float(last) < float(first):
+        fail(f"train_lm: {restarts} restarts, loss {first} -> {last}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5962,10 +6218,13 @@ def main(argv=None) -> int:
         mesh = timed("13", phase_mesh, torch, dev, seed)
         slot_grids = timed("14", phase_slot_grids, torch, dev, seed)
         mesh_train = timed("15", phase_train_mesh, torch, dev, seed)
+        examples = timed("17", phase_examples, torch)
         entries = timed("5", phase_times, torch, data, model, counts, errs,
                         dist_state, lm_counts, serving, tables, sharded,
                         train_counts, slots, mesh, slot_grids, mesh_train,
                         seed)
+        for entry in entries:
+            entry["examples_launches"] = examples.get(entry["name"], 0)
         timed("16", phase_dryrun, torch, dev, data, seed, sweep)
     say("phase walls s: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in walls.items()))

@@ -55,6 +55,7 @@ from collections import Counter
 from dataclasses import dataclass, field
 
 import torch
+from torch.autograd.graph import get_gradient_edge
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -470,31 +471,108 @@ class _Scaled:
         self.tracer.scale = self.outer
 
 
+def _in_checkpoint_forward() -> bool:
+    """Whether the tensors that ops save for the backward now go to a
+    non-reentrant ``torch.utils.checkpoint``'s forward, which keeps none of
+    them (its recompute in the backward keeps them)."""
+    top = torch._C._autograd._top_saved_tensors_default_hooks(False)
+    return top is not None and getattr(top[0], "__qualname__", "") \
+        .startswith("_checkpoint_hook.")
+
+
+class _Held:
+    """Bytes that a trace holds for the plain loop's other steps: live from
+    now until ``release`` (or until nothing refers to it)."""
+
+    def __init__(self, trace: Trace, nbytes: int):
+        self.trace, self.nbytes = trace, nbytes
+        trace.live_bytes += nbytes
+        trace.peak_bytes = max(trace.peak_bytes, trace.live_bytes)
+
+    def shrink(self, nbytes: int) -> None:
+        nbytes = min(nbytes, self.nbytes)
+        self.trace.live_bytes -= nbytes
+        self.nbytes -= nbytes
+
+    def release(self, added: torch.Tensor | None = None) -> None:
+        """Taken off; ``added``: after the sum of it and a tensor of its
+        size into a new one."""
+        tr = self.trace
+        if added is not None:
+            tr.peak_bytes = max(tr.peak_bytes,
+                                tr.live_bytes + _nbytes(added))
+        self.shrink(self.nbytes)
+
+    __del__ = release
+
+
+def _same(t):
+    return t
+
+
+def _step(tracer, body, n_xs, flags, carry, inputs):
+    """Step 0 of the loop on leaves of ``carry`` and ``inputs`` (each needing
+    its gradient as ``flags`` say), with autograd recording: (leaves,
+    outputs, the bytes the step keeps for the backward, the part of them
+    that the step allocated).  What it keeps is the storages of the tensors
+    its ops save, but the whole inputs' (a step saves a slice of them, which
+    each step shares) and its outputs' (a carry out is the next step's carry
+    in); where the body is a checkpoint, that is its inputs."""
+    leaves = [t.detach().requires_grad_(f)
+              for t, f in zip((carry,) + tuple(inputs), flags)]
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved.setdefault(st._cdata, st.nbytes())
+        # detached (an op of no count): a saved output that kept its
+        # grad_fn would make a cycle through the graph that nothing frees
+        with _KernelCall(tracer):
+            return t.detach()
+    # the hooks keep the step's graph whole under an enclosing checkpoint,
+    # whose own hooks would drop the tensors that its backward needs
+    with torch.enable_grad(), \
+            torch.autograd.graph.saved_tensors_hooks(pack, _same):
+        outs = tuple(body(leaves[0], *(x[0] for x in leaves[1:1 + n_xs]),
+                          *leaves[1 + n_xs:]))
+    for t in leaves[1:] + list(outs):
+        saved.pop(t.untyped_storage()._cdata, None)
+    keep = sum(saved.values())
+    return leaves, outs, keep, \
+        keep - saved.get(leaves[0].untyped_storage()._cdata, 0)
+
+
 class _ScaledBody(torch.autograd.Function):
     """Step 0 of a scaled loop where autograd records: its forward and, in
     the backward pass, its gradient, each counted ``n`` times.  It takes
     the whole per-step inputs ``xs`` (the step's slices are taken inside,
     as each step of the plain loop takes its own); ``n_xs`` of them are
-    sliced, the rest (``consts``) passed whole."""
+    sliced, the rest (``consts``) passed whole.
+
+    The peak holds what the plain loop keeps for the backward.  The forward
+    drops the step's graph and holds n steps' kept bytes (``_step``; step
+    0's carry in is live already), as the plain loop keeps every step's
+    saved tensors until the backward has passed it; under a checkpoint's
+    forward it holds none, as the plain loop's ops keep none there.  The
+    backward runs the step again (counted for the peak only: its forward
+    was counted where it ran, or where a checkpoint recomputed it) and
+    holds the other n - 1 steps' bytes while it differentiates it."""
 
     @staticmethod
     def forward(ctx, tracer, n, body, n_xs, carry, *inputs):
         ctx.set_materialize_grads(False)
-        with torch.enable_grad(), \
-                torch.autograd.graph.saved_tensors_hooks(lambda t: t,
-                                                         lambda t: t):
-            leaves = [t.detach().requires_grad_(t.requires_grad)
-                      for t in (carry,) + inputs]
-            # every step past the first gets a carry that needs its
-            # gradient where a step's inputs need theirs
-            leaves[0].requires_grad_(any(t.requires_grad for t in leaves))
-            with _Scaled(tracer, n):
-                outs = tuple(body(leaves[0], *(x[0] for x in
-                                               leaves[1:1 + n_xs]),
-                                  *leaves[1 + n_xs:]))
-        ctx.tracer, ctx.n, ctx.n_xs = tracer, n, n_xs
+        # every step past the first gets a carry that needs its gradient
+        # where a step's inputs need theirs
+        flags = [t.requires_grad for t in (carry,) + inputs]
+        flags[0] = any(flags)
+        with _Scaled(tracer, n):
+            _, outs, keep, fresh = _step(tracer, body, n_xs, flags, carry,
+                                          inputs)
+        ctx.tracer, ctx.n, ctx.n_xs, ctx.body = tracer, n, n_xs, body
+        ctx.flags, ctx.keep = flags, keep
         ctx.carry_grad = carry.requires_grad
-        ctx.leaves, ctx.outs = leaves, outs
+        ctx.held = _Held(tracer.trace, 0 if _in_checkpoint_forward() else
+                         (n - 1) * keep + fresh)
         # saved as autograd saves a function's inputs, so that a checkpoint
         # around the loop recomputes it in the backward as it would the
         # plain loop
@@ -503,33 +581,57 @@ class _ScaledBody(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        ctx.saved_tensors                   # a checkpoint recomputes here
+        saved = ctx.saved_tensors           # a checkpoint recomputes here
+        tracer, n = ctx.tracer, ctx.n
+        ctx.held.release()
+        tracer.quiet += 1
+        try:
+            leaves, outs, _, _ = _step(tracer, ctx.body, ctx.n_xs, ctx.flags,
+                                       saved[0], saved[1:])
+        finally:
+            tracer.quiet -= 1
+        held = _Held(tracer.trace, (n - 1) * ctx.keep)
         # a step in the loop's middle gets its carry's gradient from the
         # next step: stand in for it (uninitialized: it is meta) where the
         # loop's final carry has none
-        carry = ctx.outs[0]
-        grads = ((torch.empty_like(carry) if grads[0] is None
-                  and carry.requires_grad else grads[0]),) + grads[1:]
-        pairs = [(o, g) for o, g in zip(ctx.outs, grads)
+        grads = ((torch.empty_like(outs[0]) if grads[0] is None
+                  and outs[0].requires_grad else grads[0]),) + grads[1:]
+        # differentiated from their graph edges: the plain loop's backward
+        # holds no step's outputs
+        pairs = [(get_gradient_edge(o), g) for o, g in zip(outs, grads)
                  if g is not None and o.requires_grad]
-        want = [t for t in ctx.leaves if t.requires_grad]
+        del outs
+        want = [t for t in leaves if t.requires_grad]
+        sliced = leaves[1:1 + ctx.n_xs]
         got = [None] * len(want)
         if pairs and want:
-            with _Scaled(ctx.tracer, ctx.n):
+            # the plain loop's later steps' gradients of each sliced input,
+            # summed into one tensor of its size, live while the earlier
+            # steps run their backward; its peak is then at step n - 2,
+            # with the last step's kept bytes freed.  Step 0's gradient of
+            # the input takes the sum's place when it comes, and the
+            # engine's add of the two makes a third tensor of the size
+            sums = [(_Held(tracer.trace, _nbytes(x)), x)
+                    for x in sliced if x.requires_grad]
+            held.shrink(min(ctx.keep, sum(h.nbytes for h, _ in sums)))
+            hooks = [x.register_hook(lambda g, h=h: h.release(added=g))
+                     for h, x in sums]
+            with _Scaled(tracer, n):
                 got = torch.autograd.grad([o for o, _ in pairs], want,
                                           [g for _, g in pairs],
                                           allow_unused=True)
+            for (h, _), hook in zip(sums, hooks):
+                h.release()
+                hook.remove()
             # the engine adds the n steps' gradients of each sliced input
             # into one, n - 1 adds of it (operands and result)
-            tr = ctx.tracer
             for t, g in zip(want, got):
-                if g is not None and any(t is x for x in
-                                         ctx.leaves[1:1 + ctx.n_xs]):
-                    tr.trace.hbm_bytes += tr.scale * (ctx.n - 1) * 3 * \
+                if g is not None and any(t is x for x in sliced):
+                    tracer.trace.hbm_bytes += tracer.scale * (n - 1) * 3 * \
                         _nbytes(g)
+        held.release()
         it = iter(got)
-        out = tuple(next(it) if t.requires_grad else None
-                    for t in ctx.leaves)
+        out = tuple(next(it) if t.requires_grad else None for t in leaves)
         return (None, None, None, None,
                 out[0] if ctx.carry_grad else None) + out[1:]
 
@@ -543,8 +645,8 @@ def repeat(n: int, body, carry, *xs, consts: tuple = ()):
     ``n``, and y_1 ... y_{n-1} are uninitialized tensors of y_0's shape, so
     what the caller does with the list (a ``stack``) counts as on the
     plain loop.  Where autograd records, the step's backward is scaled
-    too; the peak then holds what one step keeps for the backward, where
-    the plain loop keeps each step's."""
+    too, and the peak holds what the plain loop's steps keep for the
+    backward (``_ScaledBody``)."""
     tracer = active()
     if tracer is None or n <= 1 or not carry.is_meta:
         ys = []

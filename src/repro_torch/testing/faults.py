@@ -26,6 +26,8 @@
                 ``nan_piece`` writes NaN, ``mixed_generation_publish``
                 leaves it from the previous export.
 * canary readout — ``canary_poison`` perturbs canary predictions only.
+* solver      — ``poison_matvec`` makes one column of a matvec's output
+                NaN (PCG's deactivation sentinel).
 
 Host-side faults raise ``repro_torch.errors.FaultInjected``, so tests can
 tell an injected fault from a genuine bug.
@@ -298,3 +300,20 @@ def crash_supervised_workers(sup, crashes: int = 1,
 
     sup._worker_fault_hook = hook
     sup._mb._fault_hook = hook     # the current worker too
+
+
+def poison_matvec(matvec, column: int = 0):
+    """Wrap a (n,)/(n, k) matvec so ``column`` of its output is NaN — the
+    single-host analogue of a poisoned wire cell.  ``pcg_solve`` must
+    deactivate that column (NaN resnorm sentinel) while the others converge
+    untouched."""
+
+    def wrapped(v):
+        out = matvec(v)
+        if out.ndim == 1:
+            return out + float("nan") if column == 0 else out
+        out = out.clone()
+        out[:, column] = float("nan")
+        return out
+
+    return wrapped

@@ -45,7 +45,15 @@ def test_port_imports_without_jax_or_reference_package():
 
 
 def test_port_sources_name_no_jax_import():
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    """Every file of the port, the package and what runs it on the card
+    (``chip_smoke.py``, ``tools/``, the ``examples/torch_*.py``), names no
+    import of JAX or of the JAX package."""
+    root = SRC.parent
+    paths = [*(SRC / "repro_torch").rglob("*.py"), root / "chip_smoke.py",
+             *(root / "tools").glob("*.py"),
+             *(root / "examples").glob("torch_*.py")]
+    assert len(list((root / "examples").glob("torch_*.py"))) == 5
+    for path in paths:
         text = path.read_text()
         for bad in ("import jax", "from jax", "import repro.", "from repro.",
                     "from repro import"):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """``chip_smoke.py`` phase 15 alone (the LM train step on grids of ranks:
-gemma3-1b uncut on a 1x1 NCCL grid, then on a 2x2 grid of four processes
-sharing the card over gloo, each against the one-process train step on the
-card) on one NVIDIA card: the quick loop for work on the grid's training
+gemma3-1b uncut on a 1x1 NCCL grid, then cut to 6 of its 26 layers on a
+2x2 grid of four processes sharing the card over gloo, each against the
+one-process train step on the card) on one NVIDIA card: the quick loop for work on the grid's training
 path (``models/sharded.py``'s ``loss_fn``, ``launch/steps.py``).  No kernel
 runs on this path, so nothing is built.
 
