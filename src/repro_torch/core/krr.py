@@ -5,17 +5,23 @@
   column and converged columns are deflated.  A column whose step goes
   non-finite is deactivated before the bad update lands (resnorm NaN).  The
   loop runs on the host: its ``any(active)`` test syncs once per iteration.
+  Two obs timers split an iteration's host time: ``pcg.issue`` (issuing
+  its work, no sync) and ``pcg.wait`` (the convergence test, blocked until
+  the device has finished the work before it).
 * ``cg_solve`` — the unpreconditioned single-RHS entry point over
   ``pcg_solve``, with its scalar ``CGResult``.
 * ``exact_krr_fit`` / ``exact_krr_predict`` — the dense baseline.
 * ``wlsh_krr_fit`` / ``wlsh_krr_predict`` — the paper's §4.2 algorithm:
   solve (K~ + lam I) beta = y with PCG (on the CountSketch or the exact
-  estimator), predict via bucket loads.
+  estimator), predict via bucket loads.  A fit's phases are the obs spans
+  ``fit.featurize``, ``fit.layout``, ``fit.pcg`` and ``fit.tables``; a
+  predict call is the span ``predict``.
 
 Everything runs through ``core.operator.WLSHOperator`` on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from typing import Callable, NamedTuple
@@ -23,6 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..backend import as_tensor, resolve_device
 from ..errors import NonFiniteError, SolveDivergedError
 from .bucket_fns import get_bucket_fn
@@ -33,6 +40,9 @@ from .precond import (DEFAULT_NYSTROM_RANK, Preconditioner, identity_precond,
                       make_preconditioner, table_diag)
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
+
+_ISSUE = obs.timer("pcg.issue")   # one iteration's host issue
+_WAIT = obs.timer("pcg.wait")     # one convergence test (the loop's sync)
 
 
 class CGResult(NamedTuple):
@@ -164,15 +174,19 @@ def pcg_solve(matvec: MatVec, b: torch.Tensor, lam: float, *,
         p = torch.where(active[None, :], z + beta[None, :] * p, 0.0)
         return SolveState(x, r, p, rs, rho_new, active, it + 1, col_iters)
 
+    def live(st: SolveState) -> bool:
+        with _WAIT():
+            return bool(st.active.any())
+
     while True:
         steps = 0
-        while steps < chunk and state.it < maxiter and \
-                bool(state.active.any()):
-            state = step(state)
+        while steps < chunk and state.it < maxiter and live(state):
+            with _ISSUE():
+                state = step(state)
             steps += 1
         if on_checkpoint is not None:
             on_checkpoint(state)
-        if state.it >= maxiter or not bool(state.active.any()):
+        if state.it >= maxiter or not live(state):
             break
     return PCGResult(x=state.x[:, 0] if vec else state.x, iters=state.it,
                      col_iters=state.col_iters, resnorm=torch.sqrt(state.rs),
@@ -225,8 +239,11 @@ class WLSHKRRModel(NamedTuple):
     cg_col_iters: torch.Tensor | None = None
     solve_fallback: str = ""
     # host-side solve summary: resnorm_history ((iters+1, k) float32),
-    # col_iters, iters, precond, fallback, and phase_seconds (wall time of
-    # featurize, layout, pcg and tables, each ended by a device sync)
+    # col_iters, iters, precond, fallback, and phase_seconds (the durations
+    # of the spans fit.featurize, .layout, .pcg and .tables, each ended by
+    # a device sync).  phase_seconds is {} while obs tracing is off
+    # (obs.set_tracing(False)): every reader of it must allow for that, as
+    # the benchmark's pcg_ms and layout_ms readers, which index it, do not
     telemetry: dict | None = None
 
 
@@ -240,6 +257,20 @@ def _sync(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
+
+
+@contextlib.contextmanager
+def _phase(name: str, device: torch.device, seconds: dict):
+    """The span ``fit.<name>`` over the block, ended on a device sync so that
+    it holds the device work the block issued; its duration goes to
+    ``seconds[name]``.  With obs tracing off: the bare block, no sync."""
+    if not obs.tracing_enabled():
+        yield
+        return
+    with obs.span(f"fit.{name}") as sp:
+        yield
+        _sync(device)
+    seconds[name] = sp.duration_us * 1e-6
 
 
 def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
@@ -300,58 +331,60 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
     op = make_operator(lsh, get_bucket_fn(spec.bucket.name), table_size,
                        device=dev, fused=fused)
 
-    t0 = _sync(dev)
-    feats = op.featurize(x)
-    t1 = _sync(dev)
-    tidx = op.build_index(feats, blocked=fused and mode == "table")
-    if mode == "exact":
-        eidx = op.build_index(feats, mode="exact")
-        mv = lambda v: op.matvec(eidx, v)
-        diag = (eidx.weight * eidx.weight).mean(0)
-    else:
-        mv = lambda v: op.matvec(tidx, v)
-        diag = table_diag(tidx.coeff)
-    del feats
-    t2 = _sync(dev)
-    pre = make_preconditioner(precond, matvec=mv, diag=diag, lam=lam,
-                              rank=precond_rank)
-    state = None
-    every = int(solve_checkpoint_every)
-    on_ck = on_solve_checkpoint if every > 0 else None
-    if solve_checkpoint_dir:
-        from ..checkpoint.store import CheckpointManager
-        if every <= 0:
-            every = max(1, maxiter // 10)
-        mgr = CheckpointManager(solve_checkpoint_dir, keep=2)
-        state = load_solve_state(solve_checkpoint_dir, y)
+    seconds: dict = {}
+    if obs.tracing_enabled():
+        _sync(dev)          # the first span holds none of the work before it
+    with _phase("featurize", dev, seconds):
+        feats = op.featurize(x)
+    with _phase("layout", dev, seconds):
+        tidx = op.build_index(feats, blocked=fused and mode == "table")
+        if mode == "exact":
+            eidx = op.build_index(feats, mode="exact")
+            mv = lambda v: op.matvec(eidx, v)
+            diag = (eidx.weight * eidx.weight).mean(0)
+        else:
+            mv = lambda v: op.matvec(tidx, v)
+            diag = table_diag(tidx.coeff)
+        del feats
+    with _phase("pcg", dev, seconds):
+        pre = make_preconditioner(precond, matvec=mv, diag=diag, lam=lam,
+                                  rank=precond_rank)
+        state = None
+        every = int(solve_checkpoint_every)
+        on_ck = on_solve_checkpoint if every > 0 else None
+        if solve_checkpoint_dir:
+            from ..checkpoint.store import CheckpointManager
+            if every <= 0:
+                every = max(1, maxiter // 10)
+            mgr = CheckpointManager(solve_checkpoint_dir, keep=2)
+            state = load_solve_state(solve_checkpoint_dir, y)
 
-        def on_ck(st):
-            # persist first, then call the hook: a preemption the hook
-            # injects leaves this chunk's state on disk
-            mgr.save(int(st.it), _stored_solve_state(st), blocking=True)
-            if on_solve_checkpoint is not None:
-                on_solve_checkpoint(st)
+            def on_ck(st):
+                # persist first, then call the hook: a preemption the hook
+                # injects leaves this chunk's state on disk
+                mgr.save(int(st.it), _stored_solve_state(st), blocking=True)
+                if on_solve_checkpoint is not None:
+                    on_solve_checkpoint(st)
 
-    res = pcg_solve(mv, y, lam, precond=pre, tol=tol, atol=atol,
-                    maxiter=maxiter, state=state, checkpoint_every=every,
-                    on_checkpoint=on_ck)
-    fallback = ""
-    if precond not in ("none", None) and \
-            not bool(torch.isfinite(res.resnorm).all()):
-        warnings.warn(f"PCG with precond={precond!r} went non-finite; "
-                      f"restarting once with the identity preconditioner",
-                      RuntimeWarning, stacklevel=2)
-        fallback = f"precond:{precond}->identity"
-        res = pcg_solve(mv, y, lam, precond=None, tol=tol, atol=atol,
-                        maxiter=maxiter)
-    if not bool(torch.isfinite(res.x).all()):
-        raise SolveDivergedError(
-            "PCG iterates are non-finite after all fallbacks",
-            resnorm=res.resnorm.cpu().numpy(),
-            fallbacks=(fallback,) if fallback else ())
-    t3 = _sync(dev)
-    tables = op.loads(tidx, res.x)
-    t4 = _sync(dev)
+        res = pcg_solve(mv, y, lam, precond=pre, tol=tol, atol=atol,
+                        maxiter=maxiter, state=state, checkpoint_every=every,
+                        on_checkpoint=on_ck)
+        fallback = ""
+        if precond not in ("none", None) and \
+                not bool(torch.isfinite(res.resnorm).all()):
+            warnings.warn(f"PCG with precond={precond!r} went non-finite; "
+                          f"restarting once with the identity "
+                          f"preconditioner", RuntimeWarning, stacklevel=2)
+            fallback = f"precond:{precond}->identity"
+            res = pcg_solve(mv, y, lam, precond=None, tol=tol, atol=atol,
+                            maxiter=maxiter)
+        if not bool(torch.isfinite(res.x).all()):
+            raise SolveDivergedError(
+                "PCG iterates are non-finite after all fallbacks",
+                resnorm=res.resnorm.cpu().numpy(),
+                fallbacks=(fallback,) if fallback else ())
+    with _phase("tables", dev, seconds):
+        tables = op.loads(tidx, res.x)
     squeeze = y.ndim == 1
     telemetry = {
         "resnorm_history": res.resnorm_history[: res.iters + 1]
@@ -360,8 +393,7 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
         "iters": int(res.iters),
         "precond": precond,
         "fallback": fallback,
-        "phase_seconds": {"featurize": t1 - t0, "layout": t2 - t1,
-                          "pcg": t3 - t2, "tables": t4 - t3},
+        "phase_seconds": seconds,
     }
     return WLSHKRRModel(lsh=op.lsh, bucket_name=spec.bucket.name, beta=res.x,
                         tables=tables, table_size=int(table_size),
@@ -376,6 +408,10 @@ def wlsh_krr_fit(lsh: LSHParams, x, y, spec: WLSHKernelSpec, *, lam: float,
 def wlsh_krr_predict(model: WLSHKRRModel, x_test, *,
                      batch_size: int | None = None) -> torch.Tensor:
     """Predict at x_test from the model's tables, streaming blocks of
-    ``batch_size`` points; a (n, k) fit predicts (n_test, k)."""
-    op = model_operator(model)
-    return op.predict_batched(model.tables, x_test, batch_size=batch_size)
+    ``batch_size`` points; a (n, k) fit predicts (n_test, k).  The span
+    ``predict`` holds the call's host time, up to its return (the device
+    may still be working)."""
+    with obs.span("predict"):
+        op = model_operator(model)
+        return op.predict_batched(model.tables, x_test,
+                                  batch_size=batch_size)

@@ -18,6 +18,10 @@ each primitive runs the CUDA kernels on the card and their plain versions on
 the CPU (see backend.py).  ``fused=False`` keeps the split matvec, and
 gives a layout built by ``build_index`` the split kernels' geometry: the
 distributed psum step's operator on a sharded data axis.
+
+Two obs timers hold the host's time in the hot primitives: ``op.matvec``
+(one matvec's issue) and ``predict.block`` (one block of
+``predict_batched``: featurize, index, readout).
 """
 from __future__ import annotations
 
@@ -25,12 +29,16 @@ from typing import NamedTuple
 
 import torch
 
+from .. import obs
 from ..backend import as_tensor, resolve_device
 from .bucket_fns import BucketFn
 from .lsh import Features, LSHParams
 from .wlsh import (BLOCKED_N, BLOCKED_SPLIT_N, BLOCKED_SPLIT_T, BLOCKED_T,
                    ExactIndex, TableIndex, build_blocked_layout,
                    build_exact_index, build_table_index, exact_matvec)
+
+_MATVEC = obs.timer("op.matvec")
+_BLOCK = obs.timer("predict.block")
 
 
 def default_table_size(n: int, *, min_pow: int = 8) -> int:
@@ -100,15 +108,16 @@ class WLSHOperator(NamedTuple):
         has the layout's kernel group, else loads then readout.  An
         ``ExactIndex`` runs the exact estimator (``average`` only)."""
         from ..kernels.binning import bin_fused_matvec_op, table_matvec_op
-        if isinstance(index, ExactIndex):
-            if not average:
-                raise ValueError("exact-mode matvec only supports "
-                                 "average=True")
-            return exact_matvec(index, beta)
-        lay = index.blocked
-        if self.fused and lay is not None and lay.blk_start is not None:
-            return bin_fused_matvec_op(index, beta, average=average)
-        return table_matvec_op(index, beta, average=average)
+        with _MATVEC():
+            if isinstance(index, ExactIndex):
+                if not average:
+                    raise ValueError("exact-mode matvec only supports "
+                                     "average=True")
+                return exact_matvec(index, beta)
+            lay = index.blocked
+            if self.fused and lay is not None and lay.blk_start is not None:
+                return bin_fused_matvec_op(index, beta, average=average)
+            return table_matvec_op(index, beta, average=average)
 
     def featurize_buckets(self, x) -> TableIndex:
         """Query half of prediction: the readout-only index of x."""
@@ -122,16 +131,20 @@ class WLSHOperator(NamedTuple):
     def predict_batched(self, tables: torch.Tensor, x_test, *,
                         batch_size: int | None = None) -> torch.Tensor:
         """Predictions at x_test from the tables, in blocks of
-        ``batch_size`` points (peak memory O(batch_size * m))."""
+        ``batch_size`` points (peak memory O(batch_size * m)); one
+        ``predict.block`` sample a block (the whole of x_test is one)."""
         x_test = as_tensor(x_test, self.device)
         n = x_test.shape[0]
         if batch_size is None or batch_size >= n:
-            return self.predict_from_buckets(self.featurize_buckets(x_test),
-                                             tables)
-        return torch.cat([
-            self.predict_from_buckets(
-                self.featurize_buckets(x_test[i:i + batch_size]), tables)
-            for i in range(0, n, batch_size)])
+            with _BLOCK():
+                return self.predict_from_buckets(
+                    self.featurize_buckets(x_test), tables)
+        out = []
+        for i in range(0, n, batch_size):
+            with _BLOCK():
+                out.append(self.predict_from_buckets(
+                    self.featurize_buckets(x_test[i:i + batch_size]), tables))
+        return torch.cat(out)
 
 
 def make_operator(lsh: LSHParams, bucket: BucketFn, table_size: int, *,

@@ -11,7 +11,9 @@ profiler).  Instrumented call sites do::
 
 and a process writes everything out with ``obs.REGISTRY.write_jsonl``
 (headless snapshot) or exposes it with ``obs.serve_metrics(port)`` (live
-Prometheus text and ``/healthz``, http.py).
+Prometheus text and ``/healthz``, http.py).  Under any active
+``torch.profiler`` capture each span and timer is also a function-scope
+profiler region of its name on the capture's timeline (tracing.py).
 """
 from .registry import (
     COUNT_BUCKETS,
@@ -32,10 +34,8 @@ from .http import (
     serve_metrics,
 )
 from .tracing import (
-    annotation,
     clear_span_samples,
     current_span,
-    set_annotations,
     set_tracing,
     span,
     span_samples_us,
@@ -43,6 +43,7 @@ from .tracing import (
     start_trace,
     stop_trace,
     timer,
+    tracing_enabled,
 )
 
 __all__ = [
@@ -52,7 +53,6 @@ __all__ = [
     "MetricsServer",
     "REGISTRY",
     "add_health_provider",
-    "annotation",
     "clear_span_samples",
     "counter",
     "current_span",
@@ -62,7 +62,6 @@ __all__ = [
     "histogram",
     "remove_health_provider",
     "serve_metrics",
-    "set_annotations",
     "set_enabled",
     "set_tracing",
     "span",
@@ -71,4 +70,5 @@ __all__ = [
     "start_trace",
     "stop_trace",
     "timer",
+    "tracing_enabled",
 ]

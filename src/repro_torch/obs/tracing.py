@@ -4,10 +4,16 @@
 the host clock, nests (thread-local stack; the name you give is the name
 you query — nesting is carried via ``parent``/``depth`` and attribute
 inheritance rather than path concatenation, so hot-path names stay stable
-dict keys), carries attributes (child spans see their ancestors' attrs merged under
-theirs), and optionally opens a ``torch.profiler.record_function`` region with the
-same name so host spans line up with device timelines in the Chrome
-traces captured via ``start_trace``/``stop_trace``.
+dict keys), and carries attributes (child spans see their ancestors' attrs
+merged under theirs).
+
+Whenever a ``torch.profiler`` capture is active, whoever started it (a
+``torch.profiler.profile`` block, or ``start_trace``), every span and timer
+also opens a profiler region of its own name (torch's function-scope
+``_RecordFunctionFast``, see ``_capture``), so the host's spans share the
+capture's clock with the device's kernels.  The test is torch's own flag
+(``torch.autograd.profiler._is_profiler_enabled``), read without importing
+torch: outside a capture it costs one flag read.
 
 Every finished span appends its duration (microseconds) to a bounded
 per-name sample buffer — that buffer is the single timing source of truth
@@ -19,12 +25,13 @@ Two weights of timed region share the sample buffers: ``span`` (nesting,
 attrs, per-call name resolution — for macro regions like a solve or a
 benchmark iteration) and the pre-bound ``timer`` (flat, buffer + histogram
 resolved once at construction — for per-request serving sites, where the
-metrics-on/off p50 pin holds the budget to <=5%).  With tracing disabled
-(``set_tracing(False)``) both return a shared no-op singleton and the cost
-is one global load + branch.
+metrics-on/off p50 pin holds the budget to <=5%, and the solver's
+per-iteration sites).  With tracing disabled (``set_tracing(False)``) both
+return a shared no-op singleton and the cost is one global load + branch.
 """
 from __future__ import annotations
 
+import sys
 import threading
 from collections import deque
 from time import perf_counter
@@ -32,7 +39,6 @@ from time import perf_counter
 from . import registry as _registry
 
 _TRACING = True          # span timing + sample collection
-_ANNOTATIONS = False  # also open torch.profiler.record_function regions
 
 _SAMPLE_CAP = 4096  # per-name bounded buffer; old samples fall off the left
 
@@ -50,14 +56,38 @@ def set_tracing(flag: bool) -> bool:
     return prev
 
 
-def set_annotations(flag: bool) -> bool:
-    """Also wrap each span in ``torch.profiler.record_function`` (off by
-    default: it costs a C++ call per span and only matters while a
-    profiler trace is being captured).  Returns the previous value."""
-    global _ANNOTATIONS
-    prev = _ANNOTATIONS
-    _ANNOTATIONS = bool(flag)
-    return prev
+def tracing_enabled() -> bool:
+    """Whether spans and timers are timing (see ``set_tracing``)."""
+    return _TRACING
+
+
+# once torch is loaded: the module holding its profiler flag, and the
+# region type (None until then: no capture can be active in a process that
+# has not loaded torch)
+_autograd_profiler = None
+_region = None
+
+
+def _capture():
+    """The profiler region type while a ``torch.profiler`` capture is active
+    in this process, whoever started it; None otherwise.
+
+    The region is torch's function-scope ``_RecordFunctionFast`` (the one
+    compiled code annotates with).  A user-scope ``record_function`` would
+    also have the profiler correlate every kernel launched inside it with
+    the region, which slowed the traced PCG iteration of a 500000-point fit
+    by 14 % on an H100, where the function-scope region cost under 1 %; so
+    there is no fallback to it, and a torch without the function-scope
+    region fails here rather than moving every traced timing."""
+    global _autograd_profiler, _region
+    mod = _autograd_profiler
+    if mod is None:
+        mod = sys.modules.get("torch.autograd.profiler")
+        if mod is None or not hasattr(mod, "_is_profiler_enabled"):
+            return None
+        _region = sys.modules["torch"]._C._profiler._RecordFunctionFast
+        _autograd_profiler = mod
+    return _region if mod._is_profiler_enabled else None
 
 
 def _stack() -> list:
@@ -186,13 +216,10 @@ class Span:
             self.parent = st[-1]
             self.depth = self.parent.depth + 1
         st.append(self)
-        if _ANNOTATIONS:
-            try:
-                import torch.profiler
-                self._prof_ctx = torch.profiler.record_function(self.name)
-                self._prof_ctx.__enter__()
-            except Exception:
-                self._prof_ctx = None
+        region = _capture()
+        if region is not None:
+            self._prof_ctx = region(self.name)
+            self._prof_ctx.__enter__()
         self._t0 = perf_counter()
         return self
 
@@ -200,10 +227,7 @@ class Span:
         us = (perf_counter() - self._t0) * 1e6
         self.duration_us = us
         if self._prof_ctx is not None:
-            try:
-                self._prof_ctx.__exit__(*exc)
-            except Exception:
-                pass
+            self._prof_ctx.__exit__(*exc)
         st = self._st
         if st and st[-1] is self:
             st.pop()
@@ -226,7 +250,7 @@ def span(name: str, attrs: dict | None = None, *, to_histogram=None):
 class _TimedSample:
     """One flat timing region opened by a ``Timer``: records into the
     pre-bound sample buffer + histogram, participates in profiler traces
-    via record_function, but skips the nesting stack and attrs entirely."""
+    as a function-scope region, but skips the nesting stack and attrs entirely."""
 
     __slots__ = ("_name", "_buf", "_hist", "_t0", "_prof")
 
@@ -238,23 +262,17 @@ class _TimedSample:
         self._prof = None
 
     def __enter__(self):
-        if _ANNOTATIONS:
-            try:
-                import torch.profiler
-                self._prof = torch.profiler.record_function(self._name)
-                self._prof.__enter__()
-            except Exception:
-                self._prof = None
+        region = _capture()
+        if region is not None:
+            self._prof = region(self._name)
+            self._prof.__enter__()
         self._t0 = perf_counter()
         return self
 
     def __exit__(self, *exc):
         us = (perf_counter() - self._t0) * 1e6
         if self._prof is not None:
-            try:
-                self._prof.__exit__(*exc)
-            except Exception:
-                pass
+            self._prof.__exit__(*exc)
         self._buf.append(us)
         if self._hist is not None:
             self._hist.observe(us)
@@ -283,30 +301,13 @@ def timer(name: str, *, to_histogram=None) -> Timer:
     call costs two ``perf_counter`` reads, one deque append, one histogram
     observe — roughly half a full ``span``.  The duration lands in the same
     per-name buffer ``span_samples_us``/``span_stats`` read, and the region
-    still gets a record_function region during profiler captures; what it gives up
+    is still a profiler region during captures; what it gives up
     is nesting (never on the thread-local stack) and attrs.  Use ``span``
     for macro regions (a solve, a benchmark iteration), ``timer`` for
     per-request serving sites."""
     with _samples_lock:
         buf = _samples.setdefault(name, deque(maxlen=_SAMPLE_CAP))
     return Timer(name, buf, to_histogram)
-
-
-def annotation(name: str):
-    """A named ``torch.profiler.record_function`` region ONLY while a profiler
-    trace is being captured (``start_trace``); the shared no-op otherwise.
-
-    This is the near-free sibling of ``span`` for inner hot-path regions
-    that already have their duration recorded some other way (a direct
-    histogram observe) and only need a name on the trace timeline —
-    it allocates nothing and records nothing outside a capture."""
-    if not _ANNOTATIONS:
-        return _NOOP
-    try:
-        import torch.profiler
-        return torch.profiler.record_function(name)
-    except Exception:
-        return _NOOP
 
 
 # -- whole-program profiler traces (Chrome trace JSON) -----------------------
@@ -318,9 +319,9 @@ _profiler = None
 def start_trace(trace_dir: str) -> bool:
     """Begin a ``torch.profiler`` capture (CPU, plus CUDA when a card is
     present) that ``stop_trace`` writes to ``trace_dir/trace.json`` (open in
-    Perfetto or chrome://tracing), and turn on per-span
-    ``record_function`` regions so the host spans appear on the timeline.
-    Returns False (and records nothing) if the profiler is unavailable."""
+    Perfetto or chrome://tracing); the host's spans appear on its timeline,
+    as under any capture.  Returns False (and records nothing) if the
+    profiler is unavailable."""
     global _trace_dir, _profiler
     try:
         import torch
@@ -333,7 +334,6 @@ def start_trace(trace_dir: str) -> bool:
     except Exception:
         return False
     _trace_dir, _profiler = trace_dir, prof
-    set_annotations(True)
     _registry.counter(
         "trace_sessions_total", "profiler trace captures started").inc()
     return True
@@ -345,7 +345,6 @@ def stop_trace() -> str | None:
     global _trace_dir, _profiler
     d, prof = _trace_dir, _profiler
     _trace_dir = _profiler = None
-    set_annotations(False)
     if prof is not None:
         try:
             import os
